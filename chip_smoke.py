@@ -16,18 +16,47 @@ Phases, in order; any failure exits non-zero and prints no result:
    the CPU (plain versions) against the card (kernels), same weights;
 5. the main path: ``build_gfe_mamba`` at the canonical (160,160,96) bf16
    configuration serves 3 requests of batch 4; every forward must launch
-   K1 10 times and K2 6 times.
+   K1 10 times and K2 6 times;
+6. the training kernels against their plain versions: K4 (scan
+   backward) at (1|4, 53, 1024|1000, 16) with every flag on and off, K3
+   (conv weight gradient) at the three generator levels (batch 1) and a
+   ragged shape in f32 and bf16 with and without the GN affine, K1 as the
+   input gradient (flipped weights, no GN), and the conv autograd
+   Function against autograd through the plain forward; each timed at
+   the training shapes beside its bound and the cuDNN call that computes
+   the same function (wgrad for K3, dgrad for K1's dz);
+7. training parity: full widths, the reduced volume (64,64,32), f32,
+   dropout off: one Stage-2 and three Stage-1 steps (order gcr with the
+   adversary on, at two seeds; order gce with it off) on the CPU (plain
+   versions) and on the card (kernels) from the same weights; losses and
+   gradients must agree (``check_training_parity`` states each tolerance
+   and why); each gcr step also runs a witness on the card with the plain
+   convs in place of K1 and K3;
+8. Stage 2 at the canonical size: ``ClassifyTrainer`` in bf16, batch 1,
+   1 warm-up step then 3 steps; each must launch K1 10, K2 6 and K4 6
+   times;
+9. Stage 1 at the canonical size: ``GanTrainer`` over the generator,
+   ``PatchDiscriminator(3, 32)`` and ``PerceptualLoss(0.25)`` in bf16,
+   batch 1, ``adv_on=1``, 1 warm-up step then 3 steps; each must launch
+   K1 10 times in the generator's forward (read when it returns) and 10
+   times for the input gradients after it, and K3 10 times.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  K1's ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are per forward of the main path (its 10
-conv calls at batch 4); K2's likewise (its 6 scan calls).
+conv calls at batch 4), its ``dz`` entry per Stage-1 step; K2's per
+forward (its 6 scan calls); K4's per Stage-2 step (6 calls); K3's per
+Stage-1 step (10 calls).  ``launches`` counts each kernel over the run of
+the path it serves: K1 and K2 the 3 requests of phase 5, K4 the 3 steps
+of phase 8, K3 (and K1's ``dz_launches``) the 3 steps of phase 9.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -50,6 +79,10 @@ CONV_LEVELS = (((160, 160, 96), 64, 4), ((80, 80, 48), 128, 4),
                ((40, 40, 24), 256, 2))
 SCAN_SHAPE = (BATCH, 1 + 8 + 40 + 4, 1024, 16)   # (B, L, ED, N)
 SCAN_CALLS = 6
+# training runs at batch 1 (bench.py:205); the Stage-1 generator's 10
+# convs run a backward each (K1 as dz, K3 as dw), the 6 Mamba layers K4
+TRAIN_BATCH = 1
+GRAD_NAMES = ("dx", "ddelta", "dA", "dB", "dC", "dD", "dz", "dbias")
 
 
 def log(*args):
@@ -78,9 +111,11 @@ def time_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def rel_err(got, want) -> tuple[float, float]:
-    diff = (got.float() - want.float()).abs().max().item()
-    return diff, diff / max(1.0, want.float().abs().max().item())
+def rel_err(got, want, floor: float = 1.0) -> tuple[float, float]:
+    """max |got - want|, and that over max(floor, max |want|)."""
+    want = want.detach().to(got.device).float()
+    diff = (got.detach().float() - want).abs().max().item()
+    return diff, diff / max(floor, want.abs().max().item())
 
 
 def conv_inputs(gen, shape, C, F, dtype, residual):
@@ -326,6 +361,520 @@ def serve_canonical(card: str) -> tuple[int, int]:
     return k1.launches, k2.launches
 
 
+def check_k4(gen) -> dict:
+    """K4 against its plain version (every gradient; gate/bias/softplus on
+    and off; batch 1 and 4; a ragged ED), then timed at the Stage-2 shape
+    (batch 1, every flag on)."""
+    from gfe_mamba_torch.ops.cuda import selective_scan as ks
+
+    _, L, ED, N = SCAN_SHAPE
+    worst = 0.0
+    for bsz, ed in ((TRAIN_BATCH, ED), (BATCH, ED), (TRAIN_BATCH, 1000)):
+        x, d, A, B, C, D, z, bias = scan_inputs(gen, bsz, L, ed, N)
+        g = torch.randn(bsz, L, ed, generator=gen, device="cuda")
+        for gate, with_bias, softplus in ((True, True, True),
+                                          (False, False, True),
+                                          (True, False, False)):
+            args = (x, d if softplus else d.abs(), A, B, C, D,
+                    z if gate else None, bias if with_bias else None, g,
+                    softplus)
+            got = ks.selective_scan_bwd_cuda(*args)
+            want = ks.selective_scan_bwd_plain(*args)
+            torch.cuda.synchronize()
+            errs = {n: rel_err(a, b) for n, a, b in zip(GRAD_NAMES, got, want)
+                    if b is not None}
+            err = max(e for e, _ in errs.values())
+            rel = max(r for _, r in errs.values())
+            log(f"K4 check ({bsz},{L},{ed},N={N}) gate={gate} "
+                f"bias={with_bias} softplus={softplus}: max_abs_err="
+                f"{err:.3e} rel={rel:.3e} over {len(errs)} gradients "
+                f"(tol 1e-4)")
+            if not rel <= 1e-4:
+                raise AssertionError(f"K4 disagrees with its plain version: "
+                                     f"{errs}")
+            if (bsz, ed) == (TRAIN_BATCH, ED) and gate and with_bias:
+                worst = err
+    x, d, A, B, C, D, z, bias = scan_inputs(gen, TRAIN_BATCH, L, ED, N)
+    g = torch.randn(TRAIN_BATCH, L, ED, generator=gen, device="cuda")
+    args = (x, d, A, B, C, D, z, bias, g, True)
+    ms = time_ms(lambda: ks.selective_scan_bwd_cuda(*args), reps=50)
+    plain = time_ms(lambda: ks.selective_scan_bwd_plain(*args))
+    # bytes: x, delta, z, g in and dx, ddelta, dz out (L*ED each), A and
+    # dA, B, C, dB, dC, D, bias, dD, dbias; operations: ~20 per state
+    # element and step over both passes plus ~30 per step
+    nbytes = 4 * (7 * TRAIN_BATCH * L * ED + 2 * ED * N
+                  + 4 * TRAIN_BATCH * L * N + 4 * ED)
+    ops = TRAIN_BATCH * L * ED * (20 * N + 30)
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / HBM_BYTES_PER_S
+    bound = max(t_ops, t_bytes) * 1e3
+    log(f"K4 time ({TRAIN_BATCH},{L},{ED},N={N}): kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {bound:.5f} ms; {SCAN_CALLS} per Stage-2 "
+        f"step")
+    return dict(name="K4 selective-scan backward", route="cuda",
+                source="gfe_mamba_torch/csrc/selective_scan_bwd.cu",
+                replaces="gfe_mamba_tpu/ops/pallas/selective_scan.py:126",
+                max_abs_err=worst, ms=SCAN_CALLS * ms,
+                plain_ms=SCAN_CALLS * plain, bound_ms=SCAN_CALLS * bound,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None,
+                per="Stage-2 step: 6 calls of (1,53,1024,N=16), f32")
+
+
+def cudnn_conv_grad(x, w, g, which):
+    """cuDNN's wgrad (``which="w"``) or dgrad (``"x"``) of the SAME 3x3x3
+    conv on channels_last_3d tensors: the library yardstick, never called
+    by the port."""
+    wt = w.permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    mask = [which == "x", which == "w", False]
+    return torch.ops.aten.convolution_backward(
+        g.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3), wt, None,
+        [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1, mask)
+
+
+def check_k3(gen) -> dict:
+    """K3 against its plain version at the three generator levels (batch
+    1) and a ragged shape, f32 and bf16, with and without the GN affine;
+    then timed at the Stage-1 shapes (bf16, affine) beside cuDNN's wgrad
+    of the same (already affine-applied) input."""
+    from gfe_mamba_torch.ops.cuda import conv3d as kc
+
+    cases = [((TRAIN_BATCH,) + sp, C, C) for sp, C, _ in CONV_LEVELS]
+    cases.append(((2, 9, 13, 21), 24, 40))
+    worst = 0.0
+    for shape, C, F in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            for affine in (True, False):
+                x, _, _, a, s, g1 = conv_inputs(gen, shape, C, F, dtype,
+                                                True)
+                if not affine:
+                    a = s = None
+                got = kc.conv3x3x3_dw_cuda(x, g1, a, s)
+                want = kc.conv3x3x3_dw_plain(x, g1, a, s)
+                torch.cuda.synchronize()
+                err, rel = rel_err(got, want)
+                log(f"K3 check {shape}x{C}->{F} {str(dtype)[6:]} "
+                    f"affine={affine}: max_abs_err={err:.3e} rel={rel:.3e} "
+                    f"(tol 1e-4)")
+                if not rel <= 1e-4:
+                    raise AssertionError(f"K3 disagrees with its plain "
+                                         f"version: rel {rel} > 1e-4")
+                if dtype == torch.bfloat16 and affine and shape[0] == 1:
+                    worst = max(worst, err)
+                del x, a, s, g1, got, want
+    torch.cuda.empty_cache()
+
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    per_shape = []
+    for spatial, C, count in CONV_LEVELS:
+        x, _, _, a, s, g1 = conv_inputs(gen, (TRAIN_BATCH,) + spatial, C, C,
+                                        torch.bfloat16, True)
+        w = torch.empty(3, 3, 3, C, C, dtype=torch.bfloat16, device="cuda")
+        zhat = kc.affine_in_dtype(x, a, s)
+        ms = time_ms(lambda: kc.conv3x3x3_dw_cuda(x, g1, a, s))
+        plain = time_ms(lambda: kc.conv3x3x3_dw_plain(x, g1, a, s), reps=2)
+        lib = time_ms(lambda: cudnn_conv_grad(zhat, w, g1, "w"))
+        vox = TRAIN_BATCH * spatial[0] * spatial[1] * spatial[2]
+        t_ops = 2 * vox * 27 * C * C / PEAK_BF16
+        t_bytes = (2 * 2 * vox * C + 4 * 27 * C * C
+                   + 2 * 4 * TRAIN_BATCH * C) / HBM_BYTES_PER_S
+        bound = max(t_ops, t_bytes) * 1e3
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        per_shape.append(dict(shape=[TRAIN_BATCH, *spatial, C], calls=count,
+                              ms=ms, plain_ms=plain, library_ms=lib,
+                              bound_ms=bound, bound_by=by))
+        log(f"K3 time {[TRAIN_BATCH, *spatial, C]} bf16: kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, cuDNN wgrad {lib:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}); {count} per Stage-1 step")
+        for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
+                       ("library_ms", lib)):
+            totals[key] += count * v
+        del x, a, s, g1, zhat, w
+    torch.cuda.empty_cache()
+    return dict(name="K3 conv weight gradient", route="cuda",
+                source="gfe_mamba_torch/csrc/conv3d_dw.cu",
+                replaces="gfe_mamba_tpu/ops/pallas/conv3d.py:516",
+                max_abs_err=worst, bound_by="operations",
+                per="Stage-1 step: 10 calls at batch 1, bf16",
+                per_shape=per_shape, **totals)
+
+
+def check_k1_dz(gen) -> dict:
+    """K1 as the conv's input gradient: the cotangent through the flipped,
+    transposed weights, no GN, bf16, at the Stage-1 shapes; against its
+    plain version and timed beside cuDNN's dgrad."""
+    from gfe_mamba_torch.ops.cuda import conv3d as kc
+
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    worst = 0.0
+    per_shape = []
+    for spatial, C, count in CONV_LEVELS:
+        g1, w, _, _, _, _ = conv_inputs(gen, (TRAIN_BATCH,) + spatial, C, C,
+                                        torch.bfloat16, False)
+        wf = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+        got = kc.conv3x3x3_cuda(g1, wf)
+        want = kc.conv3x3x3_plain(g1, wf)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        log(f"K1-dz check {[TRAIN_BATCH, *spatial, C]} bf16: max_abs_err="
+            f"{err:.3e} rel={rel:.3e} (tol 3e-2)")
+        if not rel <= 3e-2:
+            raise AssertionError(f"K1 (dz) disagrees with its plain version: "
+                                 f"rel {rel}")
+        worst = max(worst, err)
+        ms = time_ms(lambda: kc.conv3x3x3_cuda(g1, wf))
+        plain = time_ms(lambda: kc.conv3x3x3_plain(g1, wf))
+        lib = time_ms(lambda: cudnn_conv_grad(g1, w, g1, "x"))
+        bound, by = conv_bound_ms(TRAIN_BATCH, spatial, C, C, False)
+        per_shape.append(dict(shape=[TRAIN_BATCH, *spatial, C], calls=count,
+                              ms=ms, plain_ms=plain, library_ms=lib,
+                              bound_ms=bound, bound_by=by))
+        log(f"K1-dz time {[TRAIN_BATCH, *spatial, C]} bf16: kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, cuDNN dgrad {lib:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}); {count} per Stage-1 step")
+        for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
+                       ("library_ms", lib)):
+            totals[key] += count * v
+        del g1, w, wf, got, want
+    torch.cuda.empty_cache()
+    return dict(per="Stage-1 step: 10 calls at batch 1, bf16",
+                max_abs_err=worst, bound_by="operations",
+                per_shape=per_shape, **totals)
+
+
+def check_conv_function(gen):
+    """The conv autograd Function on the card (K1 forward, K1 dz, K3 dw)
+    against torch.autograd through the plain forward on the card, f32, at
+    the 128-channel level: both ResNetBlock shapes (GN+conv+act and
+    GN+conv+residual+post_act).  The activation is elu, whose derivative
+    is continuous at 0: with relu, the ~40 of 4.9e7 outputs whose
+    pre-activation lies within f32 rounding of 0 take opposite masks in
+    the two forwards, which moves dx by up to 1.5% of its max (a fault of
+    no kernel; the relu backward is held against JAX on the CPU)."""
+    from gfe_mamba_torch.ops import conv3d as ops_conv
+    from gfe_mamba_torch.ops.cuda import conv3d as kc
+
+    spatial, C, _ = CONV_LEVELS[1]
+    names = ("dx", "dw", "dbias", "da", "ds", "dres")
+    for act, with_res, post in (("elu", False, "none"),
+                                ("none", True, "elu")):
+        x, w, _, a, s, res = conv_inputs(gen, (TRAIN_BATCH,) + spatial, C, C,
+                                         torch.float32, with_res)
+        g = torch.randn(TRAIN_BATCH, *spatial, C, generator=gen,
+                        device="cuda")
+        grads = []
+        for fn in (ops_conv.conv3x3x3, kc.conv3x3x3_plain):
+            ins = [None if t is None else t.clone().requires_grad_()
+                   for t in (x, w, None, a, s, res)]
+            fn(*ins, act, post).backward(g)
+            grads.append([None if t is None else t.grad for t in ins])
+        torch.cuda.synchronize()
+        for name, got, want in zip(names, *grads):
+            if want is None:
+                continue
+            err, rel = rel_err(got, want)
+            log(f"conv Function check {[TRAIN_BATCH, *spatial, C]} f32 "
+                f"act={act} residual={with_res}: {name} max_abs_err="
+                f"{err:.3e} rel={rel:.3e} (tol 1e-3)")
+            if not rel <= 1e-3:
+                raise AssertionError(f"conv Function {name} disagrees with "
+                                     f"autograd of the plain forward")
+        del x, w, a, s, res, g, grads
+    torch.cuda.empty_cache()
+
+
+def grad_errors(opt_pairs, floor=1e-6) -> dict:
+    """Per-tensor distance between the Adam first moments (0.1 x the
+    clipped gradient after one step) of two runs, ``{name: (max-rel,
+    norm-rel)}``: max |d| over the tensor's largest entry, and |d| over
+    the tensor's norm.  A tensor under ``floor`` per entry (1e-5 of a
+    clipped gradient of norm <= 1) is measured against the floor instead:
+    such a gradient is zero in exact arithmetic (the key bias of an
+    attention, which the softmax cancels) and holds rounding noise only."""
+    out = {}
+    for player, opt_a, params_a, opt_b, params_b in opt_pairs:
+        for (name, pa), pb in zip(params_a.items(), params_b.values()):
+            if pa not in opt_a.state:
+                continue
+            got = opt_b.state[pb]["exp_avg"].detach().float()
+            want = opt_a.state[pa]["exp_avg"].detach().to(got.device).float()
+            diff = got - want
+            max_rel = diff.abs().max().item() / max(
+                floor, want.abs().max().item())
+            norm_rel = diff.norm().item() / max(
+                want.norm().item(), floor * want.numel() ** 0.5)
+            out[f"{player}:{name}"] = (max_rel, norm_rel)
+    return out
+
+
+def worst(errors: dict, which: int) -> tuple[float, str]:
+    return max((e[which], name) for name, e in errors.items())
+
+
+def check_losses(tag, logs_c, logs_g, tol=1e-3) -> None:
+    """The logged losses of a CPU step and a card step, within ``tol``."""
+    for key, want in logs_c.items():
+        got = logs_g[key]
+        rel = abs(got - want) / max(1.0, abs(want))
+        log(f"{tag} parity {key}: cpu {want:.7g} card {got:.7g} "
+            f"rel={rel:.3e} (tol {tol})")
+        if not rel <= tol:
+            raise AssertionError(f"{tag}: {key} differs on the card")
+
+
+def report_grads(tag, errors: dict, top: int = 1) -> tuple[float, float]:
+    """Logs the ``top`` worst tensors by either measure; returns the
+    worst rel-to-max and rel-to-norm."""
+    for which, measure in ((0, "rel-to-max"), (1, "rel-to-norm")):
+        ranked = sorted(((e[which], e[1 - which], n)
+                         for n, e in errors.items()), reverse=True)[:top]
+        log(f"{tag}: {len(errors)} tensors, worst {measure} " + ", ".join(
+            f"{v:.3e} ({n}; other measure {o:.3e})" for v, o, n in ranked))
+    return worst(errors, 0)[0], worst(errors, 1)[0]
+
+
+def check_grads(tag, errors: dict, max_tol: float, norm_tol: float) -> None:
+    max_rel, norm_rel = report_grads(f"{tag} parity gradients", errors)
+    log(f"{tag} parity gradients: tolerances {max_tol:.3e} rel-to-max, "
+        f"{norm_tol:.3e} rel-to-norm")
+    if not errors or not max_rel <= max_tol or not norm_rel <= norm_tol:
+        raise AssertionError(f"{tag}: gradients differ on the card")
+
+
+@contextlib.contextmanager
+def plain_convs_on_card():
+    """The conv Function with K1 and K3 swapped for their plain versions
+    on CUDA tensors: a witness run that separates what the kernels do
+    from what two f32 forwards on two devices do.  Used by nothing but
+    this check."""
+    from gfe_mamba_torch.ops import conv3d as ops_conv
+    from gfe_mamba_torch.ops.cuda import conv3d as kc
+
+    saved = ops_conv.conv3x3x3_cuda, ops_conv.conv3x3x3_dw_cuda
+    ops_conv.conv3x3x3_cuda = kc.conv3x3x3_plain
+    ops_conv.conv3x3x3_dw_cuda = kc.conv3x3x3_dw_plain
+    try:
+        yield
+    finally:
+        ops_conv.conv3x3x3_cuda, ops_conv.conv3x3x3_dw_cuda = saved
+
+
+def check_training_parity():
+    """Full widths at (64,64,32), f32, dropout off: one Stage-2 and one
+    Stage-1 step on the CPU (plain versions) and on the card (kernels)."""
+    from gfe_mamba_torch.losses.perceptual import PerceptualLoss
+    from gfe_mamba_torch.models.discriminator import PatchDiscriminator
+    from gfe_mamba_torch.models.pipeline import (build_generator,
+                                                 build_gfe_mamba)
+    from gfe_mamba_torch.training.classify_trainer import ClassifyTrainer
+    from gfe_mamba_torch.training.gan_trainer import GanTrainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img = (64, 64, 32)
+    reduced = dict(img_size=img, vit_patch_size=16, vit_dropout=0.0,
+                   vit_emb_dropout=0.0)
+    gen = torch.Generator().manual_seed(21)
+    t = time.perf_counter()
+    cpu = build_gfe_mamba(device="cpu", seed=1, cross_ff_dropout=0.0,
+                          **reduced, **CANONICAL)
+    card = copy.deepcopy(cpu)
+    batch = (torch.randn(2, *img, 1, generator=gen),
+             torch.randint(0, 6, (2, 8), generator=gen),
+             torch.randn(2, 40, generator=gen), torch.tensor([1.0, 0.0]))
+    trainers = [ClassifyTrainer(m, mixed_precision="none", device=d)
+                for m, d in ((cpu, "cpu"), (card, "cuda"))]
+    logs = [tr.train_step(*batch) for tr in trainers]
+    torch.cuda.synchronize()
+    params = [dict(tr.trainable) for tr in trainers]
+    check_losses("Stage-2 (64,64,32) f32", logs[0], logs[1])
+    check_grads("Stage-2 (64,64,32) f32", grad_errors(
+        [("C", trainers[0].optimizer, params[0], trainers[1].optimizer,
+          params[1])]), 1e-3, 1e-3)
+    log(f"Stage-2 parity done in {time.perf_counter() - t:.1f} s")
+    del cpu, card, trainers
+    torch.cuda.empty_cache()
+
+    # Stage 1.  (a) The canonical order gcr with the adversary on, at two
+    # seeds.  relu in the generator and leaky relu in D have a derivative
+    # that jumps at 0; two f32 forwards on two devices put a few
+    # pre-activations within rounding of 0 on opposite sides, and each
+    # flips one element's gradient.  That moves some parameter gradients
+    # by ~1e-2 of their max and of their norm whatever computes the convs
+    # (on an H100, kernels and plain convs on the card alike read 1.3e-2
+    # to 1.8e-2 against the CPU).  So a witness step runs on the card with
+    # the plain convs in place of K1 and K3, and the kernels' step must
+    # come within twice the witness's worst error, by either measure (and
+    # within 1e-3 where the witness is closer than 5e-4).  (b) The order
+    # gce (elu: continuous derivative) with the adversary off, which
+    # removes D from G's loss: no mask flips, so G's gradients through
+    # K1, K1-as-dz and K3 must agree within 1e-3 by both measures.
+    for tag, order, adv_on, seed in (("gcr, adv_on=1", "gcr", 1.0, 2),
+                                     ("gcr, adv_on=1", "gcr", 1.0, 12),
+                                     ("gce, adv_on=0", "gce", 0.0, 2)):
+        tag = f"Stage-1 (64,64,32) f32 {tag}, seed {seed}"
+        t = time.perf_counter()
+        generator = build_generator(device="cpu", seed=seed,
+                                    layer_order=order, **reduced)
+        disc = PatchDiscriminator(3, 32)
+        disc.reset_parameters(torch.Generator().manual_seed(seed + 1))
+        perceptual = PerceptualLoss(0.25, device="cpu")
+        witness = adv_on > 0
+        models = [(generator, disc, perceptual)] + [
+            tuple(copy.deepcopy(m) for m in (generator, disc, perceptual))
+            for _ in range(2 if witness else 1)]
+        mri = torch.randn(TRAIN_BATCH, *img, 1, generator=gen)
+        pet = torch.randn(TRAIN_BATCH, *img, 1, generator=gen)
+        trainers = [GanTrainer(*m, mixed_precision="none", device=d)
+                    for m, d in zip(models, ("cpu", "cuda", "cuda"))]
+        logs = [tr.train_step(mri, pet, adv_on) for tr in trainers[:2]]
+        if witness:
+            with plain_convs_on_card():
+                logs.append(trainers[2].train_step(mri, pet, adv_on))
+        torch.cuda.synchronize()
+
+        def pairs(a, b):
+            out = [("G", a.g_opt, a.g_params, b.g_opt, b.g_params)]
+            if adv_on:
+                out.append(("D", a.d_opt, a.d_params, b.d_opt, b.d_params))
+            return out
+
+        check_losses(tag, logs[0], logs[1])
+        errors = grad_errors(pairs(trainers[0], trainers[1]))
+        if witness:
+            check_losses(f"{tag} witness", logs[0], logs[2])
+            report_grads(f"{tag} kernels vs CPU", errors, top=5)
+            plain_max, plain_norm = report_grads(
+                f"{tag} witness: plain convs on the card vs CPU",
+                grad_errors(pairs(trainers[0], trainers[2])), top=5)
+            report_grads(f"{tag} witness: kernels vs plain convs, both on "
+                         f"the card",
+                         grad_errors(pairs(trainers[2], trainers[1])))
+            check_grads(tag, errors, max(1e-3, 2 * plain_max),
+                        max(1e-3, 2 * plain_norm))
+        else:
+            check_grads(tag, errors, 1e-3, 1e-3)
+        log(f"{tag} parity done in {time.perf_counter() - t:.1f} s")
+        del models, trainers
+        torch.cuda.empty_cache()
+
+
+def train_stage2_canonical(card: str) -> dict:
+    """Stage 2 at the canonical size: 3 bf16 steps of batch 1."""
+    from gfe_mamba_torch.models.pipeline import build_gfe_mamba
+    from gfe_mamba_torch.ops.cuda import conv3d as k1
+    from gfe_mamba_torch.ops.cuda import selective_scan as k2
+    from gfe_mamba_torch.training.classify_trainer import ClassifyTrainer
+
+    t0 = time.perf_counter()
+    model = build_gfe_mamba(img_size=IMG, device="cuda", seed=0, **CANONICAL)
+    trainer = ClassifyTrainer(model, device="cuda")
+    log(f"Stage-2 trainer built in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda")
+
+    def step(seed):
+        gen.manual_seed(seed)
+        mri = torch.randn(TRAIN_BATCH, *IMG, 1, generator=gen, device="cuda")
+        x_cat = torch.randint(0, 6, (TRAIN_BATCH, 8), generator=gen,
+                              device="cuda")
+        x_num = torch.randn(TRAIN_BATCH, 40, generator=gen, device="cuda")
+        labels = torch.randint(0, 2, (TRAIN_BATCH,), generator=gen,
+                               device="cuda").float()
+        return trainer.train_step(mri, x_cat, x_num, labels)
+
+    step(200)                                     # warm-up
+    torch.cuda.synchronize()
+    k1.launches = k2.launches = k2.bwd_launches = 0
+    times = []
+    for i in range(3):
+        before = (k1.launches, k2.launches, k2.bwd_launches)
+        t = time.perf_counter()
+        logs = step(i)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        times.append(dt * 1e3)
+        per = (k1.launches - before[0], k2.launches - before[1],
+               k2.bwd_launches - before[2])
+        log(f"Stage-2 step {i}: {dt * 1e3:.1f} ms, {TRAIN_BATCH / dt:.2f} "
+            f"volumes/s [{card}]; K1 {per[0]}, K2 {per[1]}, K4 {per[2]} "
+            f"launches; {logs}")
+        if not math.isfinite(logs["cla_loss"]) or logs["skipped"]:
+            raise AssertionError("Stage-2 step: non-finite or skipped")
+        if per != (10, 6, 6):
+            raise AssertionError(f"expected 10 K1, 6 K2 and 6 K4 launches "
+                                 f"per Stage-2 step, got {per}")
+    out = dict(k4=k2.bwd_launches, step_ms=times)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_stage1_canonical(card: str) -> dict:
+    """Stage 1 at the canonical size: 3 bf16 steps of batch 1, adv_on=1."""
+    from gfe_mamba_torch.losses.perceptual import PerceptualLoss
+    from gfe_mamba_torch.models.discriminator import PatchDiscriminator
+    from gfe_mamba_torch.models.pipeline import build_generator
+    from gfe_mamba_torch.ops.cuda import conv3d as k1
+    from gfe_mamba_torch.training.gan_trainer import GanTrainer
+
+    t0 = time.perf_counter()
+    disc = PatchDiscriminator(3, 32)
+    disc.reset_parameters(torch.Generator().manual_seed(1))
+    trainer = GanTrainer(build_generator(device="cuda", seed=0), disc,
+                         PerceptualLoss(0.25, device="cuda"), device="cuda")
+    log(f"Stage-1 trainer built in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda")
+
+    def volumes(seed):
+        gen.manual_seed(seed)
+        return [torch.randn(TRAIN_BATCH, *IMG, 1, generator=gen,
+                            device="cuda") for _ in range(2)]
+
+    # K1's count when the generator's forward returns splits each step's
+    # K1 launches into the forward's and the input gradients' (dz)
+    at_forward_end = []
+    trainer.generator.register_forward_hook(
+        lambda *_: at_forward_end.append(k1.launches))
+    trainer.train_step(*volumes(300), 1.0)        # warm-up
+    torch.cuda.synchronize()
+    k1.launches = k1.dw_launches = 0
+    at_forward_end.clear()
+    times, forward, dz = [], 0, 0
+    for i in range(3):
+        before = (k1.launches, k1.dw_launches)
+        t = time.perf_counter()
+        logs = trainer.train_step(*volumes(i), 1.0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        times.append(dt * 1e3)
+        if len(at_forward_end) != i + 1:
+            raise AssertionError(f"{len(at_forward_end) - i} generator "
+                                 f"forwards in Stage-1 step {i}")
+        per = (at_forward_end[-1] - before[0],
+               k1.launches - at_forward_end[-1], k1.dw_launches - before[1])
+        forward, dz = forward + per[0], dz + per[1]
+        log(f"Stage-1 step {i}: {dt * 1e3:.1f} ms, {TRAIN_BATCH / dt:.2f} "
+            f"volumes/s [{card}]; K1 {per[0]} forward + {per[1]} dz, "
+            f"K3 {per[2]} launches; {logs}")
+        if not all(math.isfinite(v) for v in logs.values()) \
+                or logs["skipped"]:
+            raise AssertionError("Stage-1 step: non-finite or skipped")
+        if per != (10, 10, 10):
+            raise AssertionError(f"expected 10 K1 forward, 10 K1 dz and 10 "
+                                 f"K3 launches per Stage-1 step, got {per}")
+    out = dict(k1=k1.launches, forward=forward, dz=dz, k3=k1.dw_launches,
+               step_ms=times)
+    pet = trainer.generate(volumes(400)[0])
+    torch.cuda.synchronize()
+    if pet.shape != (TRAIN_BATCH, *IMG, 1) \
+            or not bool(torch.isfinite(pet).all()):
+        raise AssertionError(f"generated PET {tuple(pet.shape)} is not "
+                             f"finite or not of the MRI's shape")
+    del trainer, pet
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -350,6 +899,18 @@ def main() -> int:
     k1_launches, k2_launches = serve_canonical(card)
     kernels[0]["launches"] = k1_launches
     kernels[1]["launches"] = k2_launches
+    k4, k3 = check_k4(gen), check_k3(gen)
+    kernels[0]["dz"] = check_k1_dz(gen)
+    check_conv_function(gen)
+    check_training_parity()
+    stage2 = train_stage2_canonical(card)
+    stage1 = train_stage1_canonical(card)
+    k4["launches"] = stage2["k4"]
+    k3["launches"] = stage1["k3"]
+    kernels[0]["dz_launches"] = stage1["dz"]
+    kernels += [k4, k3]
+    log(f"Stage-2 ms/step {stage2['step_ms']}, Stage-1 ms/step "
+        f"{stage1['step_ms']} [{card}]")
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on the main "

@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gfe_mamba_torch.models.dropout import Dropout
+
 LN_EPS = 1e-6   # flax nn.LayerNorm default
 NUM_SPECIAL_TOKENS = 2   # embedding rows ahead of the first category
 
@@ -24,13 +26,13 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Sequential):
-    """LN -> Linear(2*mult*dim) -> GEGLU -> Linear(dim), at the reference
-    indices 0, 1, 4 (index 3 is the reference's dropout)."""
+    """LN -> Linear(2*mult*dim) -> GEGLU -> Dropout -> Linear(dim), the
+    weights at the reference indices 0, 1, 4."""
 
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
         super().__init__(nn.LayerNorm(dim, eps=LN_EPS),
                          nn.Linear(dim, dim * mult * 2), GEGLU(),
-                         nn.Identity(), nn.Linear(dim * mult, dim))
+                         Dropout(dropout), nn.Linear(dim * mult, dim))
 
 
 class NumericalEmbedder(nn.Module):

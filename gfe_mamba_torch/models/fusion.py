@@ -19,13 +19,14 @@ from gfe_mamba_torch.models.mamba import Mamba, MambaConfig
 class _FusionBase(TabularEmbedder):
     """Embedding plus the shared cross-attention head.  ``d_cross`` is the
     slice-token width H*W of the conditioning volumes (25600 at
-    160x160)."""
+    160x160); ``cross_ff_dropout`` is the head feed-forward's dropout."""
 
     def __init__(self, categories: Sequence[int], num_continuous: int,
-                 dim: int, heads: int, d_cross: int, dim_out: int = 1):
+                 dim: int, heads: int, d_cross: int, dim_out: int = 1,
+                 cross_ff_dropout: float = 0.1):
         super().__init__(categories, num_continuous, dim)
         self.final_cross = CrossAttention(heads, dim, d_cross)
-        self.final_feed = FeedForward(dim, mult=2)
+        self.final_feed = FeedForward(dim, mult=2, dropout=cross_ff_dropout)
         self.to_logits = LogitsHead(dim, dim_out)
 
     def _fuse_head(self, x: torch.Tensor,
@@ -42,9 +43,9 @@ class CrossMambaBoth(_FusionBase):
 
     def __init__(self, categories: Sequence[int], num_continuous: int,
                  dim: int, depth: int, heads: int, d_cross: int,
-                 dim_out: int = 1):
+                 dim_out: int = 1, cross_ff_dropout: float = 0.1):
         super().__init__(categories, num_continuous, dim, heads, d_cross,
-                         dim_out)
+                         dim_out, cross_ff_dropout)
         self.transformer = Mamba(MambaConfig(d_model=dim, n_layers=depth))
 
     def forward(self, x_categ: torch.Tensor, x_numer: torch.Tensor,

@@ -22,7 +22,11 @@ from gfe_mamba_torch.ops.blocks import GroupNorm
 
 
 class GFEMamba(nn.Module):
-    """generator (frozen) -> combiner -> fusion classifier."""
+    """generator (frozen) -> combiner -> fusion classifier.
+
+    The generator is frozen, as in the JAX pipeline: it runs under
+    ``torch.no_grad()`` and stays in eval mode (its ViT dropout off) when
+    the model is put in train mode."""
 
     def __init__(self, generator: ResidualMidUNet3DViT,
                  combiner: CombineClassifierVitMid,
@@ -32,9 +36,16 @@ class GFEMamba(nn.Module):
         self.combiner = combiner
         self.classifier = classifier
 
+    def train(self, mode: bool = True) -> GFEMamba:
+        super().train(mode)
+        self.generator.eval()
+        return self
+
     def forward(self, mri: torch.Tensor, x_categ: torch.Tensor,
                 x_numer: torch.Tensor, return_pet: bool = False):
-        mid_input, mid_output, pet = self.generator(mri, output_vit_mid=True)
+        with torch.no_grad():
+            mid_input, mid_output, pet = self.generator(mri,
+                                                        output_vit_mid=True)
         feature_img = self.combiner(mid_input, mid_output)
         logits = self.classifier(x_categ, x_numer, feature_img, [mri, pet])
         if return_pet:
@@ -66,38 +77,52 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             mod.reset_ssm_parameters(generator)
 
 
+def _materialize(module: nn.Module, seed: int, device,
+                 dtype: torch.dtype) -> nn.Module:
+    """A module built on the meta device, filled on the CPU from ``seed``
+    (so a seed gives the same weights on every device), then moved."""
+    module.to_empty(device="cpu")
+    init_weights(module, torch.Generator().manual_seed(seed))
+    return module.to(device=device, dtype=dtype)
+
+
 def build_gfe_mamba(*, categories: Sequence[int], num_continuous: int,
-                    img_size: Sequence[int] = (160, 160, 96),
                     dim: int = 512, depth: int = 6, heads: int = 8,
                     dim_out: int = 1, seq_length: int = 4,
-                    f_maps: Sequence[int] = (64, 128, 256),
-                    mixer: str = "mamba", layer_order: str = "gcr",
-                    fold_factor: int = 8, vit_patch_size: int = 40,
-                    vit_dim: int = 512, vit_depth: int = 4,
-                    vit_heads: int = 6, vit_mlp_dim: int = 2048,
+                    mixer: str = "mamba", cross_ff_dropout: float = 0.1,
                     seed: int = 0, device=None,
-                    dtype: torch.dtype = torch.float32) -> GFEMamba:
+                    dtype: torch.dtype = torch.float32,
+                    **generator_kwargs) -> GFEMamba:
     """Build the canonical pipeline in eval mode with weights drawn from
     ``seed``, on ``device`` (CUDA unless ``device="cpu"``) in ``dtype``.
 
-    ``img_size`` is the MRI volume's (X, Y, Z): torch sizes the ViT, the
-    combiner and the cross-attention from it at construction."""
+    ``generator_kwargs`` are :class:`ResidualMidUNet3DViT`'s (``img_size``,
+    ``f_maps``, ``layer_order``, ``fold_factor``, ``vit_*``), with its
+    defaults.  ``img_size`` is the MRI volume's (X, Y, Z): torch sizes the
+    ViT, the combiner and the cross-attention from it at construction."""
     device = resolve_device(device)
     if mixer != "mamba":
         raise NotImplementedError(f"mixer {mixer!r} is not ported yet")
     with torch.device("meta"):
-        generator = ResidualMidUNet3DViT(
-            1, 1, f_maps=f_maps, layer_order=layer_order,
-            img_size=img_size, fold_factor=fold_factor,
-            vit_patch_size=vit_patch_size, vit_dim=vit_dim,
-            vit_depth=vit_depth, vit_heads=vit_heads,
-            vit_mlp_dim=vit_mlp_dim)
+        generator = ResidualMidUNet3DViT(1, 1, **generator_kwargs)
         mid_h, mid_w = generator.mid_size
         combiner = CombineClassifierVitMid(mid_h * mid_w, seq_length)
+        img_x, img_y, _ = generator.img_size
         classifier = CrossMambaBoth(
             categories, num_continuous, dim=dim, depth=depth, heads=heads,
-            d_cross=img_size[0] * img_size[1], dim_out=dim_out)
+            d_cross=img_x * img_y, dim_out=dim_out,
+            cross_ff_dropout=cross_ff_dropout)
         model = GFEMamba(generator, combiner, classifier)
-    model.to_empty(device="cpu")
-    init_weights(model, torch.Generator().manual_seed(seed))
-    return model.to(device=device, dtype=dtype).eval()
+    return _materialize(model, seed, device, dtype).eval()
+
+
+def build_generator(*, seed: int = 0, device=None,
+                    **generator_kwargs) -> ResidualMidUNet3DViT:
+    """The Stage-1 generator alone (``generator_kwargs`` as in
+    :func:`build_gfe_mamba`), f32 weights drawn from ``seed`` as
+    :func:`build_gfe_mamba` draws them, on ``device`` (CUDA unless
+    ``device="cpu"``)."""
+    device = resolve_device(device)
+    with torch.device("meta"):
+        generator = ResidualMidUNet3DViT(1, 1, **generator_kwargs)
+    return _materialize(generator, seed, device, torch.float32)

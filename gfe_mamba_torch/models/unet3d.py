@@ -48,7 +48,8 @@ class ResidualMidUNet3DViT(nn.Module):
                  img_size: Sequence[int] = (160, 160, 96),
                  fold_factor: int = 8, vit_patch_size: int = 40,
                  vit_dim: int = 512, vit_depth: int = 4, vit_heads: int = 6,
-                 vit_mlp_dim: int = 2048):
+                 vit_mlp_dim: int = 2048, vit_dropout: float = 0.1,
+                 vit_emb_dropout: float = 0.1):
         super().__init__()
         if len(f_maps) < 2:
             raise ValueError("Required at least 2 levels in the U-Net")
@@ -60,6 +61,7 @@ class ResidualMidUNet3DViT(nn.Module):
         if bx % fold_factor:
             raise ValueError(f"bottleneck x extent {bx} must be divisible by "
                              f"fold_factor {fold_factor}")
+        self.img_size = tuple(img_size)
         self.fold_factor = fold_factor
         # (H, W) of the folded bottleneck image the ViT sees
         self.mid_size = (by * fold_factor, (bx // fold_factor) * bz)
@@ -74,7 +76,8 @@ class ResidualMidUNet3DViT(nn.Module):
         self.mid = ImageToImageViT(
             self.mid_size, f_maps[-1],
             patch_size=vit_patch_size, dim=vit_dim, depth=vit_depth,
-            heads=vit_heads, mlp_dim=vit_mlp_dim)
+            heads=vit_heads, mlp_dim=vit_mlp_dim, dropout=vit_dropout,
+            emb_dropout=vit_emb_dropout)
         self.final_conv = DotConv1x1(f_maps[0], out_channels)
 
     def forward(self, x: torch.Tensor, output_vit_mid: bool = False):

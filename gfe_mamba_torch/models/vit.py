@@ -4,13 +4,16 @@
 Submodules carry the reference names (``to_patch_embedding.2``,
 ``transformer.layers.3.0.to_qkv``, ``from_patch_embedding.4``).  flax
 defaults hold throughout: LayerNorm eps 1e-6 and tanh-approximated GELU.
-Dropout is absent: the port runs inference only.
+Dropout sits where the JAX ViT has it (attention map, attention output,
+both feed-forward layers, embeddings) and is active in train mode only.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from gfe_mamba_torch.models.dropout import Dropout
 
 LN_EPS = 1e-6   # flax nn.LayerNorm default
 
@@ -40,15 +43,17 @@ class SwapTokens(nn.Module):
 class Attention(nn.Module):
     """Pre-norm multi-head self-attention (``ViTAttention``)."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int):
+    def __init__(self, dim: int, heads: int, dim_head: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         inner = heads * dim_head
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
+        self.attn_drop = Dropout(dropout)
         project_out = not (heads == 1 and dim_head == dim)
-        self.to_out = nn.Sequential(nn.Linear(inner, dim)) if project_out \
-            else nn.Identity()
+        self.to_out = nn.Sequential(nn.Linear(inner, dim), Dropout(dropout)) \
+            if project_out else nn.Identity()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
@@ -58,20 +63,21 @@ class Attention(nn.Module):
         attn = torch.softmax(
             torch.einsum("bhid,bhjd->bhij", q, k) * self.dim_head ** -0.5,
             dim=-1)
-        out = torch.einsum("bhij,bhjd->bhid", attn, v)
+        out = torch.einsum("bhij,bhjd->bhid", self.attn_drop(attn), v)
         return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
 
 
 class FeedForward(nn.Module):
-    """LN -> Linear -> GELU -> Linear (``ViTFeedForward``), at the
-    reference's ``net`` indices 0, 1, 4."""
+    """LN -> Linear -> GELU -> Dropout -> Linear -> Dropout
+    (``ViTFeedForward``), the weights at the reference's ``net`` indices
+    0, 1, 4."""
 
-    def __init__(self, dim: int, hidden_dim: int):
+    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
         super().__init__()
         self.net = nn.Sequential(
             nn.LayerNorm(dim, eps=LN_EPS), nn.Linear(dim, hidden_dim),
-            nn.GELU(approximate="tanh"), nn.Identity(),
-            nn.Linear(hidden_dim, dim))
+            nn.GELU(approximate="tanh"), Dropout(dropout),
+            nn.Linear(hidden_dim, dim), Dropout(dropout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net(x)
@@ -81,11 +87,11 @@ class Transformer(nn.Module):
     """Residual attention/feed-forward stack with a final LayerNorm."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
-                 mlp_dim: int):
+                 mlp_dim: int, dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            nn.ModuleList([Attention(dim, heads, dim_head),
-                           FeedForward(dim, mlp_dim)])
+            nn.ModuleList([Attention(dim, heads, dim_head, dropout),
+                           FeedForward(dim, mlp_dim, dropout)])
             for _ in range(depth))
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
 
@@ -103,7 +109,8 @@ class ImageToImageViT(nn.Module):
 
     def __init__(self, image_size: tuple[int, int], channels: int,
                  patch_size: int = 40, dim: int = 512, depth: int = 4,
-                 heads: int = 6, mlp_dim: int = 2048, dim_head: int = 64):
+                 heads: int = 6, mlp_dim: int = 2048, dim_head: int = 64,
+                 dropout: float = 0.0, emb_dropout: float = 0.0):
         super().__init__()
         height, width = image_size
         p = patch_size
@@ -119,7 +126,9 @@ class ImageToImageViT(nn.Module):
             nn.Linear(patch_dim, dim), nn.LayerNorm(dim, eps=LN_EPS))
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim))
         self.pos_embedding = nn.Parameter(torch.empty(1, num_patches + 1, dim))
-        self.transformer = Transformer(dim, depth, heads, dim_head, mlp_dim)
+        self.dropout = Dropout(emb_dropout)
+        self.transformer = Transformer(dim, depth, heads, dim_head, mlp_dim,
+                                       dropout)
         self.from_patch_embedding = nn.Sequential(
             nn.LayerNorm(dim, eps=LN_EPS), SwapTokens(),
             nn.Linear(num_patches + 1, num_patches), SwapTokens(),
@@ -130,7 +139,7 @@ class ImageToImageViT(nn.Module):
         x = self.to_patch_embedding(img)
         cls = self.cls_token.to(x.dtype).expand(b, -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embedding.to(x.dtype)
-        x = self.from_patch_embedding(self.transformer(x))
+        x = self.from_patch_embedding(self.transformer(self.dropout(x)))
         (h, w), p = self.grid, self.patch
         x = x.reshape(b, h, w, p, p, c).permute(0, 1, 3, 2, 4, 5)
         return x.reshape(b, h * p, w * p, c)

@@ -15,7 +15,8 @@ import torch
 from torch import nn
 
 from gfe_mamba_torch.ops.conv3d import (apply_act, conv3x3x3, deconv3x3x3_s2,
-                                        group_norm_stats, max_pool2)
+                                        group_norm_stats, max_pool2,
+                                        resize_nearest)
 
 _ACT_NAMES = {"r": "relu", "e": "elu", "l": "leaky001", None: "none"}
 
@@ -190,13 +191,16 @@ class _Upsampling(nn.Module):
         super().__init__()
         self.upsample = _TransposedConv(in_channels, out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return deconv3x3x3_s2(x, self.upsample.conv_transposed.weight)
+    def forward(self, x: torch.Tensor, exact_2n: bool = True) -> torch.Tensor:
+        return deconv3x3x3_s2(x, self.upsample.conv_transposed.weight,
+                              exact_2n)
 
 
 class Decoder(nn.Module):
-    """Stride-2 transposed conv (exactly 2n), sum join with the skip, then
-    a ResNetBlock."""
+    """Stride-2 transposed conv, sum join with the skip, then a
+    ResNetBlock.  As in the JAX decoder (``ops/blocks.py:711-741``): an
+    even z extent takes the 2n deconv, an odd one the 2n-1 deconv, and the
+    result is nearest-resized to the skip's shape where they differ."""
 
     def __init__(self, in_channels: int, out_channels: int, order: str,
                  num_groups: int = 8):
@@ -207,11 +211,6 @@ class Decoder(nn.Module):
 
     def forward(self, encoder_features: torch.Tensor,
                 x: torch.Tensor) -> torch.Tensor:
-        if x.shape[3] % 2:
-            raise ValueError("the 2n deconv needs an even z extent; the "
-                             "JAX package resizes odd shapes instead")
-        x = self.upsampling(x)
-        if x.shape != encoder_features.shape:
-            raise ValueError(f"deconv output {tuple(x.shape)} does not match "
-                             f"the skip {tuple(encoder_features.shape)}")
+        x = self.upsampling(x, exact_2n=x.shape[3] % 2 == 0)
+        x = resize_nearest(x, encoder_features.shape[1:4])
         return self.basic_module(encoder_features + x)

@@ -1,9 +1,10 @@
 """3D volume ops of the generator, channels-last ``(B, X, Y, Z, C)``.
 
 Counterpart of ``gfe_mamba_tpu/ops/pallas/conv3d.py``: the fused
-GN-apply + 3x3x3 conv (K1) behind ``conv3x3x3``, plus the helpers around
-it -- GroupNorm statistics, the activation set, the 2x2x2 max pool and the
-stride-2 transposed conv.
+GN-apply + 3x3x3 conv (K1) with its backward (K1 again for the input
+gradient, K3 for the weight gradient) behind ``conv3x3x3``, plus the
+helpers around it -- GroupNorm statistics, the activation set, the 2x2x2
+max pool, the stride-2 transposed conv and the nearest resize.
 """
 
 from __future__ import annotations
@@ -12,10 +13,29 @@ import torch
 import torch.nn.functional as F
 
 from gfe_mamba_torch.ops.cuda.conv3d import (apply_act, conv3x3x3_cuda,
+                                             conv3x3x3_dw_cuda,
+                                             conv3x3x3_dw_plain,
                                              conv3x3x3_plain)
 
-__all__ = ["apply_act", "conv3x3x3", "deconv3x3x3_s2", "group_norm_stats",
-           "max_pool2"]
+__all__ = ["Conv3x3x3Fn", "apply_act", "conv3x3x3", "deconv3x3x3_s2",
+           "group_norm_stats", "max_pool2", "resize_nearest"]
+
+
+class _SumOfSquares(torch.autograd.Function):
+    """Per-(batch, channel) sum of x^2 over dim 1 in f32, reading x once
+    in its own dtype.  The backward is 2 x g: finite where a channel is
+    all zeros, where the gradient of ``vector_norm(x) ** 2`` is 0/0."""
+
+    @staticmethod
+    def forward(ctx, xv):
+        ctx.save_for_backward(xv)
+        return torch.linalg.vector_norm(xv, 2, dim=1,
+                                        dtype=torch.float32).square()
+
+    @staticmethod
+    def backward(ctx, g):
+        xv, = ctx.saved_tensors
+        return (2.0 * g[:, None, :] * xv).to(xv.dtype)
 
 
 def group_norm_stats(x: torch.Tensor, num_groups: int, eps: float = 1e-5):
@@ -29,8 +49,7 @@ def group_norm_stats(x: torch.Tensor, num_groups: int, eps: float = 1e-5):
     xv = x.reshape(B, -1, C)
     n = xv.shape[1]
     mu_c = torch.sum(xv, dim=1, dtype=torch.float32) / n
-    ex2_c = torch.linalg.vector_norm(xv, 2, dim=1,
-                                     dtype=torch.float32).square() / n
+    ex2_c = _SumOfSquares.apply(xv) / n
     per = C // num_groups
     mu = mu_c.reshape(B, num_groups, per).mean(-1)
     ex2 = ex2_c.reshape(B, num_groups, per).mean(-1)
@@ -45,15 +64,103 @@ def max_pool2(x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 4, 1)
 
 
-def deconv3x3x3_s2(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """k=3, stride-2 transposed conv emitting exactly 2n samples per axis
-    (the semantics of ``deconv3x3x3_s2_packed``).
+def deconv3x3x3_s2(x: torch.Tensor, weight: torch.Tensor,
+                   exact_2n: bool = True) -> torch.Tensor:
+    """k=3, stride-2 transposed conv.  ``exact_2n`` emits exactly 2n
+    samples per axis (the semantics of ``deconv3x3x3_s2_packed``); without
+    it, 2n-1 (flax ``ConvTranspose`` with padding (1, 1), the JAX
+    decoder's path for an odd z extent).
 
     ``weight`` is the torch ``ConvTranspose3d`` layout ``(I, O, 3, 3, 3)``,
     i.e. the flax kernel flipped spatially (``torch_import._deconv``)."""
     y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), weight.to(x.dtype),
-                           stride=2, padding=1, output_padding=1)
+                           stride=2, padding=1,
+                           output_padding=1 if exact_2n else 0)
     return y.permute(0, 2, 3, 4, 1)
+
+
+def resize_nearest(x: torch.Tensor, spatial) -> torch.Tensor:
+    """Nearest resize of a channels-last volume to ``spatial`` with the
+    torch ``F.interpolate`` index rule idx = floor(i * in / out), computed
+    in f32 (``_interpolate_to`` of the JAX package)."""
+    for axis, size in enumerate(spatial, start=1):
+        n = x.shape[axis]
+        if n == size:
+            continue
+        idx = torch.floor(torch.arange(size, dtype=torch.float32)
+                          * (n / size)).long()
+        x = torch.index_select(x, axis, idx.to(x.device))
+    return x
+
+
+def _act_grad_from_out(y: torch.Tensor, act: str):
+    """act'(y0) recovered from y = act(y0) (``_act_grad_from_out`` of the
+    JAX package): relu/leaky from the sign, elu from exp(y0) = y + 1."""
+    if act == "none":
+        return None
+    if act == "relu":
+        return (y > 0).to(y.dtype)
+    if act == "elu":
+        return torch.where(y > 0, torch.ones_like(y), y + 1.0)
+    if act == "leaky01":
+        return torch.where(y > 0, 1.0, 0.1).to(y.dtype)
+    if act == "leaky001":
+        return torch.where(y > 0, 1.0, 0.01).to(y.dtype)
+    raise ValueError(f"unknown activation {act!r}")
+
+
+class Conv3x3x3Fn(torch.autograd.Function):
+    """The fused conv with its backward (``_fwd_p``/``_bwd_p`` of the JAX
+    package, without the z-pair packing).
+
+    It saves the output, not the pre-activation: act' and post_act' come
+    back from the output, which is exact because act excludes a
+    residual/post_act epilogue.  With g2 = g * post_act' and
+    g1 = g2 * act': the input gradient of the conv is
+    dz = conv3x3x3(g1, w flipped and transposed) (K1 on the card), the
+    weight gradient dw comes from K3 (the 27-tap plain version on the
+    CPU), and the rest are reductions: dbias = sum g1, da = sum dz * x
+    and ds = sum dz per (batch, channel), dx = dz * a, dres = g2."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, pre_scale, pre_shift, residual, act,
+                post_act):
+        conv = conv3x3x3_cuda if x.is_cuda else conv3x3x3_plain
+        out = conv(x, w, bias, pre_scale, pre_shift, residual, act, post_act)
+        ctx.save_for_backward(x, w, bias, pre_scale, pre_shift, residual,
+                              out)
+        ctx.acts = (act, post_act)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias, pre_scale, pre_shift, residual, out = ctx.saved_tensors
+        act, post_act = ctx.acts
+        need = ctx.needs_input_grad
+        g = g.to(x.dtype)
+        pag = _act_grad_from_out(out, post_act)
+        g2 = g if pag is None else g * pag
+        ag = _act_grad_from_out(out, act)
+        g1 = g2 if ag is None else g2 * ag
+        dx = dw = dbias = da = ds = None
+        if need[0] or need[3] or need[4]:
+            wf = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+            conv = conv3x3x3_cuda if g1.is_cuda else conv3x3x3_plain
+            dz = conv(g1.contiguous(), wf)
+            if need[0]:
+                dx = dz if pre_scale is None else \
+                    dz * pre_scale.to(dz.dtype)[:, None, None, None, :]
+            if need[3]:
+                da = (dz.float() * x.float()).sum((1, 2, 3))
+            if need[4]:
+                ds = dz.float().sum((1, 2, 3))
+        if need[1]:
+            dw_fn = conv3x3x3_dw_cuda if x.is_cuda else conv3x3x3_dw_plain
+            dw = dw_fn(x, g1.contiguous(), pre_scale, pre_shift).to(w.dtype)
+        if need[2]:
+            dbias = g1.float().sum((0, 1, 2, 3)).to(bias.dtype)
+        dres = g2 if need[5] else None
+        return dx, dw, dbias, da, ds, dres, None, None
 
 
 def conv3x3x3(x, w, bias=None, pre_scale=None, pre_shift=None,
@@ -61,15 +168,13 @@ def conv3x3x3(x, w, bias=None, pre_scale=None, pre_shift=None,
     """``post_act(act(conv3d(x*pre_scale + pre_shift, w) + bias)
     + residual)``: SAME, stride 1, f32 accumulation (``conv3x3x3_p``).
 
-    CUDA tensors go through K1; CPU tensors through the plain version.
-    ``act`` may not be combined with a residual/post_act epilogue, the
-    same rule as the JAX function (whose backward recovers act' from the
-    saved output)."""
+    CUDA tensors go through K1 (backward: K1 and K3); CPU tensors through
+    the plain versions.  ``act`` may not be combined with a
+    residual/post_act epilogue, the same rule as the JAX function (whose
+    backward recovers act' from the saved output)."""
     if act != "none" and (residual is not None or post_act != "none"):
         raise ValueError(
             "conv3x3x3: act together with residual/post_act is unsupported")
-    if x.is_cuda:
-        return conv3x3x3_cuda(x, w, bias, pre_scale, pre_shift, residual,
-                              act, post_act)
-    return conv3x3x3_plain(x, w, bias, pre_scale, pre_shift, residual, act,
-                           post_act)
+    return Conv3x3x3Fn.apply(x, w, bias, pre_scale, pre_shift, residual, act,
+                             post_act)
+

@@ -1,16 +1,20 @@
-"""K1: the fused GN-apply + 3x3x3 conv kernel (``csrc/conv3d.cu``) and its
-plain PyTorch version.
+"""K1 and K3: the fused GN-apply + 3x3x3 conv kernel (``csrc/conv3d.cu``)
+and the conv's weight-gradient kernel (``csrc/conv3d_dw.cu``), each with
+its plain PyTorch version.
 
-Both compute, channels-last, SAME padding, stride 1::
+K1 computes, channels-last, SAME padding, stride 1::
 
     post_act(act(conv3d(x * pre_scale + pre_shift, w) + bias) + residual)
 
 with x ``(B, X, Y, Z, C)``, w ``(3, 3, 3, C, F)`` (the flax layout),
 bias ``(F,)``, pre_scale/pre_shift ``(B, C)`` in f32 (the folded
 GroupNorm) and residual ``(B, X, Y, Z, F)``.  The affine applies to real
-voxels only; the zero halo stays zero.  ``conv3x3x3_cuda`` launches the
-kernel on CUDA tensors; ``conv3x3x3_plain`` is the reference the CPU path,
-the tests and the on-card checks use.
+voxels only; the zero halo stays zero.  K3 computes the weight gradient
+of that conv, ``dw[i,j,k,c,f] = sum zhat[b,x+i-1,y+j-1,z+k-1,c] *
+g1[b,x,y,z,f]`` in f32, with ``zhat = x * pre_scale + pre_shift`` formed
+in x's dtype and zero outside the volume.  ``*_cuda`` launch the kernels
+on CUDA tensors; ``*_plain`` are the references the CPU path, the tests
+and the on-card checks use.
 """
 
 from __future__ import annotations
@@ -21,9 +25,15 @@ import torch
 import torch.nn.functional as F
 
 ACT_CODES = {"none": 0, "relu": 1, "elu": 2, "leaky01": 3, "leaky001": 4}
+# K3's launch shape (csrc/conv3d_dw.cu): channel tile, voxels per shared
+# chunk, and the number of blocks the voxel split aims for
+_DW_TILE = 64
+_DW_CHUNK = 32
+_DW_BLOCKS = 2048
 
-# kernel launches since the counter was last set to 0
+# kernel launches since the counters were last set to 0: K1, K3
 launches = 0
+dw_launches = 0
 
 
 def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
@@ -46,10 +56,7 @@ def conv3x3x3_plain(x, w, bias=None, pre_scale=None, pre_shift=None,
                     residual=None, act="none", post_act="none"):
     """Plain PyTorch version: affine in x's dtype, ``F.conv3d`` on the
     channels-first view, then the epilogue in f32, rounded once."""
-    if pre_scale is not None:
-        x = x * pre_scale.to(x.dtype)[:, None, None, None, :]
-    if pre_shift is not None:
-        x = x + pre_shift.to(x.dtype)[:, None, None, None, :]
+    x = affine_in_dtype(x, pre_scale, pre_shift)
     y = F.conv3d(x.permute(0, 4, 1, 2, 3),
                  w.to(x.dtype).permute(4, 3, 0, 1, 2),
                  padding=1).permute(0, 2, 3, 4, 1).float()
@@ -59,6 +66,30 @@ def conv3x3x3_plain(x, w, bias=None, pre_scale=None, pre_shift=None,
     if residual is not None:
         y = y + residual.float()
     return apply_act(y, post_act).to(x.dtype)
+
+
+def affine_in_dtype(x, pre_scale=None, pre_shift=None):
+    """``x * pre_scale + pre_shift`` per (batch, channel), each step
+    rounded to x's dtype as the JAX package does."""
+    if pre_scale is not None:
+        x = x * pre_scale.to(x.dtype)[:, None, None, None, :]
+    if pre_shift is not None:
+        x = x + pre_shift.to(x.dtype)[:, None, None, None, :]
+    return x
+
+
+def conv3x3x3_dw_plain(x, g1, pre_scale=None, pre_shift=None):
+    """Plain K3: the 27-tap weight gradient as f32 einsums over shifted
+    slices of the zero-padded ``zhat`` (``_bwd_core`` in the JAX
+    package).  Returns dw ``(3, 3, 3, C, F)`` in f32."""
+    B, X, Y, Z, C = x.shape
+    zp = F.pad(affine_in_dtype(x, pre_scale, pre_shift),
+               (0, 0, 1, 1, 1, 1, 1, 1)).float()
+    g = g1.float()
+    taps = [torch.einsum("bxyzc,bxyzf->cf",
+                         zp[:, i:i + X, j:j + Y, k:k + Z], g)
+            for i in range(3) for j in range(3) for k in range(3)]
+    return torch.stack(taps).reshape(3, 3, 3, C, g1.shape[-1])
 
 
 def _ptr(t):
@@ -76,6 +107,15 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name}: on {t.device}, x is on {device}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+
+
+def _affine_for_kernel(dtype, pre_scale, pre_shift):
+    """The kernels round the affine to x's dtype as JAX does: in bf16 they
+    take (a, s) already rounded to bf16, as f32."""
+    if dtype != torch.bfloat16:
+        return pre_scale, pre_shift
+    return tuple(None if t is None else t.to(torch.bfloat16).float()
+                 for t in (pre_scale, pre_shift))
 
 
 def conv3x3x3_cuda(x, w, bias=None, pre_scale=None, pre_shift=None,
@@ -108,12 +148,7 @@ def conv3x3x3_cuda(x, w, bias=None, pre_scale=None, pre_shift=None,
     out = torch.empty((B, X, Y, Z, Fo), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    if x.dtype == torch.bfloat16:
-        # the kernel rounds the affine to x's dtype as JAX does
-        pre_scale = None if pre_scale is None else \
-            pre_scale.to(torch.bfloat16).float()
-        pre_shift = None if pre_shift is None else \
-            pre_shift.to(torch.bfloat16).float()
+    pre_scale, pre_shift = _affine_for_kernel(x.dtype, pre_scale, pre_shift)
     lib = library("conv3d")
     fn = lib.gfe_conv3x3x3
     fn.restype = ctypes.c_int
@@ -130,3 +165,52 @@ def conv3x3x3_cuda(x, w, bias=None, pre_scale=None, pre_shift=None,
         raise RuntimeError(f"conv3x3x3 kernel failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+def conv3x3x3_dw_cuda(x, g1, pre_scale=None, pre_shift=None):
+    """Launch K3: f32 or bf16 CUDA tensors x ``(B, X, Y, Z, C)`` and g1
+    ``(B, X, Y, Z, F)`` of one dtype, C and F multiples of 8, pre_scale
+    and pre_shift ``(B, C)`` f32 or None; returns dw ``(3, 3, 3, C, F)``
+    f32.  Raises on anything else.
+
+    The kernel splits the voxels over blocks and writes one f32 partial
+    per split; the sum over splits runs here, in a fixed order, so the
+    result is deterministic."""
+    from gfe_mamba_torch.ops.cuda.build import library
+
+    global dw_launches
+    if not x.is_cuda:
+        raise ValueError("conv3x3x3_dw_cuda takes CUDA tensors")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"conv3x3x3_dw_cuda: unsupported dtype {x.dtype}")
+    if x.dim() != 5 or g1.dim() != 5:
+        raise ValueError("x and g1 must be (B, X, Y, Z, C) and (B, X, Y, Z, F)")
+    B, X, Y, Z, C = x.shape
+    Fo = g1.shape[-1]
+    if C % 8 or Fo % 8:
+        raise ValueError(f"C={C} and F={Fo} must be multiples of 8")
+    voxels = B * X * Y * Z
+    if voxels == 0 or voxels >= 2 ** 31:
+        raise ValueError(f"conv3x3x3_dw_cuda: {voxels} voxels out of range")
+    _check("x", x, x.shape, x.dtype, x.device)
+    _check("g1", g1, (B, X, Y, Z, Fo), x.dtype, x.device)
+    _check("pre_scale", pre_scale, (B, C), torch.float32, x.device)
+    _check("pre_shift", pre_shift, (B, C), torch.float32, x.device)
+    pre_scale, pre_shift = _affine_for_kernel(x.dtype, pre_scale, pre_shift)
+    tiles = 27 * -(-C // _DW_TILE) * -(-Fo // _DW_TILE)
+    splits = max(1, min(-(-_DW_BLOCKS // tiles), -(-voxels // _DW_CHUNK)))
+    part = torch.empty(splits, 27, C, Fo, dtype=torch.float32,
+                       device=x.device)
+    fn = library("conv3d_dw").gfe_conv3x3x3_dw
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 \
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(1 if x.dtype == torch.bfloat16 else 0, x.data_ptr(),
+                g1.data_ptr(), _ptr(pre_scale), _ptr(pre_shift),
+                part.data_ptr(), B, X, Y, Z, C, Fo, splits, stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3x3x3_dw kernel failed: CUDA error {rc}")
+    dw_launches += 1
+    return part.sum(0).reshape(3, 3, 3, C, Fo)

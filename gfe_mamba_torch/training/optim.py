@@ -1,0 +1,68 @@
+"""Gradient clipping and the mixed-precision policy of the trainers
+(counterpart of ``gfe_mamba_tpu/training/optim.py``).
+
+* Per-tensor clip (the Stage-2 loop clips each parameter on its own):
+  ``g * min(1, max_norm / max(|g|, 1e-12))``.
+* Global-norm clip with optax's formula, ``g`` if ``|g| < max_norm`` else
+  ``g / |g| * max_norm``; ``torch.nn.utils.clip_grad_norm_`` divides by
+  ``|g| + 1e-6`` and does not match.
+* Adam is ``torch.optim.Adam``: with its defaults (b1 0.9, b2 0.999,
+  eps 1e-8) it makes optax's update.
+* bf16 compute: the trainers keep f32 master parameters and run the loss
+  on a bf16 copy (``cast_for_compute``) through
+  ``torch.func.functional_call``.  ``Tensor.to`` is differentiable, so
+  the gradients land on the f32 masters.  ``torch.autocast`` would keep
+  some ops in f32 and is not the JAX package's semantics.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Mapping
+
+import torch
+
+
+def compute_dtype(mixed_precision: str) -> torch.dtype:
+    """bf16 for any half-precision setting, f32 otherwise."""
+    if mixed_precision in ("bf16", "bfloat16", "fp16", "float16"):
+        return torch.bfloat16
+    return torch.float32
+
+
+def cast_for_compute(params: Mapping[str, torch.Tensor],
+                     dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    """Float tensors cast to ``dtype`` (differentiably); others pass."""
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in params.items()}
+
+
+def _norm(g: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(g, dtype=torch.float32)
+
+
+@torch.no_grad()
+def clip_by_param_norm_(grads: Iterable[torch.Tensor],
+                        max_norm: float) -> None:
+    """Scale each gradient in place to a norm of at most ``max_norm``."""
+    for g in grads:
+        scale = torch.clamp(max_norm / torch.clamp(_norm(g), min=1e-12),
+                            max=1.0)
+        g.mul_(scale.to(g.dtype))
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: Iterable[torch.Tensor],
+                         max_norm: float) -> torch.Tensor:
+    """optax ``clip_by_global_norm`` in place; returns the global norm."""
+    grads = list(grads)
+    norm = torch.sqrt(sum(_norm(g).square() for g in grads))
+    clip = norm >= max_norm
+    for g in grads:
+        g.copy_(torch.where(clip, g / norm * max_norm, g))
+    return norm
+
+
+def all_finite(tensors: Iterable[torch.Tensor]) -> bool:
+    """Whether every element of every tensor is finite (one host sync)."""
+    flags = [torch.isfinite(t).all() for t in tensors]
+    return bool(torch.stack(flags).all()) if flags else True

@@ -5,7 +5,8 @@ The inverse of the transforms in ``gfe_mamba_tpu/utils/torch_import.py``
 Linear weights ``(O, I)``; conv kernels ``(kx, ky, kz, I, O)`` become
 ``(O, I, kx, ky, kz)``; transposed-conv kernels are flipped spatially into
 ``(I, O, kx, ky, kz)``; depthwise conv1d kernels ``(k, 1, ED)`` become
-``(ED, 1, k)``; LayerNorm/GroupNorm ``scale`` becomes ``weight``.  The
+``(ED, 1, k)``; 2D conv kernels ``(kh, kw, I, O)`` become
+``(O, I, kh, kw)``; LayerNorm/GroupNorm ``scale`` becomes ``weight``.  The
 module paths are rewritten to the reference torch names the port uses.
 """
 
@@ -66,6 +67,8 @@ def _transform(path: str, value: np.ndarray) -> np.ndarray:
         return value.T
     if leaf == "kernel" and value.ndim == 3:       # depthwise conv1d
         return np.transpose(value, (2, 1, 0))
+    if leaf == "kernel" and value.ndim == 4:       # 2D conv
+        return np.transpose(value, (3, 2, 0, 1))
     if leaf == "kernel" and value.ndim == 5:
         if path.endswith("upsampling/kernel"):
             return np.transpose(value, (3, 4, 0, 1, 2))[:, :, ::-1, ::-1, ::-1]
@@ -78,8 +81,12 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     under a ``'params'`` key) into the port's state_dict, as float32.
 
     Works on the whole ``GFEMamba`` tree (keys under ``generator.``,
-    ``combiner.`` and ``classifier.``) and on the tree of any ported
-    submodule (a ResNetBlock, the ViT, a MambaBlock, the classifier)."""
+    ``combiner.`` and ``classifier.``), on the tree of any ported
+    submodule (the generator, a ResNetBlock, the ViT, a MambaBlock, the
+    classifier), and on the Stage-1 trees whose flax names the port keeps:
+    ``PatchDiscriminator`` (``conv_i``, ``norm_i``, ``conv_pre``,
+    ``norm_pre``, ``conv_out``) and the perceptual loss's
+    ``SqueezeFeatures`` (``conv1``, ``fire1..8``)."""
     if set(params) == {"params"}:
         params = params["params"]
     out = {}
@@ -90,3 +97,4 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         out[key.replace("/", ".")] = torch.from_numpy(
             np.array(_transform(path, value), dtype=np.float32))
     return out
+

@@ -1,19 +1,24 @@
 #!/usr/bin/env python
-"""Where the time of the port's canonical forward goes, on one GPU.
+"""Where the time of one of the port's canonical paths goes, on one GPU.
 
-    python3 profile_torch.py [TRACE.json]
+    python3 profile_torch.py [--path serve|stage2|stage1] [TRACE.json]
 
-Builds the canonical pipeline (``bench.py``'s configuration: 160x160x96,
-bf16, batch 4, random weights from seed 0), warms it up, then traces two
-requests with ``torch.profiler`` (CPU and CUDA activities).  Prints the
-host time per request, the device's busy time (the sum of kernel times;
-the forward runs on one stream) and its idle share, and the kernels by
-device time with each one's share.  With an argument, it also writes the
-chrome trace to that file.
+``serve`` (the default) builds the canonical pipeline (``bench.py``'s
+configuration: 160x160x96, bf16, batch 4, random weights from seed 0)
+and runs requests; ``stage2`` runs ``ClassifyTrainer`` steps on it (bf16,
+batch 1); ``stage1`` runs ``GanTrainer`` steps over the canonical
+generator, ``PatchDiscriminator(3, 32)`` and ``PerceptualLoss(0.25)``
+(bf16, batch 1, adversary on).  After two warm-up iterations it traces
+two more with ``torch.profiler`` (CPU and CUDA activities) and prints the
+host time per iteration, the device's busy time (the sum of kernel
+times; the work runs on one stream) and its idle share, and the kernels
+by device time with each one's share.  With a file name it also writes
+the chrome trace there.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
 import sys
@@ -25,9 +30,55 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 IMG = (160, 160, 96)
 BATCH = 4
 REQUESTS = 2
+CATEGORIES = dict(categories=(6,) * 8, num_continuous=40)
+
+
+def _work(path: str, gen: torch.Generator):
+    """One iteration of ``path`` as a closure over freshly built models."""
+    from gfe_mamba_torch.models.pipeline import (build_generator,
+                                                 build_gfe_mamba)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    if path == "serve":
+        model = build_gfe_mamba(img_size=IMG, dtype=torch.bfloat16, seed=0,
+                                **CATEGORIES)
+
+        def request():
+            x_cat = torch.randint(0, 6, (BATCH, 8), generator=gen,
+                                  device="cuda")
+            with torch.inference_mode():
+                model(randn(BATCH, *IMG, 1).to(torch.bfloat16), x_cat,
+                      randn(BATCH, 40).to(torch.bfloat16), return_pet=True)
+        return request
+    if path == "stage2":
+        from gfe_mamba_torch.training.classify_trainer import ClassifyTrainer
+        trainer = ClassifyTrainer(build_gfe_mamba(img_size=IMG, seed=0,
+                                                  **CATEGORIES))
+
+        def step():
+            x_cat = torch.randint(0, 6, (1, 8), generator=gen, device="cuda")
+            trainer.train_step(randn(1, *IMG, 1), x_cat, randn(1, 40),
+                               torch.ones(1, device="cuda"))
+        return step
+    from gfe_mamba_torch.losses.perceptual import PerceptualLoss
+    from gfe_mamba_torch.models.discriminator import PatchDiscriminator
+    from gfe_mamba_torch.training.gan_trainer import GanTrainer
+    disc = PatchDiscriminator(3, 32)
+    disc.reset_parameters(torch.Generator().manual_seed(1))
+    trainer = GanTrainer(build_generator(seed=0), disc,
+                         PerceptualLoss(0.25))
+    return lambda: trainer.train_step(randn(1, *IMG, 1), randn(1, *IMG, 1),
+                                      1.0)
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--path", choices=("serve", "stage2", "stage1"),
+                        default="serve")
+    parser.add_argument("trace", nargs="?", help="chrome trace to write")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device available", flush=True)
         return 1
@@ -35,39 +86,28 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from gfe_mamba_torch.models.pipeline import build_gfe_mamba
-
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    model = build_gfe_mamba(categories=(6,) * 8, num_continuous=40,
-                            img_size=IMG, dtype=torch.bfloat16, seed=0)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def request():
-        mri = torch.randn(BATCH, *IMG, 1, generator=gen,
-                          device="cuda").to(torch.bfloat16)
-        x_cat = torch.randint(0, 6, (BATCH, 8), generator=gen, device="cuda")
-        x_num = torch.randn(BATCH, 40, generator=gen,
-                            device="cuda").to(torch.bfloat16)
-        with torch.inference_mode():
-            model(mri, x_cat, x_num, return_pet=True)
-
+    work = _work(args.path, torch.Generator(device="cuda").manual_seed(0))
     for _ in range(2):
-        request()
+        work()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(REQUESTS):
-            request()
+            work()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / REQUESTS
     rows = []
     for evt in prof.key_averages():
-        # device-side events only: operator rows repeat their kernels' time
-        if evt.device_type != DeviceType.CUDA:
+        # device-side events only: operator rows repeat their kernels' time,
+        # and so do annotations such as Optimizer.step on the device track
+        if evt.device_type != DeviceType.CUDA \
+                or getattr(evt, "is_user_annotation", False) \
+                or evt.key.startswith("Optimizer."):
             continue
         dev_us = evt.self_device_time_total
         if dev_us > 0:
@@ -75,13 +115,14 @@ def main() -> int:
                          evt.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"{card}: request {wall_ms:.2f} ms (host clock), device busy "
-          f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-    print(f"{'ms/request':>10} {'share':>6} {'calls':>5}  kernel")
+    print(f"{card}: {args.path} {wall_ms:.2f} ms per iteration (host "
+          f"clock), device busy {busy_ms:.2f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}")
+    print(f"{'ms/iter':>10} {'share':>6} {'calls':>5}  kernel")
     for ms, calls, key in rows[:30]:
         print(f"{ms:10.3f} {ms / busy_ms:6.3f} {calls:5d}  {key[:110]}")
-    if len(sys.argv) > 1:
-        prof.export_chrome_trace(sys.argv[1])
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
     return 0
 
 

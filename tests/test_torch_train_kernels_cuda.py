@@ -1,0 +1,174 @@
+"""The port's training kernels on the card: K4 (scan backward) and K3
+(conv weight gradient) against their plain PyTorch versions, the conv
+and scan autograd Functions against autograd through the plain
+forwards, and small training steps that must launch the kernels.  Every
+test needs an NVIDIA GPU (``cuda`` marker) and skips without one.  The
+file imports torch and the port only, so it also runs where JAX is not
+installed::
+
+    python -m pytest --noconftest tests/test_torch_train_kernels_cuda.py -q
+
+Tolerances, relative to max(1, max |plain|): K4 1e-4 (f32 state on both
+sides; dA/dB/dC/dD summed in other orders), K3 1e-4 in f32 and bf16
+(both sides widen to f32 and sum the same products in other orders), the
+autograd Functions 1e-3 (bf16-free f32 paths, cuDNN vs the kernels'
+accumulation order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gfe_mamba_torch.ops import conv3d as ops_conv
+from gfe_mamba_torch.ops.cuda import conv3d as k1
+from gfe_mamba_torch.ops.cuda import selective_scan as k2
+from gfe_mamba_torch.ops.scan import selective_scan
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _assert_close(got, want, rel, name=""):
+    got, want = got.float().cpu(), want.float().cpu()
+    assert got.shape == want.shape, name
+    err = (got - want).abs().max().item()
+    assert err <= rel * max(1.0, want.abs().max().item()), (name, err)
+
+
+def _randn(gen, *shape, scale=1.0):
+    return torch.from_numpy((gen.randn(*shape) * scale).astype(np.float32))
+
+
+def _scan_args(gen, bsz, L, ED, N, gate, bias, softplus, device):
+    delta = _randn(gen, bsz, L, ED, scale=0.5)
+    if not softplus:             # a real step is positive without softplus
+        delta = delta.abs()
+    args = [_randn(gen, bsz, L, ED), delta, -_randn(gen, ED, N).abs(),
+            _randn(gen, bsz, L, N), _randn(gen, bsz, L, N),
+            _randn(gen, ED), _randn(gen, bsz, L, ED) if gate else None,
+            _randn(gen, ED, scale=0.1) if bias else None]
+    return [None if t is None else t.to(device) for t in args]
+
+
+@pytest.mark.parametrize("gate,bias,softplus,ED,N", [
+    (True, True, True, 1024, 16), (False, False, True, 1000, 16),
+    (True, False, False, 1000, 16), (True, True, True, 256, 8)])
+def test_scan_bwd_kernel_matches_plain(cuda, gate, bias, softplus, ED, N):
+    gen = np.random.RandomState(0)
+    args = _scan_args(gen, 2, 53, ED, N, gate, bias, softplus, cuda)
+    g = _randn(gen, 2, 53, ED).to(cuda)
+    got = k2.selective_scan_bwd_cuda(*args, g, delta_softplus=softplus)
+    want = k2.selective_scan_bwd_plain(*args, g, delta_softplus=softplus)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "ddelta", "dA", "dB", "dC", "dD", "dz",
+                           "dbias"), got, want):
+        assert (a is None) == (b is None), name
+        if b is not None:
+            _assert_close(a, b, 1e-4, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,C,F,affine", [
+    ((1, 20, 20, 12), 64, 64, True), ((2, 5, 7, 19), 24, 40, True),
+    ((2, 5, 7, 19), 24, 40, False)])
+def test_dw_kernel_matches_plain(cuda, dtype, shape, C, F, affine):
+    gen = np.random.RandomState(1)
+    x = _randn(gen, *shape, C).to(cuda, dtype)
+    g1 = _randn(gen, *shape, F).to(cuda, dtype)
+    a = (_randn(gen, shape[0], C).abs() + 0.5).to(cuda) if affine else None
+    s = _randn(gen, shape[0], C).to(cuda) if affine else None
+    got = k1.conv3x3x3_dw_cuda(x, g1, a, s)
+    want = k1.conv3x3x3_dw_plain(x, g1, a, s)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    _assert_close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("act,with_res,post_act", [
+    ("elu", False, "none"), ("none", True, "elu")])
+def test_conv_function_matches_autograd_of_plain(cuda, act, with_res,
+                                                 post_act):
+    """Conv3x3x3Fn on CUDA tensors (K1 forward, K1 as dz, K3 as dw)
+    against torch.autograd through the plain forward, f32.  elu, whose
+    derivative is continuous at 0: a relu output within rounding of 0 can
+    take opposite masks in the two forwards."""
+    gen = np.random.RandomState(2)
+    shape, C, F = (2, 6, 10, 12), 16, 16
+    base = [_randn(gen, *shape, C), _randn(gen, 3, 3, 3, C, F, scale=0.05),
+            None, _randn(gen, 2, C).abs() + 0.5, _randn(gen, 2, C),
+            _randn(gen, *shape, F) if with_res else None]
+    g = _randn(gen, *shape, F).to(cuda)
+    grads = []
+    for fn in (ops_conv.conv3x3x3, k1.conv3x3x3_plain):
+        ins = [None if t is None else t.to(cuda).requires_grad_()
+               for t in base]
+        fn(*ins, act, post_act).backward(g)
+        grads.append([None if t is None else t.grad for t in ins])
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "dw", "dbias", "da", "ds", "dres"),
+                          *grads):
+        if b is not None:
+            _assert_close(a, b, 1e-3, name)
+
+
+def test_cuda_tensors_upstream_of_the_kernels_get_gradients(cuda):
+    """A CUDA tensor before a scan or a conv receives a finite gradient,
+    through K4, K1 (dz) and K3 (dw)."""
+    gen = np.random.RandomState(3)
+    args = _scan_args(gen, 1, 9, 64, 16, True, True, True, cuda)
+    args = [None if t is None else t.requires_grad_() for t in args]
+    k2.bwd_launches = 0
+    selective_scan(*args, delta_softplus=True).sum().backward()
+    assert k2.bwd_launches == 1
+    assert all(torch.isfinite(t.grad).all() and t.grad.abs().sum() > 0
+               for t in args)
+    x = _randn(gen, 1, 4, 4, 8, 8).to(cuda).requires_grad_()
+    w = _randn(gen, 3, 3, 3, 8, 8, scale=0.1).to(cuda).requires_grad_()
+    k1.launches = k1.dw_launches = 0
+    ops_conv.conv3x3x3(x, w, act="relu").sum().backward()
+    assert (k1.launches, k1.dw_launches) == (2, 1)
+    assert torch.isfinite(x.grad).all() and x.grad.abs().sum() > 0
+    assert torch.isfinite(w.grad).all() and w.grad.abs().sum() > 0
+
+
+def test_training_steps_launch_the_kernels(cuda):
+    """One small Stage-2 and one small Stage-1 step on the card: K4 once
+    per Mamba layer; K1 twice and K3 once per generator conv."""
+    from gfe_mamba_torch.losses.perceptual import PerceptualLoss
+    from gfe_mamba_torch.models.discriminator import PatchDiscriminator
+    from gfe_mamba_torch.models.pipeline import (build_generator,
+                                                 build_gfe_mamba)
+    from gfe_mamba_torch.training.classify_trainer import ClassifyTrainer
+    from gfe_mamba_torch.training.gan_trainer import GanTrainer
+
+    tiny = dict(img_size=(16, 16, 8), f_maps=(8, 16, 32), fold_factor=2,
+                vit_patch_size=4, vit_dim=16, vit_depth=1, vit_heads=2,
+                vit_mlp_dim=32, device=cuda)
+    model = build_gfe_mamba(categories=(3, 2), num_continuous=3, dim=64,
+                            depth=2, heads=2, seq_length=2, **tiny)
+    trainer = ClassifyTrainer(model, device=cuda)
+    k2.bwd_launches = 0
+    logs = trainer.train_step(torch.randn(2, 16, 16, 8, 1),
+                              torch.zeros(2, 2, dtype=torch.long),
+                              torch.ones(2, 3), torch.tensor([0.0, 1.0]))
+    assert np.isfinite(logs["cla_loss"]) and logs["skipped"] == 0.0
+    assert k2.bwd_launches == 2
+
+    disc = PatchDiscriminator(2, 4)
+    disc.reset_parameters(torch.Generator().manual_seed(0))
+    gan = GanTrainer(build_generator(**tiny), disc,
+                     PerceptualLoss(0.5, device=cuda), device=cuda)
+    k1.launches = k1.dw_launches = 0
+    logs = gan.train_step(torch.randn(1, 16, 16, 8, 1),
+                          torch.randn(1, 16, 16, 8, 1), 1.0)
+    assert all(np.isfinite(v) for v in logs.values())
+    assert logs["skipped"] == 0.0
+    assert (k1.launches, k1.dw_launches) == (20, 10)
