@@ -39,16 +39,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``PatchDiscriminator(3, 32)`` and ``PerceptualLoss(0.25)`` in bf16,
    batch 1, ``adv_on=1``, 1 warm-up step then 3 steps; each must launch
    K1 10 times in the generator's forward (read when it returns) and 10
-   times for the input gradients after it, and K3 10 times.
+   times for the input gradients after it, and K3 10 times;
+10. GroupNorm + act (K5): K5a (statistics) and K5b (apply + act)
+   against their plain versions at the generator's three GroupNorm
+   widths, batch 4, f32 and bf16, every act, and two ragged shapes;
+   ``GroupNormActFn``'s gradients against autograd of ``_reference``;
+   each kernel timed in bf16 beside its bound, its plain version and the
+   library call; then the path: ``group_norm_act`` forward and backward
+   once at each width, exactly one K5a and one K5b launch per call;
+11. a Stage-2 step with a NaN input, then a finite one, on the card:
+   the skipped step moves nothing but Adam's count, and the next one is
+   Adam's update at count 2, as in the JAX trainer.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  K1's ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are per forward of the main path (its 10
 conv calls at batch 4), its ``dz`` entry per Stage-1 step; K2's per
 forward (its 6 scan calls); K4's per Stage-2 step (6 calls); K3's per
-Stage-1 step (10 calls).  ``launches`` counts each kernel over the run of
-the path it serves: K1 and K2 the 3 requests of phase 5, K4 the 3 steps
-of phase 8, K3 (and K1's ``dz_launches``) the 3 steps of phase 9.
+Stage-1 step (10 calls); K5a's and K5b's per pass over the three widths
+(one call each).  ``launches`` counts each kernel over the run of the
+path it serves: K1 and K2 the 3 requests of phase 5, K4 the 3 steps of
+phase 8, K3 (and K1's ``dz_launches``) the 3 steps of phase 9, K5a and
+K5b the 3 calls of phase 10.
 """
 
 from __future__ import annotations
@@ -83,6 +95,10 @@ SCAN_CALLS = 6
 # convs run a backward each (K1 as dz, K3 as dw), the 6 Mamba layers K4
 TRAIN_BATCH = 1
 GRAD_NAMES = ("dx", "ddelta", "dA", "dB", "dC", "dD", "dz", "dbias")
+# group_norm_act (K5) runs at the generator's GroupNorm widths (the conv
+# levels above), 8 groups
+GN_GROUPS = 8
+GN_ACTS = ("none", "elu", "relu", "leaky_relu")
 
 
 def log(*args):
@@ -875,6 +891,277 @@ def train_stage1_canonical(card: str) -> dict:
     return out
 
 
+def gn_inputs(gen, shape, dtype):
+    C = shape[-1]
+    x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    scale = torch.randn(C, generator=gen, device="cuda")
+    bias = torch.randn(C, generator=gen, device="cuda")
+    return x, scale, bias
+
+
+def gn_bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def library_group_norm(x, scale, bias, groups):
+    """``F.group_norm`` on the channels-first view of channels-last x,
+    then elu: the one PyTorch call for K5a + fold + K5b (yardstick only)."""
+    xc = x.permute(0, 4, 1, 2, 3)
+    y = torch.nn.functional.group_norm(xc, groups, scale.to(x.dtype),
+                                       bias.to(x.dtype), 1e-5)
+    return torch.nn.functional.elu(y)
+
+
+def check_k5(gen) -> list[dict]:
+    """Phase 10, checks and times: K5a and K5b against their plain
+    versions at the generator's GroupNorm widths (batch 4) and a ragged
+    shape, f32 and bf16, every act (K5b takes the plain sums' fold, so
+    both sides see the same statistics); then each timed in bf16 beside
+    its bound, its plain version and the library call."""
+    from gfe_mamba_torch.ops.conv3d import group_norm_stats
+    from gfe_mamba_torch.ops.cuda import group_norm as k5
+    from gfe_mamba_torch.ops.group_norm import fold_group_stats, group_norm_act
+
+    # K5a: f32 sums in two orders over up to 2.5M rows; K5b: the same f32
+    # arithmetic op by op, rounded once to the output dtype
+    tol_a = 1e-5
+    tol_b = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7}
+    # ragged: C = 24 takes 16-byte vectors (3 per row in bf16), C = 12
+    # the scalar path in bf16
+    cases = [((BATCH,) + sp + (C,), GN_GROUPS) for sp, C, _ in CONV_LEVELS]
+    cases += [((2, 7, 5, 3, 24), 3), ((2, 7, 5, 3, 12), 3)]
+    worst = {"a": 0.0, "b": 0.0}
+    for shape, groups in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, scale, bias = gn_inputs(gen, shape, dtype)
+            B, C = shape[0], shape[-1]
+            xv = x.reshape(B, -1, C)
+            got = k5.group_norm_sums_cuda(xv)
+            sums = k5.group_norm_sums_plain(xv)
+            torch.cuda.synchronize()
+            err_a, rel = rel_err(got, sums)
+            log(f"K5a check {list(shape)} {str(dtype)[6:]}: max_abs_err="
+                f"{err_a:.3e} rel={rel:.3e} (tol {tol_a})")
+            if not rel <= tol_a:
+                raise AssertionError(f"K5a disagrees with its plain version: "
+                                     f"rel {rel} > {tol_a}")
+            mean, inv = fold_group_stats(sums, xv.shape[1], groups, 1e-5)
+            errs = []
+            for act in GN_ACTS:
+                got = k5.group_norm_apply_cuda(xv, mean, inv, scale, bias, act)
+                want = k5.group_norm_apply_plain(xv, mean, inv, scale, bias,
+                                                 act)
+                torch.cuda.synchronize()
+                errs.append(rel_err(got, want))
+                del got, want
+            err, rel = max(e for e, _ in errs), max(r for _, r in errs)
+            log(f"K5b check {list(shape)} {str(dtype)[6:]} acts {GN_ACTS}: "
+                f"max_abs_err={err:.3e} rel={rel:.3e} (tol {tol_b[dtype]})")
+            if not rel <= tol_b[dtype]:
+                raise AssertionError(f"K5b disagrees with its plain version: "
+                                     f"{errs}")
+            if dtype == torch.bfloat16 and B == BATCH:
+                worst["a"] = max(worst["a"], err_a)
+                worst["b"] = max(worst["b"], err)
+            del x, xv, sums, mean, inv
+            torch.cuda.empty_cache()
+
+    # the Function's gradients (the VJP of _reference) against autograd
+    # through _reference, f32, elu, at the 128-channel width
+    from gfe_mamba_torch.ops.group_norm import _reference
+    shape = (BATCH,) + CONV_LEVELS[1][0] + (CONV_LEVELS[1][1],)
+    x, scale, bias = gn_inputs(gen, shape, torch.float32)
+    g = torch.randn(*shape, generator=gen, device="cuda")
+    grads = []
+    for fn in (lambda *a: group_norm_act(*a, num_groups=GN_GROUPS,
+                                         act="elu"),
+               lambda *a: _reference(*a, GN_GROUPS, 1e-5, "elu")):
+        ins = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        grads.append(torch.autograd.grad(fn(*ins), ins, g))
+    torch.cuda.synchronize()
+    for name, got, want in zip(("dx", "dscale", "dbias"), *grads):
+        err, rel = rel_err(got, want)
+        log(f"group-norm Function check {list(shape)} f32 act=elu: {name} "
+            f"max_abs_err={err:.3e} rel={rel:.3e} (tol 1e-4)")
+        if not rel <= 1e-4:
+            raise AssertionError(f"group-norm Function {name} disagrees "
+                                 f"with autograd of _reference")
+    del x, scale, bias, g, grads
+    torch.cuda.empty_cache()
+
+    rows = {"a": [], "b": []}
+    for spatial, C, _ in CONV_LEVELS:
+        shape = (BATCH,) + spatial + (C,)
+        x, scale, bias = gn_inputs(gen, shape, torch.bfloat16)
+        xv = x.reshape(BATCH, -1, C)
+        sums = k5.group_norm_sums_cuda(xv)
+        mean, inv = fold_group_stats(sums, xv.shape[1], GN_GROUPS, 1e-5)
+        n, nbytes = x.numel(), x.numel() * x.element_size()
+        ms_a = time_ms(lambda: k5.group_norm_sums_cuda(xv), reps=20)
+        plain_a = time_ms(lambda: k5.group_norm_sums_plain(xv))
+        lib_a = time_ms(lambda: group_norm_stats(x, GN_GROUPS))
+        bound_a, by_a = gn_bound_ms(nbytes + 4 * 2 * BATCH * C, 2 * n)
+        ms_b = time_ms(lambda: k5.group_norm_apply_cuda(
+            xv, mean, inv, scale, bias, "elu"), reps=20)
+        plain_b = time_ms(lambda: k5.group_norm_apply_plain(
+            xv, mean, inv, scale, bias, "elu"))
+        lib_b = time_ms(lambda: library_group_norm(x, scale, bias, GN_GROUPS))
+        bound_b, by_b = gn_bound_ms(2 * nbytes + 4 * 4 * BATCH * C, 6 * n)
+        entry = time_ms(lambda: group_norm_act(
+            x, scale, bias, num_groups=GN_GROUPS, act="elu"), reps=20)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = torch.nn.functional.group_norm(
+            x.permute(0, 4, 1, 2, 3), GN_GROUPS, scale.to(x.dtype),
+            bias.to(x.dtype), 1e-5)
+        torch.cuda.synchronize()
+        extra = (torch.cuda.max_memory_allocated() - base) / nbytes
+        copied = extra > 1.5
+        note = (f"F.group_norm on the permuted view: peak {extra:.2f}x x's "
+                f"bytes, output channels_last_3d="
+                f"{y.is_contiguous(memory_format=torch.channels_last_3d)}, "
+                f"input {'copied' if copied else 'not copied'}")
+        del y
+        log(f"K5a time {list(shape)} bf16: kernel {ms_a:.4f} ms, plain "
+            f"{plain_a:.4f} ms, group_norm_stats {lib_a:.4f} ms, bound "
+            f"{bound_a:.4f} ms ({by_a})")
+        log(f"K5b time {list(shape)} bf16 elu: kernel {ms_b:.4f} ms, plain "
+            f"{plain_b:.4f} ms, bound {bound_b:.4f} ms ({by_b}); "
+            f"group_norm_act {entry:.4f} ms against F.group_norm + elu "
+            f"{lib_b:.4f} ms; {note}")
+        rows["a"].append(dict(shape=list(shape), ms=ms_a, plain_ms=plain_a,
+                              library_ms=lib_a, bound_ms=bound_a,
+                              bound_by=by_a))
+        rows["b"].append(dict(shape=list(shape), ms=ms_b, plain_ms=plain_b,
+                              library_ms=lib_b, bound_ms=bound_b,
+                              bound_by=by_b, group_norm_act_ms=entry,
+                              library_copied_input=copied))
+        del x, xv, sums, mean, inv
+        torch.cuda.empty_cache()
+
+    def entry(key, name, line, library):
+        per_shape = rows[key]
+        totals = {k: sum(r[k] for r in per_shape)
+                  for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        return dict(name=name, route="cuda",
+                    source="gfe_mamba_torch/csrc/group_norm.cu",
+                    replaces=f"gfe_mamba_tpu/ops/pallas/group_norm.py:{line}",
+                    max_abs_err=worst[key], bound_by="bytes",
+                    per="one group_norm_act call at each of the three "
+                        "generator widths, batch 4, bf16",
+                    library=library, per_shape=per_shape, **totals)
+
+    k5b = entry("b", "K5b group-norm apply + act", 47,
+                "F.group_norm + F.elu on the channels-first view: K5a, "
+                "the fold and K5b together")
+    k5b["group_norm_act_ms"] = sum(r["group_norm_act_ms"]
+                                   for r in rows["b"])
+    return [entry("a", "K5a group-norm statistics", 32,
+                  "group_norm_stats (torch.sum + vector_norm)"), k5b]
+
+
+def drive_group_norm(card: str) -> tuple[int, int]:
+    """Phase 10, the path: ``group_norm_act`` forward and backward at the
+    three generator widths, batch 4, bf16, elu (the 'cge' order's GroupNorm
+    + ELU); exactly one K5a and one K5b launch per call; each output
+    finite and within bf16 rounding of the two-pass ``_reference``."""
+    from gfe_mamba_torch.ops.cuda import group_norm as k5
+    from gfe_mamba_torch.ops.group_norm import _reference, group_norm_act
+
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    k5.stats_launches = k5.apply_launches = 0
+    for spatial, C, _ in CONV_LEVELS:
+        shape = (BATCH,) + spatial + (C,)
+        x, scale, bias = gn_inputs(gen, shape, torch.bfloat16)
+        ins = [t.requires_grad_() for t in (x, scale, bias)]
+        before = (k5.stats_launches, k5.apply_launches)
+        t = time.perf_counter()
+        y = group_norm_act(*ins, num_groups=GN_GROUPS, act="elu")
+        y.backward(torch.randn(*shape, generator=gen,
+                               device="cuda").to(y.dtype))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        per = (k5.stats_launches - before[0], k5.apply_launches - before[1])
+        with torch.no_grad():
+            err, rel = rel_err(y, _reference(x, scale, bias, GN_GROUPS, 1e-5,
+                                             "elu"))
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (y, *(i.grad for i in ins)))
+        log(f"group_norm_act {list(shape)} bf16 elu forward+backward: "
+            f"{dt * 1e3:.1f} ms [{card}]; K5a {per[0]}, K5b {per[1]} "
+            f"launches; vs _reference max_abs_err={err:.3e} rel={rel:.3e} "
+            f"(tol 2^-6)")
+        if per != (1, 1):
+            raise AssertionError(f"expected 1 K5a and 1 K5b launch per "
+                                 f"group_norm_act call, got {per}")
+        if y.shape != shape or not finite or not rel <= 2.0 ** -6:
+            raise AssertionError("group_norm_act: bad, non-finite or "
+                                 "wrong output")
+        del x, scale, bias, ins, y
+        torch.cuda.empty_cache()
+    return k5.stats_launches, k5.apply_launches
+
+
+def check_skipped_step() -> None:
+    """Phase 11: a Stage-2 step with a NaN in x_num, then a finite one, on
+    the card (full widths, (64,64,32), f32).  The skipped step moves no
+    parameter and no moment but counts; the finite step is Adam's update
+    at count 2, (m / (1 - b1^2)) / (sqrt(v / (1 - b2^2)) + eps), about
+    0.74 lr per entry where count 1 would move lr."""
+    from gfe_mamba_torch.models.pipeline import build_gfe_mamba
+    from gfe_mamba_torch.training.classify_trainer import ClassifyTrainer
+
+    img = (64, 64, 32)
+    t = time.perf_counter()
+    model = build_gfe_mamba(device="cuda", seed=3, img_size=img,
+                            vit_patch_size=16, vit_dropout=0.0,
+                            vit_emb_dropout=0.0, cross_ff_dropout=0.0,
+                            **CANONICAL)
+    trainer = ClassifyTrainer(model, mixed_precision="none", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    mri = torch.randn(2, *img, 1, generator=gen, device="cuda")
+    x_cat = torch.randint(0, 6, (2, 8), generator=gen, device="cuda")
+    x_num = torch.randn(2, 40, generator=gen, device="cuda")
+    labels = torch.tensor([1.0, 0.0], device="cuda")
+    params = list(trainer.trainable.values())
+    before = [p.detach().clone() for p in params]
+    bad = x_num.clone()
+    bad[0, 0] = float("nan")
+    skipped = trainer.train_step(mri, x_cat, bad, labels)["skipped"]
+    state = [trainer.optimizer.state[p] for p in params]
+    if skipped != 1.0 or any(s["step"].item() != 1 or s["exp_avg"].any()
+                             or s["exp_avg_sq"].any() for s in state) \
+            or not all(torch.equal(p, b) for p, b in zip(params, before)):
+        raise AssertionError("skipped Stage-2 step: parameters or moments "
+                             "moved, or Adam's count is not 1")
+    logs = trainer.train_step(mri, x_cat, x_num, labels)
+    group = trainer.optimizer.param_groups[0]
+    lr, (b1, b2), eps = group["lr"], group["betas"], group["eps"]
+    worst, moved = 0.0, []
+    for p, p0, s in zip(params, before, state):
+        want = p0 - lr * (s["exp_avg"] / (1 - b1 ** 2)) / (
+            (s["exp_avg_sq"] / (1 - b2 ** 2)).sqrt() + eps)
+        tol = 1e-3 * lr + 2.5e-7 * p0.abs().clamp(min=1.0)
+        worst = max(worst, ((p.detach() - want).abs() / tol).max().item())
+        big = s["exp_avg"].abs() > 1e-6
+        moved.append(((p.detach() - p0).abs()[big] / lr).flatten())
+    moved = torch.cat(moved)
+    counts = {s["step"].item() for s in state}
+    log(f"skipped-then-finite Stage-2 step {img} f32: skipped {skipped}, "
+        f"then {logs}; Adam steps {counts}; update error / tolerance "
+        f"{worst:.3e}; |update| / lr over entries with |m| > 1e-6: median "
+        f"{moved.median().item():.4f} (count 2: 0.7441; count 1: 1.0); "
+        f"{time.perf_counter() - t:.1f} s")
+    if logs["skipped"] or counts != {2} or not worst <= 1.0:
+        raise AssertionError("the finite step after a skipped one is not "
+                             "Adam's update at count 2")
+    del trainer, model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -909,6 +1196,10 @@ def main() -> int:
     k3["launches"] = stage1["k3"]
     kernels[0]["dz_launches"] = stage1["dz"]
     kernels += [k4, k3]
+    k5 = check_k5(gen)
+    k5[0]["launches"], k5[1]["launches"] = drive_group_norm(card)
+    kernels += k5
+    check_skipped_step()
     log(f"Stage-2 ms/step {stage2['step_ms']}, Stage-1 ms/step "
         f"{stage1['step_ms']} [{card}]")
     for k in kernels:

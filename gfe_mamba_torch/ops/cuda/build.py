@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
-SOURCES = ("conv3d", "conv3d_dw", "selective_scan", "selective_scan_bwd")
+SOURCES = ("conv3d", "conv3d_dw", "group_norm", "selective_scan",
+           "selective_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

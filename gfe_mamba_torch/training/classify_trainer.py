@@ -5,7 +5,9 @@ One step runs the whole pipeline in the compute dtype: the frozen
 generator (eval mode, no gradient), the combiner and the classifier,
 then BCE-with-logits on the f32 logit, a per-tensor gradient clip and
 Adam over the combiner and classifier only.  A step whose loss or any
-gradient is not finite moves neither the parameters nor the Adam state.
+gradient is not finite moves neither the parameters nor Adam's moments;
+Adam's step count still advances, as optax's integer count does under
+the JAX trainer's finite guard.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from gfe_mamba_torch.models.dropout import seed_dropout
 from gfe_mamba_torch.models.pipeline import GFEMamba
 from gfe_mamba_torch.training.metrics import (confusion_counts,
                                               metrics_from_counts)
-from gfe_mamba_torch.training.optim import (all_finite, cast_for_compute,
+from gfe_mamba_torch.training.optim import (advance_adam_count_, all_finite,
+                                            cast_for_compute,
                                             clip_by_param_norm_,
                                             compute_dtype)
 
@@ -77,6 +80,8 @@ class ClassifyTrainer:
                 p.grad = g
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
+        else:
+            advance_adam_count_(self.optimizer, trainable)
         self.step += 1
         acc = ((torch.sigmoid(logits) >= 0.5) == (labels >= 0.5)).float()
         return {"cla_loss": float(loss.detach()),

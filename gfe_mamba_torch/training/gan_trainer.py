@@ -12,11 +12,14 @@ One step, per microbatch:
 then G takes the optax global-norm clip and Adam, D plain Adam.  D runs
 in f32, as in the JAX trainer.  While ``adv_on == 0`` (the warm-up) D's
 parameters and Adam state do not move at all; a step whose losses or
-gradients are not all finite moves neither player.  ``accum_steps``
-averages both players' gradients over that many microbatches of the
-batch; ``d_fresh_recon`` trains D on a second, no-grad generator forward
-with the updated G (the reference loop's order) instead of the shared
-reconstruction.
+gradients are not all finite moves neither player's parameters nor Adam
+moments, but advances the Adam step count of G, and of D when
+``adv_on > 0``, as optax's integer count advances under the JAX
+trainer's finite guard (which runs after D's warm-up gate).
+``accum_steps`` averages both players' gradients over that many
+microbatches of the batch; ``d_fresh_recon`` trains D on a second,
+no-grad generator forward with the updated G (the reference loop's
+order) instead of the shared reconstruction.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from torch.func import functional_call
 from gfe_mamba_torch import resolve_device
 from gfe_mamba_torch.losses.gan import patch_adversarial_loss
 from gfe_mamba_torch.models.dropout import seed_dropout
-from gfe_mamba_torch.training.optim import (all_finite, cast_for_compute,
+from gfe_mamba_torch.training.optim import (advance_adam_count_, all_finite,
+                                            cast_for_compute,
                                             clip_by_global_norm_,
                                             compute_dtype)
 
@@ -165,7 +169,11 @@ class GanTrainer:
                   and all_finite([*g_grads, *d_grads]))
             if ok:
                 self._step_g(g_grads)
-        if ok and adv_on > 0:
+        if not ok:
+            advance_adam_count_(self.g_opt, self.g_params.values())
+            if adv_on > 0:
+                advance_adam_count_(self.d_opt, self.d_params.values())
+        elif adv_on > 0:
             self._apply(self.d_opt, self.d_params, d_grads)
         self.step += 1
         logs["skipped"] = 0.0 if ok else 1.0

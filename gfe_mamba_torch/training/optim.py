@@ -7,7 +7,8 @@
   ``g / |g| * max_norm``; ``torch.nn.utils.clip_grad_norm_`` divides by
   ``|g| + 1e-6`` and does not match.
 * Adam is ``torch.optim.Adam``: with its defaults (b1 0.9, b2 0.999,
-  eps 1e-8) it makes optax's update.
+  eps 1e-8) it makes optax's update.  A step the finite guard skips
+  still advances its count (``advance_adam_count_``), as optax's does.
 * bf16 compute: the trainers keep f32 master parameters and run the loss
   on a bf16 copy (``cast_for_compute``) through
   ``torch.func.functional_call``.  ``Tensor.to`` is differentiable, so
@@ -60,6 +61,33 @@ def clip_by_global_norm_(grads: Iterable[torch.Tensor],
     for g in grads:
         g.copy_(torch.where(clip, g / norm * max_norm, g))
     return norm
+
+
+@torch.no_grad()
+def advance_adam_count_(optimizer: torch.optim.Adam,
+                        params: Iterable[torch.Tensor]) -> None:
+    """Count a skipped step as optax does under the JAX trainers' finite
+    guard, which keeps the old value of every inexact leaf but takes the
+    new integer ``count``: each parameter's ``step`` rises by 1, and its
+    moments and value stay as they are.  A missing state is made as
+    ``torch.optim.Adam`` makes it (step on the CPU unless capturable or
+    fused, zero moments like the parameter), then counted."""
+    group_of = {p: g for g in optimizer.param_groups for p in g["params"]}
+    for p in params:
+        group, state = group_of[p], optimizer.state[p]
+        if not state:
+            fused = bool(group.get("fused"))
+            dtype = torch.float32 if fused \
+                or torch.get_default_dtype() != torch.float64 \
+                else torch.float64
+            on_device = fused or group.get("capturable")
+            state["step"] = torch.zeros(
+                (), dtype=dtype, device=p.device if on_device else "cpu")
+            for key in ("exp_avg", "exp_avg_sq") \
+                    + (("max_exp_avg_sq",) if group.get("amsgrad") else ()):
+                state[key] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+        state["step"] += 1
 
 
 def all_finite(tensors: Iterable[torch.Tensor]) -> bool:

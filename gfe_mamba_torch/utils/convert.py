@@ -86,7 +86,9 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     classifier), and on the Stage-1 trees whose flax names the port keeps:
     ``PatchDiscriminator`` (``conv_i``, ``norm_i``, ``conv_pre``,
     ``norm_pre``, ``conv_out``) and the perceptual loss's
-    ``SqueezeFeatures`` (``conv1``, ``fire1..8``)."""
+    ``SqueezeFeatures`` (``conv1``, ``fire1..8``).  ``group_norm_act``
+    (``ops/group_norm.py``) needs nothing here: its scale and bias are
+    arguments, and no model holds it."""
     if set(params) == {"params"}:
         params = params["params"]
     out = {}

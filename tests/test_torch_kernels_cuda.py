@@ -8,7 +8,11 @@ is not installed::
 Tolerances, relative to max(1, max |plain|): K1 f32 1e-4 (summation
 order; TF32 is off for the reference), K1 bf16 3e-2 (the plain version
 rounds the conv output to bf16 before its epilogue: up to 1 bf16 ulp,
-0.8%, at the output's scale), K2 1e-5 (f32 state on both sides).
+0.8%, at the output's scale), K2 1e-5 (f32 state on both sides), K5a
+1e-5 (f32 sums in two orders), K5b 1e-6 in f32 and one bf16 ulp (2^-7)
+in bf16 (the same f32 arithmetic, op by op, rounded once), the group-norm
+Function's gradients 1e-4 (autograd of the same reference on both
+sides).
 """
 
 import numpy as np
@@ -16,6 +20,7 @@ import pytest
 import torch
 
 from gfe_mamba_torch.ops.cuda import conv3d as k1
+from gfe_mamba_torch.ops.cuda import group_norm as k5
 from gfe_mamba_torch.ops.cuda import selective_scan as k2
 
 pytestmark = pytest.mark.cuda
@@ -92,6 +97,45 @@ def test_scan_kernel_matches_plain(cuda, gate, bias, softplus, ED):
     want = k2.selective_scan_plain(*args, delta_softplus=softplus)
     torch.cuda.synchronize()
     _assert_close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("shape,groups", [((2, 9, 13, 21, 64), 8),
+                                          ((2, 7, 5, 3, 12), 3),
+                                          ((2, 5, 3, 2, 2056), 8)])
+def test_group_norm_kernels_match_plain(cuda, dtype, rel, shape, groups):
+    """K5a and K5b against their plain versions, every act: 16-byte
+    vectors; C = 12, three vectors a row in f32 and the scalar path in
+    bf16; C = 2056, more vectors than a block's 256 threads (a ragged
+    second channel block).  Then the launches of one ``group_norm_act``
+    call and its gradients against autograd through ``_reference``."""
+    from gfe_mamba_torch.ops.group_norm import _reference, group_norm_act
+
+    gen = np.random.RandomState(2)
+    B, C = shape[0], shape[-1]
+    x = _randn(gen, *shape).to(cuda, dtype)
+    xv = x.reshape(B, -1, C)
+    want = k5.group_norm_sums_plain(xv)
+    _assert_close(k5.group_norm_sums_cuda(xv), want, 1e-5)
+    mean = _randn(gen, B, C).to(cuda)
+    inv = (_randn(gen, B, C).abs() + 0.5).to(cuda)
+    scale, bias = _randn(gen, C).to(cuda), _randn(gen, C).to(cuda)
+    for act in ("none", "elu", "relu", "leaky_relu"):
+        got = k5.group_norm_apply_cuda(xv, mean, inv, scale, bias, act)
+        assert got.dtype == dtype
+        _assert_close(got, k5.group_norm_apply_plain(xv, mean, inv, scale,
+                                                     bias, act), rel)
+    ins = [t.float().requires_grad_() for t in (x, scale, bias)]
+    k5.stats_launches = k5.apply_launches = 0
+    y = group_norm_act(*ins, num_groups=groups, act="elu")
+    assert (k5.stats_launches, k5.apply_launches) == (1, 1)
+    g = _randn(gen, *shape).to(cuda)
+    got = torch.autograd.grad(y, ins, g)
+    want = torch.autograd.grad(_reference(*ins, groups, 1e-5, "elu"), ins, g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _assert_close(a, b, 1e-4)
 
 
 def test_main_path_launches_the_kernels(cuda):

@@ -15,6 +15,11 @@ Tolerances: the five logged losses 1e-4 relative; gradients within 1e-3
 of each tensor's largest JAX entry (f32 through the generator, the
 SqueezeNet trunk and the discriminator, summed in other orders); the
 forwards 1e-4 relative to max(1, max |JAX|); the slice indices exactly.
+Parameters after a skipped step and a finite one: Adam at count 2 moves
+each entry by about 0.74 lr * sign(g), so entries whose gradient is over
+1e-2 of their tensor's largest (ten times the gradient tolerance) and
+over 1e-6 agree within 1e-6 * max(1, |p|); the rest, whose sign rounding
+may decide, within 2 lr.
 """
 
 import jax
@@ -90,6 +95,29 @@ def reference():
             logs={k: float(v) for k, v in logs.items()},
             g_mu=_np(new.g_opt[1][0].mu), d_mu=_np(new.d_opt[0].mu),
             d_count=int(new.d_opt[0].count), d_params=_np(new.d_params))
+        # a step with a NaN in the PET, then the finite step
+        nan_pet = jnp.asarray(pet).at[0, 0, 0, 0, 0].set(jnp.nan)
+        state = GanState(step=jnp.zeros((), jnp.int32),
+                         g_params=jax.tree_util.tree_map(jnp.asarray, g_params),
+                         d_params=jax.tree_util.tree_map(jnp.asarray, d_params),
+                         g_opt=trainer.g_tx.init(
+                             jax.tree_util.tree_map(jnp.asarray,
+                                                    g_params["params"])),
+                         d_opt=trainer.d_tx.init(
+                             jax.tree_util.tree_map(jnp.asarray,
+                                                    d_params["params"])))
+        state, logs = trainer.train_step(state, jnp.asarray(mri), nan_pet,
+                                         jnp.float32(adv_on),
+                                         jax.random.key(2))
+        skipped = float(logs["skipped"])
+        new, _ = trainer.train_step(state, jnp.asarray(mri),
+                                    jnp.asarray(pet), jnp.float32(adv_on),
+                                    jax.random.key(2))
+        steps[adv_on].update(after_skip=dict(
+            skipped=skipped, g_count=int(new.g_opt[1][0].count),
+            d_count=int(new.d_opt[0].count), g_mu=_np(new.g_opt[1][0].mu),
+            d_mu=_np(new.d_opt[0].mu), g_params=_np(new.g_params),
+            d_params=_np(new.d_params)))
     return dict(mri=mri, pet=pet, g_params=g_params, d_params=d_params,
                 squeeze=_np(perceptual.params), steps=steps,
                 jax_models=(generator, disc, perceptual))
@@ -253,18 +281,81 @@ def test_fresh_reconstruction_trains_d_on_the_updated_generator(reference):
     assert any((b - c).abs().max() > 0 for b, c in zip(want, old))
 
 
+def _nan_pet(reference):
+    pet = torch.from_numpy(reference["pet"]).clone()
+    pet[0, 0, 0, 0, 0] = float("nan")
+    return pet
+
+
+def _counts(opt, params: dict) -> set:
+    return {opt.state[p]["step"].item() if p in opt.state else 0
+            for p in params.values()}
+
+
 def test_finite_guard_moves_neither_player(reference):
+    """Neither player's parameters nor Adam moments move; both Adam
+    counts advance, as optax's integer counts do under JAX's guard."""
     trainer = _port(reference)
     before = [{k: v.clone() for k, v in m.state_dict().items()}
               for m in (trainer.generator, trainer.discriminator)]
-    pet = torch.from_numpy(reference["pet"]).clone()
-    pet[0, 0, 0, 0, 0] = float("nan")
-    logs = trainer.train_step(torch.from_numpy(reference["mri"]), pet, 1.0)
+    logs = trainer.train_step(torch.from_numpy(reference["mri"]),
+                              _nan_pet(reference), 1.0)
     assert logs["skipped"] == 1.0
-    assert not trainer.g_opt.state and not trainer.d_opt.state
+    for opt, params in ((trainer.g_opt, trainer.g_params),
+                        (trainer.d_opt, trainer.d_params)):
+        assert _counts(opt, params) == {1}
+        assert not any(opt.state[p][k].any() for p in params.values()
+                       for k in ("exp_avg", "exp_avg_sq"))
     for m, b in zip((trainer.generator, trainer.discriminator), before):
         for k, v in m.state_dict().items():
             assert torch.equal(v, b[k]), k
+
+
+def _assert_params_match(model, want, mu, lr):
+    """Parameters after Adam's step at count 2, against JAX's, with the
+    tolerance of the module docstring."""
+    want, mu = state_dict_from_jax(want), state_dict_from_jax(mu)
+    for name, p in model.named_parameters():
+        got, w, g = p.detach().numpy(), want[name].numpy(), mu[name].numpy()
+        err = np.abs(got - w)
+        assert np.all(err <= 2.0001 * lr), name
+        big = np.abs(g) > np.maximum(1e-2 * np.abs(g).max(), 1e-7)
+        np.testing.assert_array_less(
+            err[big], 1e-6 * np.maximum(1.0, np.abs(w[big])) + 1e-12, name)
+
+
+@pytest.mark.parametrize("adv_on", [1.0, 0.0])
+def test_skipped_then_finite_step_matches_jax(reference, adv_on):
+    """After a NaN step, G's count reads 2 after the finite step, and
+    D's too with the adversary on; in the warm-up D's count stays 0 and
+    D does not move, on both sides."""
+    want = reference["steps"][adv_on]["after_skip"]
+    trainer = _port(reference)
+    mri = torch.from_numpy(reference["mri"])
+    assert trainer.train_step(mri, _nan_pet(reference), adv_on)[
+        "skipped"] == 1.0 == want["skipped"]
+    logs = trainer.train_step(mri, torch.from_numpy(reference["pet"]),
+                              adv_on)
+    assert logs["skipped"] == 0.0
+    assert want["g_count"] == 2 and _counts(trainer.g_opt,
+                                            trainer.g_params) == {2}
+    _assert_params_match(trainer.generator, want["g_params"], want["g_mu"],
+                         trainer.g_opt.param_groups[0]["lr"])
+    if adv_on:
+        assert want["d_count"] == 2 and _counts(trainer.d_opt,
+                                                trainer.d_params) == {2}
+        _assert_params_match(trainer.discriminator, want["d_params"],
+                             want["d_mu"],
+                             trainer.d_opt.param_groups[0]["lr"])
+    else:
+        assert want["d_count"] == 0 and not trainer.d_opt.state
+        for a, b in zip(jax.tree_util.tree_leaves(want["d_params"]),
+                        jax.tree_util.tree_leaves(reference["d_params"])):
+            np.testing.assert_array_equal(a, b)
+        for name, p in trainer.discriminator.named_parameters():
+            np.testing.assert_array_equal(
+                p.detach().numpy(),
+                state_dict_from_jax(reference["d_params"])[name].numpy())
 
 
 @pytest.mark.parametrize("criterion", ["least_squares", "bce", "hinge"])

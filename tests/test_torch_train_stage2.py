@@ -13,7 +13,9 @@ largest JAX entry (f32 sums in other orders through the Mamba scan and
 the 64-wide cross-attention).  Updated parameters: Adam's first step
 moves each entry by lr * g / (|g| + 1e-8), about lr * sign(g), so
 entries whose gradient is below 1e-6 may differ by up to 2 lr (a sign
-decided by rounding); all others agree within 1e-6 * max(1, |p|).
+decided by rounding); all others agree within 1e-6 * max(1, |p|).  The
+same holds for the finite step after a skipped one, whose update is
+Adam's at count 2 on both sides (about 0.74 lr * sign(g)).
 """
 
 import jax
@@ -90,13 +92,52 @@ def reference():
     probs, eval_loss = np.asarray(probs), float(eval_loss)
     counts = [float(c) for c in counts]
     new, logs = trainer.train_step(state, *jb, jax.random.key(1))
-    adam = new.opt_state.inner_states["train"].inner_state[1][0]
-    mu = {k: v for k, v in adam.mu.items() if k != "generator"}
-    return dict(batch=batch, params0=params0,
-                params1=jax.tree_util.tree_map(np.asarray, new.params),
-                mu=jax.tree_util.tree_map(np.asarray, mu),
-                loss=float(logs["cla_loss"]), acc=float(logs["batch_acc"]),
-                probs=probs, eval_loss=eval_loss, counts=counts)
+    # a step with a NaN input, then the finite step, from the same weights
+    skip_state = ClassifyState(
+        step=jnp.zeros((), jnp.int32),
+        params=jax.tree_util.tree_map(jnp.asarray, params0),
+        opt_state=trainer.tx.init(
+            jax.tree_util.tree_map(jnp.asarray, params0["params"])))
+    skip_state, skip_logs = trainer.train_step(
+        skip_state, jb[0], jb[1], jb[2].at[0, 0].set(jnp.nan), jb[3],
+        jax.random.key(1))
+    after_skip, _ = trainer.train_step(skip_state, *jb, jax.random.key(1))
+    return dict(batch=batch, params0=params0, params1=_np(new.params),
+                mu=_mu(new), loss=float(logs["cla_loss"]),
+                acc=float(logs["batch_acc"]), probs=probs,
+                eval_loss=eval_loss, counts=counts,
+                skipped=float(skip_logs["skipped"]),
+                params2=_np(after_skip.params), mu2=_mu(after_skip),
+                count2=int(_adam(after_skip).count))
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _adam(state):
+    return state.opt_state.inner_states["train"].inner_state[1][0]
+
+
+def _mu(state):
+    return _np({k: v for k, v in _adam(state).mu.items() if k != "generator"})
+
+
+def _assert_step_matches(model, before, after, mu):
+    """Updated parameters against JAX's, with the tolerance of the
+    module docstring; frozen ones bit-identical to ``before``."""
+    mu = state_dict_from_jax(mu)
+    before, after = state_dict_from_jax(before), state_dict_from_jax(after)
+    for name, p in model.named_parameters():
+        got, want = p.detach().numpy(), after[name].numpy()
+        if not p.requires_grad:
+            np.testing.assert_array_equal(got, before[name].numpy())
+            continue
+        tiny = np.abs(mu[name].numpy()) <= 1e-7      # |g| <= 1e-6
+        assert np.all(np.abs(got - want) <= 2.0001 * LR), name
+        np.testing.assert_array_less(
+            np.abs(got - want)[~tiny],
+            1e-6 * np.maximum(1.0, np.abs(want[~tiny])) + 1e-12)
 
 
 def test_train_step_matches_jax(reference):
@@ -118,18 +159,8 @@ def test_train_step_matches_jax(reference):
         exp_avg = trainer.optimizer.state[params[name]]["exp_avg"]
         _assert_close(exp_avg, mu[name], name)
 
-    before = state_dict_from_jax(reference["params0"])
-    after = state_dict_from_jax(reference["params1"])
-    for name, p in params.items():
-        got, want = p.detach().numpy(), after[name].numpy()
-        if name not in trainable:
-            np.testing.assert_array_equal(got, before[name].numpy())
-            continue
-        tiny = np.abs(mu[name].numpy()) <= 1e-7      # |g| <= 1e-6
-        assert np.all(np.abs(got - want) <= 2.0001 * LR), name
-        np.testing.assert_array_less(
-            np.abs(got - want)[~tiny],
-            1e-6 * np.maximum(1.0, np.abs(want[~tiny])) + 1e-12)
+    _assert_step_matches(model, reference["params0"], reference["params1"],
+                         reference["mu"])
 
 
 def test_eval_step_matches_jax(reference):
@@ -163,22 +194,34 @@ def test_generator_stays_frozen(reference):
 
 
 def test_finite_guard_skips_the_whole_step(reference):
+    """A NaN input moves no parameter and no Adam moment but advances
+    Adam's count, as optax's integer count advances under JAX's guard; the
+    finite step after it matches JAX's, count 2 on both sides."""
     model = _port_model(reference["params0"])
-    trainer = ClassifyTrainer(model, mixed_precision="none", device="cpu")
+    trainer = ClassifyTrainer(model, lr=LR, mixed_precision="none",
+                              device="cpu")
     before = {k: v.clone() for k, v in model.state_dict().items()}
     mri, x_cat, x_num, labels = (torch.from_numpy(v)
                                  for v in reference["batch"])
     bad = x_num.clone()
     bad[0, 0] = float("nan")
     logs = trainer.train_step(mri, x_cat, bad, labels)
-    assert logs["skipped"] == 1.0
-    assert not trainer.optimizer.state           # Adam never stepped
+    assert logs["skipped"] == 1.0 == reference["skipped"]
+    for p in trainer.trainable.values():
+        state = trainer.optimizer.state[p]
+        assert state["step"].item() == 1
+        assert not state["exp_avg"].any() and not state["exp_avg_sq"].any()
     for k, v in model.state_dict().items():
         assert torch.equal(v, before[k]), k
     logs = trainer.train_step(mri, x_cat, x_num, labels)
     assert logs["skipped"] == 0.0
     np.testing.assert_allclose(logs["cla_loss"], reference["loss"],
                                rtol=1e-5)
+    assert reference["count2"] == 2
+    assert all(trainer.optimizer.state[p]["step"].item() == 2
+               for p in trainer.trainable.values())
+    _assert_step_matches(model, reference["params0"], reference["params2"],
+                         reference["mu2"])
 
 
 @pytest.mark.parametrize("preds,targets", [
