@@ -19,12 +19,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    K1 10 times and K2 6 times;
 6. the training kernels against their plain versions: K4 (scan
    backward) at (1|4, 53, 1024|1000, 16) with every flag on and off, K3
-   (conv weight gradient) at the three generator levels (batch 1) and a
-   ragged shape in f32 and bf16 with and without the GN affine, K1 as the
-   input gradient (flipped weights, no GN), and the conv autograd
-   Function against autograd through the plain forward; each timed at
-   the training shapes beside its bound and the cuDNN call that computes
-   the same function (wgrad for K3, dgrad for K1's dz);
+   (conv weight gradient) at the three generator levels (batch 1) and two
+   ragged shapes (one with C != F) in f32 and bf16 with and without the
+   GN affine (bf16 on the tensor-core variant, f32 on the CUDA-core one,
+   a second bf16 call bitwise equal), K1 as the input gradient (flipped
+   weights, no GN), and the conv autograd Function against autograd
+   through the plain forward; each timed at the training shapes beside
+   its bound and the cuDNN call that computes the same function (wgrad
+   for K3, with K3 v1's time and the share of the bf16 peak; dgrad for
+   K1's dz);
 7. training parity: full widths, the reduced volume (64,64,32), f32,
    dropout off: one Stage-2 and three Stage-1 steps (order gcr with the
    adversary on, at two seeds; order gce with it off) on the CPU (plain
@@ -39,7 +42,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``PatchDiscriminator(3, 32)`` and ``PerceptualLoss(0.25)`` in bf16,
    batch 1, ``adv_on=1``, 1 warm-up step then 3 steps; each must launch
    K1 10 times in the generator's forward (read when it returns) and 10
-   times for the input gradients after it, and K3 10 times;
+   times for the input gradients after it, and K3 10 times, all 10 on
+   its bf16 tensor-core variant;
 10. GroupNorm + act (K5): K5a (statistics) and K5b (apply + act)
    against their plain versions at the generator's three GroupNorm
    widths, batch 4, f32 and bf16, every act, and two ragged shapes;
@@ -95,6 +99,15 @@ SCAN_CALLS = 6
 # convs run a backward each (K1 as dz, K3 as dw), the 6 Mamba layers K4
 TRAIN_BATCH = 1
 GRAD_NAMES = ("dx", "ddelta", "dA", "dB", "dC", "dD", "dz", "dbias")
+# K3's design in csrc/conv3d_dw.cu, and v1's times (one tap per block,
+# f32 FMAs on the CUDA cores; per call by channel width and per Stage-1
+# step, H100 80GB HBM3 at 700 W, from PERF.md section 6), logged for
+# comparison and kept out of the kernels line
+K3_VERSION = ("v2: bf16 mma.sync m16n8k16 over a TMA-staged, double-buffered "
+              "x slab serving the 9 taps of one dx, GN affine applied in "
+              "shared memory")
+K3_V1_MS = {64: 20.96, 128: 10.38, 256: 5.14}
+K3_V1_STEP_MS = 135.63
 # group_norm_act (K5) runs at the generator's GroupNorm widths (the conv
 # levels above), 8 groups
 GN_GROUPS = 8
@@ -450,13 +463,16 @@ def cudnn_conv_grad(x, w, g, which):
 
 def check_k3(gen) -> dict:
     """K3 against its plain version at the three generator levels (batch
-    1) and a ragged shape, f32 and bf16, with and without the GN affine;
-    then timed at the Stage-1 shapes (bf16, affine) beside cuDNN's wgrad
-    of the same (already affine-applied) input."""
+    1) and ragged shapes (bricks ragged in every axis, C != F over two
+    channel tiles), f32 and bf16, with and without the GN affine; a bf16
+    call must launch the tensor-core variant and an f32 call the CUDA-core
+    one, and a second bf16 call must return the same bits.  Then timed at
+    the Stage-1 shapes (bf16, affine) beside cuDNN's wgrad of the same
+    (already affine-applied) input, the bound and v1's time."""
     from gfe_mamba_torch.ops.cuda import conv3d as kc
 
     cases = [((TRAIN_BATCH,) + sp, C, C) for sp, C, _ in CONV_LEVELS]
-    cases.append(((2, 9, 13, 21), 24, 40))
+    cases += [((2, 9, 13, 21), 24, 40), ((1, 6, 7, 20), 128, 64)]
     worst = 0.0
     for shape, C, F in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -465,17 +481,34 @@ def check_k3(gen) -> dict:
                                                 True)
                 if not affine:
                     a = s = None
+                before = (kc.dw_mma_launches, kc.dw_fma_launches)
                 got = kc.conv3x3x3_dw_cuda(x, g1, a, s)
                 want = kc.conv3x3x3_dw_plain(x, g1, a, s)
                 torch.cuda.synchronize()
+                mma = dtype == torch.bfloat16
+                moved = (kc.dw_mma_launches - before[0],
+                         kc.dw_fma_launches - before[1])
+                if moved != ((1, 0) if mma else (0, 1)):
+                    raise AssertionError(f"K3 {dtype} call launched "
+                                         f"(tensor-core, CUDA-core) {moved}")
                 err, rel = rel_err(got, want)
+                same = ""
+                if mma:
+                    again = kc.conv3x3x3_dw_cuda(x, g1, a, s)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        raise AssertionError("two bf16 K3 calls on the same "
+                                             "inputs differ")
+                    same = ", a second call bitwise equal"
+                    del again
                 log(f"K3 check {shape}x{C}->{F} {str(dtype)[6:]} "
-                    f"affine={affine}: max_abs_err={err:.3e} rel={rel:.3e} "
-                    f"(tol 1e-4)")
+                    f"affine={affine} ({'tensor' if mma else 'CUDA'} "
+                    f"cores): max_abs_err={err:.3e} rel={rel:.3e} "
+                    f"(tol 1e-4){same}")
                 if not rel <= 1e-4:
                     raise AssertionError(f"K3 disagrees with its plain "
                                          f"version: rel {rel} > 1e-4")
-                if dtype == torch.bfloat16 and affine and shape[0] == 1:
+                if mma and affine and shape[0] == 1:
                     worst = max(worst, err)
                 del x, a, s, g1, got, want
     torch.cuda.empty_cache()
@@ -488,6 +521,7 @@ def check_k3(gen) -> dict:
         w = torch.empty(3, 3, 3, C, C, dtype=torch.bfloat16, device="cuda")
         zhat = kc.affine_in_dtype(x, a, s)
         ms = time_ms(lambda: kc.conv3x3x3_dw_cuda(x, g1, a, s))
+        bare = time_ms(lambda: kc.conv3x3x3_dw_cuda(x, g1))
         plain = time_ms(lambda: kc.conv3x3x3_dw_plain(x, g1, a, s), reps=2)
         lib = time_ms(lambda: cudnn_conv_grad(zhat, w, g1, "w"))
         vox = TRAIN_BATCH * spatial[0] * spatial[1] * spatial[2]
@@ -496,19 +530,27 @@ def check_k3(gen) -> dict:
                    + 2 * 4 * TRAIN_BATCH * C) / HBM_BYTES_PER_S
         bound = max(t_ops, t_bytes) * 1e3
         by = "operations" if t_ops >= t_bytes else "bytes"
+        peak_share = t_ops * 1e3 / ms
         per_shape.append(dict(shape=[TRAIN_BATCH, *spatial, C], calls=count,
                               ms=ms, plain_ms=plain, library_ms=lib,
-                              bound_ms=bound, bound_by=by))
-        log(f"K3 time {[TRAIN_BATCH, *spatial, C]} bf16: kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, cuDNN wgrad {lib:.4f} ms, bound "
-            f"{bound:.4f} ms ({by}); {count} per Stage-1 step")
+                              bound_ms=bound, bound_by=by,
+                              bf16_peak_share=peak_share,
+                              no_affine_ms=bare))
+        log(f"K3 time {[TRAIN_BATCH, *spatial, C]} bf16: kernel {ms:.4f} ms "
+            f"({peak_share:.1%} of the bf16 peak; {bare:.4f} ms without the "
+            f"affine), plain {plain:.4f} ms, cuDNN wgrad {lib:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}), v1 {K3_V1_MS[C]} ms; {count} per "
+            f"Stage-1 step")
         for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
                        ("library_ms", lib)):
             totals[key] += count * v
         del x, a, s, g1, zhat, w
     torch.cuda.empty_cache()
-    return dict(name="K3 conv weight gradient", route="cuda",
-                source="gfe_mamba_torch/csrc/conv3d_dw.cu",
+    log(f"K3 per Stage-1 step: kernel {totals['ms']:.3f} ms, cuDNN wgrad "
+        f"{totals['library_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms, "
+        f"v1 {K3_V1_STEP_MS} ms")
+    return dict(name="K3 conv weight gradient", version=K3_VERSION,
+                route="cuda", source="gfe_mamba_torch/csrc/conv3d_dw.cu",
                 replaces="gfe_mamba_tpu/ops/pallas/conv3d.py:516",
                 max_abs_err=worst, bound_by="operations",
                 per="Stage-1 step: 10 calls at batch 1, bf16",
@@ -854,10 +896,11 @@ def train_stage1_canonical(card: str) -> dict:
     trainer.train_step(*volumes(300), 1.0)        # warm-up
     torch.cuda.synchronize()
     k1.launches = k1.dw_launches = 0
+    k1.dw_mma_launches = k1.dw_fma_launches = 0
     at_forward_end.clear()
     times, forward, dz = [], 0, 0
     for i in range(3):
-        before = (k1.launches, k1.dw_launches)
+        before = (k1.launches, k1.dw_launches, k1.dw_mma_launches)
         t = time.perf_counter()
         logs = trainer.train_step(*volumes(i), 1.0)
         torch.cuda.synchronize()
@@ -867,19 +910,24 @@ def train_stage1_canonical(card: str) -> dict:
             raise AssertionError(f"{len(at_forward_end) - i} generator "
                                  f"forwards in Stage-1 step {i}")
         per = (at_forward_end[-1] - before[0],
-               k1.launches - at_forward_end[-1], k1.dw_launches - before[1])
+               k1.launches - at_forward_end[-1], k1.dw_launches - before[1],
+               k1.dw_mma_launches - before[2])
         forward, dz = forward + per[0], dz + per[1]
         log(f"Stage-1 step {i}: {dt * 1e3:.1f} ms, {TRAIN_BATCH / dt:.2f} "
             f"volumes/s [{card}]; K1 {per[0]} forward + {per[1]} dz, "
-            f"K3 {per[2]} launches; {logs}")
+            f"K3 {per[2]} launches ({per[3]} on tensor cores); {logs}")
         if not all(math.isfinite(v) for v in logs.values()) \
                 or logs["skipped"]:
             raise AssertionError("Stage-1 step: non-finite or skipped")
-        if per != (10, 10, 10):
+        if per != (10, 10, 10, 10):
             raise AssertionError(f"expected 10 K1 forward, 10 K1 dz and 10 "
-                                 f"K3 launches per Stage-1 step, got {per}")
+                                 f"K3 launches per Stage-1 step, all 10 on "
+                                 f"the tensor-core variant, got {per}")
+    if k1.dw_fma_launches:
+        raise AssertionError(f"{k1.dw_fma_launches} f32 K3 launches in the "
+                             f"bf16 Stage-1 steps")
     out = dict(k1=k1.launches, forward=forward, dz=dz, k3=k1.dw_launches,
-               step_ms=times)
+               k3_mma=k1.dw_mma_launches, step_ms=times)
     pet = trainer.generate(volumes(400)[0])
     torch.cuda.synchronize()
     if pet.shape != (TRAIN_BATCH, *IMG, 1) \
@@ -1194,6 +1242,7 @@ def main() -> int:
     stage1 = train_stage1_canonical(card)
     k4["launches"] = stage2["k4"]
     k3["launches"] = stage1["k3"]
+    k3["tensor_core_launches"] = stage1["k3_mma"]
     kernels[0]["dz_launches"] = stage1["dz"]
     kernels += [k4, k3]
     k5 = check_k5(gen)

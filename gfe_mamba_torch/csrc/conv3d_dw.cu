@@ -14,56 +14,371 @@
 // What bounds it on the H100: 2 * V * 27 * C * F operations for V voxels
 // against one read of x and g1 (2 * V * (C + F) bytes in bf16); at the
 // generator's shapes that is ~430 operations per byte, so it is bound by
-// arithmetic, not memory.
+// tensor-core arithmetic, not memory.
 //
-// Design: for each tap the gradient is a GEMM dw_t = zhat_t^T g1 with
-// M = C, N = F and K = the voxels, where zhat_t is zhat shifted by the
-// tap.  A block owns one tap and a 64 x 64 tile of (c, f), and a range of
-// voxels (split-K): per chunk of 32 consecutive voxels it stages the
-// shifted zhat rows (the affine applied as they load, the halo zero) and
-// the g1 rows in shared memory as f32, then each of 256 threads
-// accumulates a 4 x 4 tile on the CUDA cores.  Every block writes its f32
-// partial to (splits, 27, C, F); the caller sums over splits, a second
-// pass in a fixed order, so the result is deterministic.  bf16 inputs are
-// widened to f32 as they are staged.  This is the simple, correct first
-// version: tensor cores (mma.sync on bf16), a block that serves several
-// taps from one staged halo, and overlapped staging are later work.  No
-// TPU layout (z-pair packing, parity blocks) is kept.
+// Two variants, chosen by dtype; neither falls back to the other.
+//
+// bf16 (dw_mma_kernel): per tap the gradient is a GEMM dw_t = zhat_t^T g1
+// with M = C, N = F and K = the voxels.  A block owns a 64 x 64 (c, f)
+// tile, the 9 taps of one dx, and a run of 4 x 4 x 16 voxel bricks
+// (split-K).  Per brick it stages, in bf16 and channels-last, the raw x
+// slab those 9 taps read (the 4 x-slices x0+dx-1.., 6 y, 18 z: 432 rows)
+// and the brick's 256 g1 rows: two TMA loads issued by one thread, zero
+// outside the volume and beyond C or F, with the 128-byte swizzle (each
+// row's 16-byte slots XORed with the row mod 8, so ldmatrix reads 8 rows
+// without bank conflicts).  A bare copy cannot form zhat, whose halo must
+// stay 0, so with the affine all threads then apply it in place to the
+// slab's real voxels (mul.rn then add.rn on bf16 pairs: each step rounds
+// once, as the plain version's f32 arithmetic rounded to bf16 does).  The
+// stages are double-buffered: the next brick's loads are issued after
+// that pass and land while the current brick's MMAs run.  For each
+// 16-voxel z run a warp loads its g1 fragments (B, ldmatrix.trans) once
+// and reuses them for all 9 taps; each tap's zhat fragment (A,
+// ldmatrix.trans) is the same run shifted by (dy, dz) in the slab, so one
+// staged slab serves 9 taps.  Products are mma.sync m16n8k16 (bf16 in,
+// f32 accumulate); each warp holds a 16 (c) x 32 (f) tile of all 9 taps,
+// 144 f32 accumulators.  bf16 products are exact in f32, so only the order
+// of the f32 sums differs from the plain version.  On the H100 the affine
+// pass takes about a quarter of the 64-channel time (chip_smoke.py times
+// the kernel with and without it); forming zhat in registers per tap, or
+// in a producer warpgroup, measured slower.
 
+// f32 (dw_fma_kernel, for checks; TF32 would lose the 1e-4 parity): one
+// tap per block, a 64 x 64 tile, a voxel range, zhat and g1 staged as f32
+// per 32-voxel chunk and a 4 x 4 FMA tile per thread on the CUDA cores.
+//
+// Both write one f32 partial per (split, tap, c, f), every element once;
+// the caller sums the splits in a fixed order, so dw is deterministic (no
+// atomics).  No TPU layout (z-pair packing, parity blocks) is kept.
+
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TILE = 64;      // c and f per block
-constexpr int KC = 32;        // voxels per shared-memory chunk
-constexpr int NTHREADS = 256; // 16 x 16 threads, 4 x 4 outputs each
+constexpr int TILE = 64;        // c and f per block
+constexpr int NTHREADS = 256;   // 8 warps
 
-template <typename T> struct Vec;
-template <> struct Vec<float> { static constexpr int N = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
+// ---- bf16: tensor cores -------------------------------------------------
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+constexpr int BX = 4, BY = 4, BZ = 16;         // voxel brick
+constexpr int BV = BX * BY * BZ;               // 256 voxels, 16 z runs
+constexpr int SY = BY + 2, SZ = BZ + 2;        // slab of one dx: BX x SY x SZ
+constexpr int SLAB_ROWS = BX * SY * SZ;        // 432
+constexpr int ROW_BYTES = TILE * 2;            // 64 bf16 channels
+constexpr int STAGE_BYTES = (SLAB_ROWS + BV) * ROW_BYTES;   // 88,064
+// two stages, and room to align the first to the 1,024 bytes over which
+// the TMA's 128-byte swizzle repeats (both stage parts are multiples of it)
+constexpr int MMA_SMEM = 2 * STAGE_BYTES + 1024;
+static_assert(SLAB_ROWS * ROW_BYTES % 1024 == 0 && STAGE_BYTES % 1024 == 0,
+              "stage parts keep the swizzle's 1,024-byte alignment");
+constexpr int GROUP_TAPS = 9;                  // one dx, every (dy, dz)
+constexpr int N8 = 4;                          // n8 tiles per warp (32 f)
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
+
+// byte offset of 16-byte slot `slot` of staged row `r` under the TMA's
+// 128-byte swizzle
+__device__ __forceinline__ unsigned swz(int r, int slot) {
+  return (unsigned)(r * ROW_BYTES + ((slot ^ (r & 7)) << 4));
+}
+
+struct Brick {
+  int b, x0, y0, z0;
+};
+
+// brick i of the volume, z fastest: (b, xt, yt, zt) of a (B, nxt, nyt,
+// nzt) grid of BX x BY x BZ bricks
+__device__ __forceinline__ Brick brick_at(int i, int nxt, int nyt, int nzt) {
+  Brick r;
+  r.z0 = (i % nzt) * BZ;
+  i /= nzt;
+  r.y0 = (i % nyt) * BY;
+  i /= nyt;
+  r.x0 = (i % nxt) * BX;
+  r.b = i / nxt;
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// One TMA load of a (c, z, y, x, b) box at the given (signed) origin.
+__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map,
+                                         unsigned bar, int c, int z, int y,
+                                         int x, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(z), "r"(y), "r"(x),
+      "r"(b), "r"(bar)
+      : "memory");
+}
+
+// Brick k's raw x slab (for the block's dx) and g1 rows into the stage at
+// `st`; the barrier completes when all STAGE_BYTES have landed.
+__device__ __forceinline__ void stage_brick(unsigned st, unsigned bar,
+                                            const CUtensorMap* xmap,
+                                            const CUtensorMap* gmap,
+                                            const Brick& k, int dx, int c0,
+                                            int f0) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(STAGE_BYTES)
+               : "memory");
+  tma_load(st, xmap, bar, c0, k.z0 - 1, k.y0 - 1, k.x0 + dx - 1, k.b);
+  tma_load(st + SLAB_ROWS * ROW_BYTES, gmap, bar, f0, k.z0, k.y0, k.x0, k.b);
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned& r0,
+                                              unsigned& r1, unsigned& r2,
+                                              unsigned& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two bf16 values of (a or s), lower address in the low half; `none`
+// without p
+__device__ __forceinline__ unsigned bf16_pair(const float* p, size_t i,
+                                              float none) {
+  const float lo = p != nullptr ? __ldg(p + i) : none;
+  const float hi = p != nullptr ? __ldg(p + i + 1) : none;
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+
+// round(round(x * a) + s) on a bf16 pair: mul.rn and add.rn round the
+// exact product and the exact sum once each, as the plain version's f32
+// arithmetic rounded to bf16 does
+__device__ __forceinline__ unsigned affine_pair(unsigned v, unsigned sc,
+                                                unsigned sh) {
+  asm("mul.rn.bf16x2 %0, %0, %1;\n" : "+r"(v) : "r"(sc));
+  asm("add.rn.bf16x2 %0, %0, %1;\n" : "+r"(v) : "r"(sh));
   return v;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+
+// zhat in place on the real voxels of brick k's staged raw slab.  Thread
+// t takes the 16-byte slot t % 8 (8 channels) of rows t / 8 + 32 j, its
+// loads batched (a loop over (x, y) runs with a branch per row cost ~40%
+// more on the H100).  A row is real when its (x, y)
+// run and its z are inside the volume; halo rows keep the TMA's zeros.
+// Without a scale the pass multiplies by 1, without a shift it adds -0;
+// beyond C the slot holds zeros and dw there is never written.
+__device__ void affine_slab(unsigned char* slab, const float* __restrict__ a,
+                            const float* __restrict__ s, const Brick& k,
+                            int dx, int X, int Y, int Z, int C, int c0) {
+  constexpr int ROWS = (SLAB_ROWS + 31) / 32;   // rows per thread, at most
+  constexpr int BATCH = 7;
+  const int slot = threadIdx.x & 7, r0 = threadIdx.x >> 3;
+  const int c = c0 + 8 * slot;
+  const size_t ac = (size_t)k.b * C + c;
+  unsigned sc[4], sh[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    sc[j] = bf16_pair(c < C ? a : nullptr, ac + 2 * j, 1.f);
+    sh[j] = bf16_pair(c < C ? s : nullptr, ac + 2 * j, -0.f);
+  }
+  // real (x, y) runs as a bit mask over run = sx * SY + hy; real z rows
+  unsigned runs = 0;
+#pragma unroll
+  for (int sx = 0; sx < BX; ++sx) {
+    const int gx = k.x0 + sx + dx - 1;
+    if (gx < 0 || gx >= X) continue;
+#pragma unroll
+    for (int hy = 0; hy < SY; ++hy) {
+      const int gy = k.y0 + hy - 1;
+      runs |= (unsigned)(gy >= 0 && gy < Y) << (sx * SY + hy);
+    }
+  }
+  const int hz_lo = max(0, 1 - k.z0), hz_hi = min(SZ, Z + 1 - k.z0);
+#pragma unroll
+  for (int j0 = 0; j0 < ROWS; j0 += BATCH) {
+    uint4 v[BATCH];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int r = r0 + 32 * (j0 + j);
+      if (j0 + j < ROWS && r < SLAB_ROWS)
+        v[j] = *reinterpret_cast<const uint4*>(slab + swz(r, slot));
+    }
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int r = r0 + 32 * (j0 + j);
+      if (j0 + j >= ROWS || r >= SLAB_ROWS) continue;
+      const int run = r / SZ, hz = r - run * SZ;
+      if (!((runs >> run) & 1u) || hz < hz_lo || hz >= hz_hi) continue;
+      v[j].x = affine_pair(v[j].x, sc[0], sh[0]);
+      v[j].y = affine_pair(v[j].y, sc[1], sh[1]);
+      v[j].z = affine_pair(v[j].z, sc[2], sh[2]);
+      v[j].w = affine_pair(v[j].w, sc[3], sh[3]);
+      *reinterpret_cast<uint4*>(slab + swz(r, slot)) = v[j];
+    }
+  }
 }
 
-template <typename T>
+// Wait for the phase of `parity`.  A phase that never completes (a fault
+// in a descriptor) ends the kernel with an error instead of a hang.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  for (int spin = 0; !mbar_try_wait(bar, parity);)
+    if (++spin == (1 << 22)) __trap();
+}
+
+// Grid: x = (group, f tile, c tile), group fastest, so the dx groups of
+// one split run side by side and share the brick in L2; group g serves
+// the 9 taps of dx = (dxs >> 2g) & 3 (the caller's table).  y = the
+// split.  Split s takes bricks [s * per, min(nbricks, (s + 1) * per)).
+// Thread 0 issues each brick's TMA loads one brick ahead, into the stage
+// the previous brick freed; the stage's mbarrier completes when its bytes
+// have landed.  With the affine, all 8 warps form zhat in place before the
+// MMAs, and the next brick's loads are issued after that pass (issued
+// before it, they slowed it).
+template <bool AFFINE>
+__global__ void __launch_bounds__(NTHREADS, 1)
+dw_mma_kernel(const __grid_constant__ CUtensorMap xmap,
+              const __grid_constant__ CUtensorMap gmap,
+              const float* __restrict__ a, const float* __restrict__ s,
+              float* __restrict__ part, int X, int Y, int Z, int C, int F,
+              int nxt, int nyt, int nzt, int nbricks, int per, int dxs,
+              int ngroups, int ftiles) {
+  extern __shared__ unsigned char smem[];
+  __shared__ __align__(8) uint64_t bars[2];
+  int id = blockIdx.x;
+  const int dx = (dxs >> 2 * (id % ngroups)) & 3;
+  id /= ngroups;
+  const int f0 = (id % ftiles) * TILE, c0 = (id / ftiles) * TILE;
+  const int split = blockIdx.y;
+  const int begin = split * per, n = min(nbricks, begin + per) - begin;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  const unsigned base = (smem_addr(smem) + 1023u) & ~1023u;
+  unsigned char* const stages = smem + (base - smem_addr(smem));
+  const unsigned full0 = smem_addr(&bars[0]);
+  auto load = [&](int it) {
+    stage_brick(base + (it & 1) * STAGE_BYTES, full0 + (it & 1) * 8, &xmap,
+                &gmap, brick_at(begin + it, nxt, nyt, nzt), dx, c0, f0);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(full0, 1);
+    mbar_init(full0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    load(0);
+  }
+  __syncthreads();
+
+  // warp w owns channels c0 + 16 * (w % 4) + [0, 16) and filters
+  // f0 + 32 * (w / 4) + [0, 32) of all 9 taps
+  const int mblk = warp & 3, nblk = warp >> 2;
+  // ldmatrix.x4.trans row of this lane.  A (zhat, [voxel][c]): matrix
+  // lane/8 is (k-half lane/16, c-half (lane/8)%2).  B (g1, [voxel][f]):
+  // matrix lane/8 is (k-half (lane/8)%2, f-half lane/16).
+  const int a_k = (lane & 7) + ((lane >> 4) << 3);
+  const int a_slot = 2 * mblk + ((lane >> 3) & 1);
+  const int b_k = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int b_slot = 4 * nblk + (lane >> 4);
+  const int ca = c0 + 16 * mblk + (lane >> 2);   // rows g of the accumulator
+
+  float acc[GROUP_TAPS][N8][4];
+#pragma unroll
+  for (int t = 0; t < GROUP_TAPS; ++t)
+#pragma unroll
+    for (int j = 0; j < N8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[t][j][r] = 0.f;
+
+  for (int it = 0; it < n; ++it) {
+    const int buf = it & 1;
+    mbar_wait(full0 + buf * 8, (it >> 1) & 1);
+    if (AFFINE) {
+      affine_slab(stages + buf * STAGE_BYTES, a, s,
+                  brick_at(begin + it, nxt, nyt, nzt), dx, X, Y, Z, C, c0);
+      // the stage's next TMA writes must follow these generic writes
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
+    if (threadIdx.x == 0 && it + 1 < n) load(it + 1);
+    const unsigned slab = base + buf * STAGE_BYTES;
+    const unsigned grows = slab + SLAB_ROWS * ROW_BYTES;
+#pragma unroll 1
+    for (int col = 0; col < BX * BY; ++col) {   // one 16-voxel z run
+      const int bx = col / BY, by = col % BY;
+      unsigned b[N8][2];
+      const int rb = col * BZ + b_k;
+      ldsm_x4_trans(grows + swz(rb, b_slot), b[0][0], b[0][1], b[1][0],
+                    b[1][1]);
+      ldsm_x4_trans(grows + swz(rb, b_slot + 2), b[2][0], b[2][1], b[3][0],
+                    b[3][1]);
+#pragma unroll
+      for (int t = 0; t < GROUP_TAPS; ++t) {
+        const int dy = t / 3, dz = t % 3;
+        const int ra = (bx * SY + by + dy) * SZ + dz + a_k;
+        unsigned av[4];
+        ldsm_x4_trans(slab + swz(ra, a_slot), av[0], av[1], av[2], av[3]);
+#pragma unroll
+        for (int j = 0; j < N8; ++j) mma_bf16(acc[t][j], av, b[j][0], b[j][1]);
+      }
+    }
+    __syncthreads();   // the next iteration's loads overwrite this stage
+  }
+
+  // accumulator (row g or g+8, cols 2q and 2q+1 of each n8 tile), with
+  // g = lane / 4 and q = lane % 4; F % 8 == 0 keeps each n8 tile in or out
+  const int q = lane & 3;
+#pragma unroll
+  for (int t = 0; t < GROUP_TAPS; ++t) {
+    const int tap = dx * 9 + t;
+    float* out = part + ((size_t)split * 27 + tap) * C * F;
+#pragma unroll
+    for (int j = 0; j < N8; ++j) {
+      const int f = f0 + 32 * nblk + 8 * j + 2 * q;
+      if (f >= F) continue;
+      if (ca < C)
+        *reinterpret_cast<float2*>(out + (size_t)ca * F + f) =
+            make_float2(acc[t][j][0], acc[t][j][1]);
+      if (ca + 8 < C)
+        *reinterpret_cast<float2*>(out + (size_t)(ca + 8) * F + f) =
+            make_float2(acc[t][j][2], acc[t][j][3]);
+    }
+  }
+}
+
+// ---- f32: CUDA cores ------------------------------------------------------
+
+constexpr int KC = 32;   // voxels per shared-memory chunk
+
 __global__ void __launch_bounds__(NTHREADS)
-dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
-          const float* __restrict__ a, const float* __restrict__ s,
-          float* __restrict__ part, int X, int Y, int Z, int C, int F,
-          int voxels, int chunk, int ctiles, int ftiles) {
-  constexpr int VEC = Vec<T>::N;
+dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
+              const float* __restrict__ a, const float* __restrict__ s,
+              float* __restrict__ part, int X, int Y, int Z, int C, int F,
+              int voxels, int chunk, int ctiles, int ftiles) {
+  constexpr int VEC = 4;
   __shared__ __align__(16) float As[KC][TILE];  // zhat_t[v][c]
   __shared__ __align__(16) float Bs[KC][TILE];  // g1[v][f]
 
@@ -90,9 +405,7 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
     for (int i = threadIdx.x; i < KC * (TILE / VEC); i += NTHREADS) {
       const int r = i / (TILE / VEC), cv = (i % (TILE / VEC)) * VEC;
       const int v = v0 + r, c = c0 + cv;
-      float vals[VEC];
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) vals[j] = 0.f;
+      alignas(16) float vals[VEC] = {0.f, 0.f, 0.f, 0.f};
       if (v < v_end && c < C) {
         const int z = v % Z;
         int rest = v / Z;
@@ -102,41 +415,29 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
         const int sx = xx + di, sy = y + dj, sz = z + dk;
         if (sx >= 0 && sx < X && sy >= 0 && sy < Y && sz >= 0 && sz < Z) {
           const size_t off = ((((size_t)b * X + sx) * Y + sy) * Z + sz) * C + c;
-          alignas(16) T raw[VEC];
-          *reinterpret_cast<uint4*>(raw) =
-              __ldg(reinterpret_cast<const uint4*>(x + off));
+          *reinterpret_cast<float4*>(vals) =
+              __ldg(reinterpret_cast<const float4*>(x + off));
+          // rounded after the scale and after the shift, as the plain
+          // version does (no fma contraction)
+          const size_t ac = (size_t)b * C + c;
 #pragma unroll
           for (int j = 0; j < VEC; ++j) {
-            float t = to_f(raw[j]);
-            if (a != nullptr) t = to_f(from_f<T>(t * a[(size_t)b * C + c + j]));
-            if (s != nullptr) t = to_f(from_f<T>(t + s[(size_t)b * C + c + j]));
-            vals[j] = t;
+            if (a != nullptr) vals[j] = __fmul_rn(vals[j], a[ac + j]);
+            if (s != nullptr) vals[j] = __fadd_rn(vals[j], s[ac + j]);
           }
         }
       }
-#pragma unroll
-      for (int j = 0; j < VEC; j += 4)
-        *reinterpret_cast<float4*>(&As[r][cv + j]) =
-            make_float4(vals[j], vals[j + 1], vals[j + 2], vals[j + 3]);
+      *reinterpret_cast<float4*>(&As[r][cv]) =
+          *reinterpret_cast<const float4*>(vals);
     }
     // g1 rows (unshifted)
     for (int i = threadIdx.x; i < KC * (TILE / VEC); i += NTHREADS) {
       const int r = i / (TILE / VEC), fv = (i % (TILE / VEC)) * VEC;
       const int v = v0 + r, f = f0 + fv;
-      float vals[VEC];
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) vals[j] = 0.f;
-      if (v < v_end && f < F) {
-        alignas(16) T raw[VEC];
-        *reinterpret_cast<uint4*>(raw) = __ldg(
-            reinterpret_cast<const uint4*>(g + (size_t)v * F + f));
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) vals[j] = to_f(raw[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < VEC; j += 4)
-        *reinterpret_cast<float4*>(&Bs[r][fv + j]) =
-            make_float4(vals[j], vals[j + 1], vals[j + 2], vals[j + 3]);
+      float4 vals = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (v < v_end && f < F)
+        vals = __ldg(reinterpret_cast<const float4*>(g + (size_t)v * F + f));
+      *reinterpret_cast<float4*>(&Bs[r][fv]) = vals;
     }
     __syncthreads();
 #pragma unroll 8
@@ -166,10 +467,101 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* g, const float* a, const float* s,
-           float* part, int B, int X, int Y, int Z, int C, int F, int splits,
-           cudaStream_t stream) {
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The TMA descriptor of a channels-last bf16 volume (B, X, Y, Z, ch) read
+// in (64, bz, by, bx, 1) boxes with the 128-byte swizzle, zero outside it.
+// cuTensorMapEncodeTiled comes from the driver through the runtime, so
+// the library links nothing beyond cudart.
+cudaError_t encode_map(CUtensorMap* map, const void* base, int B, int X,
+                       int Y, int Z, int ch, int bz, int by, int bx) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t row = (cuuint64_t)ch * 2;
+  const cuuint64_t dims[5] = {(cuuint64_t)ch, (cuuint64_t)Z, (cuuint64_t)Y,
+                              (cuuint64_t)X, (cuuint64_t)B};
+  const cuuint64_t strides[4] = {row, row * Z, row * Z * Y, row * Z * Y * X};
+  const cuuint32_t box[5] = {TILE, (cuuint32_t)bz, (cuuint32_t)by,
+                             (cuuint32_t)bx, 1};
+  const cuuint32_t steps[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims,
+      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// bf16 variant.  x (B,X,Y,Z,C) and g (B,X,Y,Z,F) bf16, contiguous and
+// 16-byte aligned; a, s (B,C) float32 (bf16 values) or null; part
+// (splits,27,C,F) float32, splits = ceil(nbricks / per) with nbricks = B
+// * ceil(X/4) * ceil(Y/4) * ceil(Z/16); the taps of the ngroups dx in
+// dxs (two bits each) written, all 27 when they are 0, 1 and 2.  C and F
+// are multiples of 8.  Returns a cudaError_t code (0 on success).
+extern "C" int gfe_conv3x3x3_dw_bf16(const void* x, const void* g,
+                                     const float* a, const float* s,
+                                     float* part, int B, int X, int Y, int Z,
+                                     int C, int F, int per, int dxs,
+                                     int ngroups, void* stream) {
+  if (B <= 0 || X <= 0 || Y <= 0 || Z <= 0 || C <= 0 || F <= 0 || per <= 0 ||
+      ngroups <= 0 || ngroups > 15)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < ngroups; ++i)
+    if (((dxs >> 2 * i) & 3) > 2) return (int)cudaErrorInvalidValue;
+  const int nxt = (X + BX - 1) / BX, nyt = (Y + BY - 1) / BY,
+            nzt = (Z + BZ - 1) / BZ;
+  const long long nbricks = (long long)B * nxt * nyt * nzt;
+  const long long splits = (nbricks + per - 1) / per;
+  const int ctiles = (C + TILE - 1) / TILE, ftiles = (F + TILE - 1) / TILE;
+  const long long tiles = (long long)ngroups * ctiles * ftiles;
+  if (nbricks > 0x7fffffffLL || splits > 65535 || tiles > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  CUtensorMap xmap, gmap;
+  cudaError_t err = encode_map(&xmap, x, B, X, Y, Z, C, SZ, SY, BX);
+  if (err == cudaSuccess) err = encode_map(&gmap, g, B, X, Y, Z, F, BZ, BY, BX);
+  if (err != cudaSuccess) return (int)err;
+  const bool affine = a != nullptr || s != nullptr;
+  const auto kernel = affine ? dw_mma_kernel<true> : dw_mma_kernel<false>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             MMA_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)tiles, (unsigned)splits);
+  kernel<<<grid, NTHREADS, MMA_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      xmap, gmap, a, s, part, X, Y, Z, C, F, nxt, nyt, nzt, (int)nbricks, per,
+      dxs, ngroups, ftiles);
+  return (int)cudaGetLastError();
+}
+
+// f32 variant.  x (B,X,Y,Z,C) and g (B,X,Y,Z,F) float32, contiguous and
+// 16-byte aligned; a, s (B,C) float32 or null; part (splits,27,C,F)
+// float32, every element written.  C and F are multiples of 8.  Returns a
+// cudaError_t code (0 on success).
+extern "C" int gfe_conv3x3x3_dw_f32(const float* x, const float* g,
+                                    const float* a, const float* s,
+                                    float* part, int B, int X, int Y, int Z,
+                                    int C, int F, int splits, void* stream) {
   const long long voxels = (long long)B * X * Y * Z;
   if (voxels <= 0 || voxels > 0x7fffffffLL || splits <= 0)
     return (int)cudaErrorInvalidValue;
@@ -179,27 +571,8 @@ int launch(const void* x, const void* g, const float* a, const float* s,
   const long long tiles = 27LL * ctiles * ftiles;
   if (tiles > 65535) return (int)cudaErrorInvalidConfiguration;
   dim3 grid((unsigned)splits, (unsigned)tiles);
-  dw_kernel<T><<<grid, NTHREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), a, s, part, X, Y,
-      Z, C, F, (int)voxels, (int)chunk, ctiles, ftiles);
+  dw_fma_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, g, a, s, part, X, Y, Z, C, F, (int)voxels, (int)chunk, ctiles,
+      ftiles);
   return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// dtype: 0 float32, 1 bfloat16.  x (B,X,Y,Z,C) and g (B,X,Y,Z,F) in that
-// dtype, contiguous and 16-byte aligned; a, s (B,C) float32 or null; part
-// (splits,27,C,F) float32, every element written.  C and F are multiples
-// of 8.  Returns a cudaError_t code (0 on success).
-extern "C" int gfe_conv3x3x3_dw(int dtype, const void* x, const void* g,
-                                const float* a, const float* s, float* part,
-                                int B, int X, int Y, int Z, int C, int F,
-                                int splits, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, g, a, s, part, B, X, Y, Z, C, F, splits,
-                                 st);
-  if (dtype == 0)
-    return launch<float>(x, g, a, s, part, B, X, Y, Z, C, F, splits, st);
-  return (int)cudaErrorInvalidValue;
 }

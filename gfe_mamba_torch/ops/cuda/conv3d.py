@@ -20,20 +20,32 @@ and the on-card checks use.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 ACT_CODES = {"none": 0, "relu": 1, "elu": 2, "leaky01": 3, "leaky001": 4}
-# K3's launch shape (csrc/conv3d_dw.cu): channel tile, voxels per shared
-# chunk, and the number of blocks the voxel split aims for
+# K3's launch shapes (csrc/conv3d_dw.cu).  Both variants: the (c, f) tile.
+# f32 (CUDA cores): voxels per shared chunk and the number of blocks the
+# voxel split aims for.  bf16 (tensor cores): the voxel brick; the tap
+# groups, as the dx of each (the blocks of group g serve the 9 (dy, dz)
+# taps of dx DW_GROUP_DX[g] from one staged slab; the kernel reads this
+# table); and the waves of one block per SM the brick split aims for.
 _DW_TILE = 64
 _DW_CHUNK = 32
 _DW_BLOCKS = 2048
+DW_BRICK = (4, 4, 16)
+DW_GROUP_DX = (0, 1, 2)
+_DW_WAVES = 4
 
-# kernel launches since the counters were last set to 0: K1, K3
+# kernel launches since the counters were last set to 0: K1; K3 in all,
+# and by variant (bf16 on tensor cores, f32 on CUDA cores)
 launches = 0
 dw_launches = 0
+dw_mma_launches = 0
+dw_fma_launches = 0
 
 
 def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
@@ -167,18 +179,43 @@ def conv3x3x3_cuda(x, w, bias=None, pre_scale=None, pre_shift=None,
     return out
 
 
+class DwPlan(NamedTuple):
+    """The bf16 K3 launch: split s takes bricks ``[s * per, min(bricks,
+    (s + 1) * per))`` of the volume's ``DW_BRICK`` bricks."""
+    per: int
+    splits: int
+
+
+def dw_plan(B, X, Y, Z, C, F, sms) -> DwPlan:
+    """Split the bricks so that the blocks fill ``_DW_WAVES`` waves of one
+    block per SM on a card of ``sms`` SMs (at least; fewer where the
+    volume has fewer bricks)."""
+    bricks = B * -(-X // DW_BRICK[0]) * -(-Y // DW_BRICK[1]) \
+        * -(-Z // DW_BRICK[2])
+    blocks = len(DW_GROUP_DX) * -(-C // _DW_TILE) * -(-F // _DW_TILE)
+    want = -(-_DW_WAVES * sms // blocks)
+    per = -(-bricks // max(1, min(want, bricks)))
+    return DwPlan(per, -(-bricks // per))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def conv3x3x3_dw_cuda(x, g1, pre_scale=None, pre_shift=None):
     """Launch K3: f32 or bf16 CUDA tensors x ``(B, X, Y, Z, C)`` and g1
     ``(B, X, Y, Z, F)`` of one dtype, C and F multiples of 8, pre_scale
     and pre_shift ``(B, C)`` f32 or None; returns dw ``(3, 3, 3, C, F)``
     f32.  Raises on anything else.
 
-    The kernel splits the voxels over blocks and writes one f32 partial
-    per split; the sum over splits runs here, in a fixed order, so the
-    result is deterministic."""
+    bf16 takes the tensor-core variant (``dw_plan``), f32 the CUDA-core
+    one; neither falls back to the other.  Each splits the voxels over
+    blocks and writes one f32 partial per split; the sum over splits runs
+    here, in a fixed order, so the result is deterministic."""
     from gfe_mamba_torch.ops.cuda.build import library
 
-    global dw_launches
+    global dw_launches, dw_mma_launches, dw_fma_launches
     if not x.is_cuda:
         raise ValueError("conv3x3x3_dw_cuda takes CUDA tensors")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -197,20 +234,34 @@ def conv3x3x3_dw_cuda(x, g1, pre_scale=None, pre_shift=None):
     _check("pre_scale", pre_scale, (B, C), torch.float32, x.device)
     _check("pre_shift", pre_shift, (B, C), torch.float32, x.device)
     pre_scale, pre_shift = _affine_for_kernel(x.dtype, pre_scale, pre_shift)
-    tiles = 27 * -(-C // _DW_TILE) * -(-Fo // _DW_TILE)
-    splits = max(1, min(-(-_DW_BLOCKS // tiles), -(-voxels // _DW_CHUNK)))
+    lib = library("conv3d_dw")
+    mma = x.dtype == torch.bfloat16
+    if mma:
+        per, splits = dw_plan(B, X, Y, Z, C, Fo, _sm_count(x.device.index))
+        # the group table, two bits per group's dx
+        dxs = sum(dx << 2 * g for g, dx in enumerate(DW_GROUP_DX))
+        plan_args = (per, dxs, len(DW_GROUP_DX))
+        fn = lib.gfe_conv3x3x3_dw_bf16
+    else:
+        tiles = 27 * -(-C // _DW_TILE) * -(-Fo // _DW_TILE)
+        splits = max(1, min(-(-_DW_BLOCKS // tiles), -(-voxels // _DW_CHUNK)))
+        plan_args = (splits,)
+        fn = lib.gfe_conv3x3x3_dw_f32
     part = torch.empty(splits, 27, C, Fo, dtype=torch.float32,
                        device=x.device)
-    fn = library("conv3d_dw").gfe_conv3x3x3_dw
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 \
+        + [ctypes.c_int] * (6 + len(plan_args)) + [ctypes.c_void_p]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(1 if x.dtype == torch.bfloat16 else 0, x.data_ptr(),
-                g1.data_ptr(), _ptr(pre_scale), _ptr(pre_shift),
-                part.data_ptr(), B, X, Y, Z, C, Fo, splits, stream)
+        rc = fn(x.data_ptr(), g1.data_ptr(), _ptr(pre_scale),
+                _ptr(pre_shift), part.data_ptr(), B, X, Y, Z, C, Fo,
+                *plan_args, stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3x3_dw kernel failed: CUDA error {rc}")
     dw_launches += 1
+    if mma:
+        dw_mma_launches += 1
+    else:
+        dw_fma_launches += 1
     return part.sum(0).reshape(3, 3, 3, C, Fo)

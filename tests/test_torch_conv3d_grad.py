@@ -169,5 +169,6 @@ def test_group_norm_stats_grad_is_finite_on_a_zero_channel(dtype):
 
 def test_dw_kernel_wrapper_refuses_cpu_tensors():
     x, _, _, _, _, _, g = _inputs(6)
-    with pytest.raises(ValueError):
-        k1.conv3x3x3_dw_cuda(T(x), T(g))
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError):
+            k1.conv3x3x3_dw_cuda(T(x).to(dtype), T(g).to(dtype))

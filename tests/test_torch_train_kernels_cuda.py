@@ -10,9 +10,9 @@ installed::
 
 Tolerances, relative to max(1, max |plain|): K4 1e-4 (f32 state on both
 sides; dA/dB/dC/dD summed in other orders), K3 1e-4 in f32 and bf16
-(both sides widen to f32 and sum the same products in other orders), the
-autograd Functions 1e-3 (bf16-free f32 paths, cuDNN vs the kernels'
-accumulation order).
+(both sides form the same zhat and sum the same products, exact in f32,
+in other orders), the autograd Functions 1e-3 (bf16-free f32 paths,
+cuDNN vs the kernels' accumulation order).
 """
 
 import numpy as np
@@ -75,21 +75,52 @@ def test_scan_bwd_kernel_matches_plain(cuda, gate, bias, softplus, ED, N):
             _assert_close(a, b, 1e-4, name)
 
 
+def _dw_args(gen, shape, C, F, affine, dtype, device):
+    x = _randn(gen, *shape, C).to(device, dtype)
+    g1 = _randn(gen, *shape, F).to(device, dtype)
+    a = (_randn(gen, shape[0], C).abs() + 0.5).to(device) if affine else None
+    s = _randn(gen, shape[0], C).to(device) if affine else None
+    return x, g1, a, s
+
+
+# bf16 takes the tensor-core variant (4x4x16 bricks, 64x64 tiles): bricks
+# ragged in every axis with C, F below one tile; C != F over two channel
+# tiles; the 256-channel level's Z = 24 (a half-empty second z brick)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,C,F,affine", [
     ((1, 20, 20, 12), 64, 64, True), ((2, 5, 7, 19), 24, 40, True),
-    ((2, 5, 7, 19), 24, 40, False)])
+    ((2, 5, 7, 19), 24, 40, False), ((2, 9, 13, 21), 24, 40, True),
+    ((2, 9, 13, 21), 24, 40, False), ((1, 6, 7, 20), 128, 64, True),
+    ((1, 6, 7, 20), 128, 64, False), ((1, 8, 8, 24), 256, 256, True),
+    ((1, 8, 8, 24), 256, 256, False)])
 def test_dw_kernel_matches_plain(cuda, dtype, shape, C, F, affine):
     gen = np.random.RandomState(1)
-    x = _randn(gen, *shape, C).to(cuda, dtype)
-    g1 = _randn(gen, *shape, F).to(cuda, dtype)
-    a = (_randn(gen, shape[0], C).abs() + 0.5).to(cuda) if affine else None
-    s = _randn(gen, shape[0], C).to(cuda) if affine else None
+    x, g1, a, s = _dw_args(gen, shape, C, F, affine, dtype, cuda)
     got = k1.conv3x3x3_dw_cuda(x, g1, a, s)
     want = k1.conv3x3x3_dw_plain(x, g1, a, s)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32
     _assert_close(got, want, 1e-4)
+
+
+def test_dw_kernel_is_deterministic_and_counts_its_variant(cuda):
+    """Two bf16 calls on the same inputs give bitwise-identical dw (split
+    partials summed in a fixed order, no atomics); a bf16 call launches
+    the tensor-core variant and an f32 call the CUDA-core one."""
+    gen = np.random.RandomState(4)
+    x, g1, a, s = _dw_args(gen, (1, 9, 13, 40), 128, 64, True,
+                           torch.bfloat16, cuda)
+    k1.dw_launches = k1.dw_mma_launches = k1.dw_fma_launches = 0
+    first = k1.conv3x3x3_dw_cuda(x, g1, a, s)
+    second = k1.conv3x3x3_dw_cuda(x, g1, a, s)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert (k1.dw_launches, k1.dw_mma_launches, k1.dw_fma_launches) \
+        == (2, 2, 0)
+    k1.conv3x3x3_dw_cuda(x.float(), g1.float(), a, s)
+    torch.cuda.synchronize()
+    assert (k1.dw_launches, k1.dw_mma_launches, k1.dw_fma_launches) \
+        == (3, 2, 1)
 
 
 @pytest.mark.parametrize("act,with_res,post_act", [
