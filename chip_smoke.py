@@ -9,9 +9,11 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. build every CUDA kernel of ``gfe_mamba_torch/csrc`` (one ``nvcc`` per
    source, all at once), timed;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it; each timed beside its bound (the least
-   time the H100 could take: bytes over 3.35 TB/s or operations over the
-   peak rate of their type) and, for K1, the cuDNN convolution;
+   shapes the main path gives it and ragged ones (K1: X and Y not
+   multiples of its brick, Z = 24, C != F); each timed beside its bound
+   (the least time the H100 could take: bytes over 3.35 TB/s or
+   operations over the peak rate of their type) and, for K1, the cuDNN
+   convolution;
 4. pipeline parity: the full channel widths at a reduced volume in f32,
    the CPU (plain versions) against the card (kernels), same weights;
 5. the main path: ``build_gfe_mamba`` at the canonical (160,160,96) bf16
@@ -53,7 +55,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    once at each width, exactly one K5a and one K5b launch per call;
 11. a Stage-2 step with a NaN input, then a finite one, on the card:
    the skipped step moves nothing but Adam's count, and the next one is
-   Adam's update at count 2, as in the JAX trainer.
+   Adam's update at count 2, as in the JAX trainer; then Stage 1, with
+   ``d_fresh_recon`` off and on: a finite step, a NaN step that moves no
+   parameter and no moment of G or D but advances both Adam counts, and
+   a finite step.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  K1's ``ms``, ``plain_ms``,
@@ -108,6 +113,15 @@ K3_VERSION = ("v2: bf16 mma.sync m16n8k16 over a TMA-staged, double-buffered "
               "shared memory")
 K3_V1_MS = {64: 20.96, 128: 10.38, 256: 5.14}
 K3_V1_STEP_MS = 135.63
+# K1's design in csrc/conv3d.cu (its bf16 launch from conv_plan), and
+# v5's times (per canonical request and per Stage-1 step's input
+# gradients, H100 80GB HBM3 at 700 W, from PERF.md section 6), logged for
+# comparison and kept out of the kernels line
+K1_VERSION = ("v6: bf16 mma.sync m16n8k16 over a 2-stage TMA ring (halo and "
+              "weights per 16-channel chunk, mbarriers), GN affine applied "
+              "in shared memory")
+K1_V5_REQUEST_MS = 60.6
+K1_V5_DZ_STEP_MS = 13.97
 # group_norm_act (K5) runs at the generator's GroupNorm widths (the conv
 # levels above), 8 groups
 GN_GROUPS = 8
@@ -181,7 +195,9 @@ def check_k1(gen) -> dict:
     variants = (("relu", False, "none"), ("none", True, "relu"))
     worst_bf16 = 0.0
     cases = [((1,) + sp, C, C) for sp, C, _ in CONV_LEVELS]
-    cases.append(((2, 9, 13, 21), 24, 40))          # ragged, C, F % 16 != 0
+    # ragged: C, F % 16 != 0; X, Y not multiples of the brick, Z = 24
+    cases += [((2, 9, 13, 21), 24, 40), ((1, 9, 13, 24), 24, 40),
+              ((3, 11, 6, 24), 128, 64)]
     for shape, C, F in cases:
         for dtype in (torch.float32, torch.bfloat16):
             for act, with_res, post in variants:
@@ -203,6 +219,8 @@ def check_k1(gen) -> dict:
     totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     per_shape = []
     for spatial, C, count in CONV_LEVELS:
+        log(f"K1 plan {[BATCH, *spatial, C]}: "
+            f"{k1.conv_plan(BATCH, *spatial, C, C)}")
         for act, with_res, post in variants:
             x, w, b, a, s, res = conv_inputs(gen, (BATCH,) + spatial, C, C,
                                              torch.bfloat16, with_res)
@@ -243,7 +261,11 @@ def check_k1(gen) -> dict:
             totals["library_ms"] += calls * lib
             del x, w, a, s, res, xc, wc
     torch.cuda.empty_cache()
+    log(f"K1 per forward: kernel {totals['ms']:.3f} ms, cuDNN conv "
+        f"{totals['library_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms, "
+        f"v5 {K1_V5_REQUEST_MS} ms")
     return dict(name="K1 fused GN-apply + 3x3x3 conv + epilogue",
+                version=K1_VERSION,
                 route="cuda", source="gfe_mamba_torch/csrc/conv3d.cu",
                 replaces="gfe_mamba_tpu/ops/pallas/conv3d.py:82",
                 max_abs_err=worst_bf16,
@@ -595,6 +617,9 @@ def check_k1_dz(gen) -> dict:
             totals[key] += count * v
         del g1, w, wf, got, want
     torch.cuda.empty_cache()
+    log(f"K1-dz per Stage-1 step: kernel {totals['ms']:.3f} ms, cuDNN dgrad "
+        f"{totals['library_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms, "
+        f"v5 {K1_V5_DZ_STEP_MS} ms")
     return dict(per="Stage-1 step: 10 calls at batch 1, bf16",
                 max_abs_err=worst, bound_by="operations",
                 per_shape=per_shape, **totals)
@@ -1210,6 +1235,77 @@ def check_skipped_step() -> None:
     torch.cuda.empty_cache()
 
 
+def check_skipped_gan_step() -> None:
+    """Phase 11, Stage 1: ``GanTrainer`` (full widths, (64,64,32), f32,
+    adversary on) with ``d_fresh_recon`` off and on takes a finite step,
+    then one with a NaN in the PET, then a finite one.  The NaN step moves
+    no parameter and no Adam moment of G or D (bit for bit) and advances
+    both players' Adam counts, as optax's count advances under the JAX
+    trainer's finite guard; the next step is finite and counts too."""
+    from gfe_mamba_torch.losses.perceptual import PerceptualLoss
+    from gfe_mamba_torch.models.discriminator import PatchDiscriminator
+    from gfe_mamba_torch.models.pipeline import build_generator
+    from gfe_mamba_torch.training.gan_trainer import GanTrainer
+
+    img = (64, 64, 32)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    mri, pet = (torch.randn(TRAIN_BATCH, *img, 1, generator=gen,
+                            device="cuda") for _ in range(2))
+    bad = pet.clone()
+    bad[0, 0, 0, 0, 0] = float("nan")
+    for fresh in (False, True):
+        t = time.perf_counter()
+        disc = PatchDiscriminator(3, 32)
+        disc.reset_parameters(torch.Generator().manual_seed(5))
+        trainer = GanTrainer(
+            build_generator(device="cuda", seed=4, img_size=img,
+                            vit_patch_size=16, vit_dropout=0.0,
+                            vit_emb_dropout=0.0),
+            disc, PerceptualLoss(0.25, device="cuda"),
+            mixed_precision="none", d_fresh_recon=fresh, device="cuda")
+        players = ((trainer.g_opt, trainer.g_params),
+                   (trainer.d_opt, trainer.d_params))
+
+        def snapshot():
+            return [([p.detach().clone() for p in params.values()],
+                     [{k: v.clone() for k, v in opt.state[p].items()
+                       if k != "step"} for p in params.values()])
+                    for opt, params in players]
+
+        def counts():
+            return [{opt.state[p]["step"].item() for p in params.values()}
+                    for opt, params in players]
+
+        logs = [trainer.train_step(mri, pet, 1.0)]
+        before = snapshot()
+        logs.append(trainer.train_step(mri, bad, 1.0))
+        after = snapshot()
+        skipped_counts = counts()
+        logs.append(trainer.train_step(mri, pet, 1.0))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b)
+                   for (pa, sa), (pb, sb) in zip(before, after)
+                   for a, b in zip(pa, pb)) and all(
+            sa_p.keys() == sb_p.keys()
+            and all(torch.equal(sa_p[k], sb_p[k]) for k in sa_p)
+            for (_, sa), (_, sb) in zip(before, after)
+            for sa_p, sb_p in zip(sa, sb))
+        log(f"skipped Stage-1 step {img} f32 d_fresh_recon={fresh}: skipped "
+            f"{[lg['skipped'] for lg in logs]}; G and D Adam counts after "
+            f"the NaN step {skipped_counts}, after the next {counts()}; "
+            f"parameters and moments bitwise equal across the skip: {same}; "
+            f"{time.perf_counter() - t:.1f} s")
+        if [lg["skipped"] for lg in logs] != [0.0, 1.0, 0.0] \
+                or skipped_counts != [{2}, {2}] or counts() != [{3}, {3}] \
+                or not same or not all(math.isfinite(v) for k, v in
+                                       logs[2].items()):
+            raise AssertionError(f"skipped Stage-1 step (d_fresh_recon="
+                                 f"{fresh}) moved a parameter or a moment, "
+                                 f"or the counts did not advance")
+        del trainer, disc, before, after
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -1249,6 +1345,7 @@ def main() -> int:
     k5[0]["launches"], k5[1]["launches"] = drive_group_norm(card)
     kernels += k5
     check_skipped_step()
+    check_skipped_gan_step()
     log(f"Stage-2 ms/step {stage2['step_ms']}, Stage-1 ms/step "
         f"{stage1['step_ms']} [{card}]")
     for k in kernels:

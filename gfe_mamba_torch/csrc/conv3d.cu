@@ -14,67 +14,50 @@
 // bytes of input and output, far above the card's ~295 operations/byte, so
 // it is bound by tensor-core work, not memory.
 //
-// Design: an implicit GEMM with M = a brick of 4 x 4 x 16 output voxels,
-// N = 64 output channels and K = 27 * C.  A block stages, per chunk of CK
-// input channels, the brick's (6 x 6 x 18) input halo in shared memory,
-// applying the affine as it loads, so each input element is read from
-// device memory once per chunk instead of once per tap; the 27 taps then
-// read shifted windows of that halo.  Because the brick's 16 z rows are
-// contiguous in the halo, a tap's A operand is 16 consecutive halo rows,
-// which ldmatrix feeds to mma.sync m16n8k16 (bf16 in, f32 accumulate) with
-// no im2col buffer.  Shared-memory reads, not MMAs, set the pace, so the
-// layouts avoid bank conflicts: weight rows are padded by 16 bytes and the
-// two 16-byte halves of each halo row swap every 4 rows.  Each warp owns
-// two brick columns and reuses each tap's weight fragments for both.  The
-// f32 variant (for checks) runs the same staging with CUDA-core FMAs.  The
-// epilogue adds bias, applies act, adds the residual, applies post_act and
-// rounds once to x's dtype, 16 bytes per thread and step.  None of the TPU
-// layout (z-pair lane packing, the 4-slot K layout, VMEM staging) is kept.
-// Overlapping the staging with the MMAs (cp.async/TMA, wgmma) is later
-// work.
+// Two variants, chosen by dtype; neither falls back to the other.
+//
+// bf16 (conv_mma_kernel): an implicit GEMM with M = a brick of output
+// voxels (the caller's launch plan, conv_plan in ops/cuda/conv3d.py,
+// names it and the launch checks it against the compiled ones), N = 64
+// output channels and K = 27 * C, taken in chunks of 16 input channels
+// (one MMA k-step).  Per chunk one thread issues two TMA loads into a
+// stage of a 2-stage ring, each completing on the stage's mbarrier: the
+// brick's halo, one 5-D box of 32-byte rows (16 channels of a voxel) at
+// origin (x0-1, y0-1, z0-1) with the 32-byte swizzle, and the chunk's
+// 27 x 16 x 64 weights, a box over the (27, C, F) view of w with the
+// 128-byte swizzle.  The TMA writes zeros outside the volume and beyond
+// C and F.  With the GN affine all threads then form x*a+s in place on
+// the halo's real voxels (bf16 mul.rn then add.rn, rounding as the JAX
+// producer pass does), and the next chunk's loads are issued after that
+// pass, so they land while this chunk's MMAs run (without the affine,
+// as for the input gradient, they are issued before the wait).  A
+// column's z rows are contiguous in the halo, so a tap's A operand is the
+// brick's rows shifted by (dx, dy, dz): ldmatrix feeds them to mma.sync
+// m16n8k16 (bf16 in, f32 accumulate) with no im2col buffer, and the
+// swizzles put the 8 rows of each ldmatrix in distinct banks.
+// Shared-memory reads, not MMAs, set the pace (PERF.md), so each warp
+// owns MT m16 tiles x 64 output channels and reuses each tap's 4 weight
+// fragments (B, ldmatrix.trans) for all of them: MT + 4 ldmatrix.x4 per
+// 8 * MT MMAs.  The epilogue stages the f32 tile in the ring's memory,
+// adds bias, applies act, adds the residual, applies post_act and rounds
+// once to bf16, 16 bytes per thread and step.
+//
+// f32 (conv_fma_kernel, for checks; TF32 would lose the 1e-4 parity): a
+// 4 x 4 x 16 brick, its halo and weights staged per 8-channel chunk by all
+// threads (the affine applied as the halo loads), an 8 x 8 FMA tile per
+// thread on the CUDA cores, and the same epilogue.
+//
+// None of the TPU layout (z-pair lane packing, the 4-slot K layout, VMEM
+// staging) is kept.  The TMA, mbarrier, ldmatrix / mma.sync and affine
+// helpers come from hopper.cuh, shared with K3.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BX = 4, BY = 4, BZ = 16;   // output brick
-constexpr int BM = BX * BY * BZ;         // 256 GEMM rows
-constexpr int BN = 64;                   // output channels per block
-// Row stride of the staged weights: 8 elements of padding shift each
-// k-row by 16 bytes, so the 8 rows one ldmatrix reads fall in distinct
-// shared-memory banks (a 128-byte stride puts all 8 in the same 4 banks).
-constexpr int WS_LD = BN + 8;
-constexpr int HX = BX + 2, HY = BY + 2, HZ = BZ + 2;
 constexpr int NTHREADS = 256;            // 8 warps
-constexpr int MF = BX * BY / (NTHREADS / 32);   // (x, y) columns per warp
-static_assert(MF * (NTHREADS / 32) == BX * BY, "columns split over warps");
-
-template <typename T> struct Traits;
-template <> struct Traits<__nv_bfloat16> {
-  static constexpr int CK = 16;  // one MMA k-step
-  static constexpr int VEC = 8;  // elements per 16-byte load
-  // the two 16-byte halves of a halo row swap places every 4 rows, so the
-  // 8 rows one ldmatrix reads hit distinct banks (32-byte rows otherwise
-  // put rows r and r+4 in the same banks)
-  static constexpr bool SWIZZLE = true;
-};
-template <> struct Traits<float> {
-  static constexpr int CK = 8;
-  static constexpr int VEC = 4;
-  static constexpr bool SWIZZLE = false;
-};
-
-template <typename T>
-constexpr size_t smem_bytes() {
-  return (size_t)(HX * HY * HZ * Traits<T>::CK + 27 * Traits<T>::CK * WS_LD) *
-         sizeof(T);
-}
-static_assert(smem_bytes<float>() >= (size_t)BM * BN * sizeof(float),
-              "epilogue staging fits in the operand buffers");
-static_assert(smem_bytes<__nv_bfloat16>() >= (size_t)BM * BN * sizeof(float),
-              "epilogue staging fits in the operand buffers");
+constexpr int NWARPS = NTHREADS / 32;
+constexpr int BN = 64;                   // output channels per block
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -100,244 +83,16 @@ __device__ __forceinline__ float apply_act(float y, int act) {
   }
 }
 
-// Input halo of one channel chunk: halo[(hx*HY + hy)*HZ + hz][k], the voxel
-// at (x0+hx-1, y0+hy-1, z0+hz-1), channel c0+k; zero outside the volume and
-// beyond C.  In bf16 the affine rounds after the scale and after the shift,
-// as the JAX producer pass does in x's dtype.
-template <typename T>
-__device__ void load_halo(T* halo, const T* __restrict__ x,
-                          const float* __restrict__ a,
-                          const float* __restrict__ s, int b, int X, int Y,
-                          int Z, int C, int x0, int y0, int z0, int c0) {
-  constexpr int CK = Traits<T>::CK, VEC = Traits<T>::VEC, NV = CK / VEC;
-  for (int i = threadIdx.x; i < HX * HY * HZ * NV; i += NTHREADS) {
-    const int v = i % NV, p = i / NV;
-    const int hz = p % HZ, hy = (p / HZ) % HY, hx = p / (HZ * HY);
-    const int gx = x0 + hx - 1, gy = y0 + hy - 1, gz = z0 + hz - 1;
-    const int c = c0 + v * VEC;
-    alignas(16) T vals[VEC];
-    if (gx >= 0 && gx < X && gy >= 0 && gy < Y && gz >= 0 && gz < Z &&
-        c < C) {
-      const size_t off = ((((size_t)b * X + gx) * Y + gy) * Z + gz) * C + c;
-      *reinterpret_cast<uint4*>(vals) =
-          __ldg(reinterpret_cast<const uint4*>(x + off));
-      if (a != nullptr || s != nullptr) {
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          float t = to_f(vals[j]);
-          if (a != nullptr) t = to_f(from_f<T>(t * a[(size_t)b * C + c + j]));
-          if (s != nullptr) t = t + s[(size_t)b * C + c + j];
-          vals[j] = from_f<T>(t);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) vals[j] = from_f<T>(0.f);
-    }
-    const int slot = Traits<T>::SWIZZLE ? v ^ ((p >> 2) & 1) : v;
-    *reinterpret_cast<uint4*>(halo + p * CK + slot * VEC) =
-        *reinterpret_cast<const uint4*>(vals);
-  }
-}
-
-// Weights of one channel chunk: ws[t][k][n] = w[t][c0+k][n0+n] (row
-// stride WS_LD), zero beyond C and F.  w is the flax layout (3,3,3,C,F),
-// i.e. (27, C, F).
-template <typename T>
-__device__ void load_weights(T* ws, const T* __restrict__ w, int C, int F,
-                             int c0, int n0) {
-  constexpr int CK = Traits<T>::CK, VEC = Traits<T>::VEC, NV = BN / VEC;
-  for (int i = threadIdx.x; i < 27 * CK * NV; i += NTHREADS) {
-    const int v = i % NV, r = i / NV;
-    const int k = r % CK, t = r / CK;
-    const int c = c0 + k, f = n0 + v * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (c < C && f < F)
-      val = __ldg(reinterpret_cast<const uint4*>(
-          w + ((size_t)t * C + c) * F + f));
-    *reinterpret_cast<uint4*>(ws + (t * CK + k) * WS_LD + v * VEC) = val;
-  }
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// bf16: warp w owns the MF columns c = MF*w + i, i.e. GEMM rows
-// [16c, 16c+16) = the 16 z of column (bx, by) = (c / BY, c % BY), and all
-// 64 output channels as 8 tiles of n = 8: mma.sync m16n8k16 with A from
-// the halo (ldmatrix) and B from the weights (ldmatrix.trans).  Each lane
-// hands ldmatrix its own row address, so the swizzled halo rows are read
-// without bank conflicts.
-struct TensorCoreMath {
-  float acc[MF][BN / 8][4];
-
-  __device__ void init() {
-#pragma unroll
-    for (int i = 0; i < MF; ++i)
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-  }
-
-  __device__ void chunk(const __nv_bfloat16* halo, const __nv_bfloat16* ws) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    // ldmatrix.x4 row this lane addresses: A rows (lane & 15) at k-half
-    // (lane >> 4); B k-rows (lane & 7) + 8 * ((lane >> 3) & 1) at n-half
-    // (lane >> 4)
-    const int a_row = lane & 15, a_half = lane >> 4;
-    const int b_k = (lane & 7) + 8 * ((lane >> 3) & 1), b_half = lane >> 4;
-    const unsigned halo_s = smem_addr(halo);
-    const unsigned ws_s = smem_addr(ws + b_k * WS_LD + b_half * 8);
-#pragma unroll 1
-    for (int t = 0; t < 27; ++t) {
-      const int dx = t / 9, dy = (t / 3) % 3, dz = t % 3;
-      unsigned b[BN / 8][2];
-#pragma unroll
-      for (int j = 0; j < BN / 16; ++j)
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-            "{%0, %1, %2, %3}, [%4];\n"
-            : "=r"(b[2 * j][0]), "=r"(b[2 * j][1]), "=r"(b[2 * j + 1][0]),
-              "=r"(b[2 * j + 1][1])
-            : "r"(ws_s + (unsigned)(t * 16 * WS_LD + j * 16) * 2u));
-#pragma unroll
-      for (int i = 0; i < MF; ++i) {
-        const int col = warp * MF + i, bx = col / BY, by = col % BY;
-        const int p = ((bx + dx) * HY + (by + dy)) * HZ + dz + a_row;
-        const unsigned addr =
-            halo_s + (unsigned)(p * 16 + ((a_half ^ ((p >> 2) & 1)) * 8)) * 2u;
-        unsigned a0, a1, a2, a3;
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-            : "=r"(a0), "=r"(a1), "=r"(a2), "=r"(a3)
-            : "r"(addr));
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j)
-          asm volatile(
-              "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-              "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-              "{%0, %1, %2, %3};\n"
-              : "+f"(acc[i][j][0]), "+f"(acc[i][j][1]), "+f"(acc[i][j][2]),
-                "+f"(acc[i][j][3])
-              : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b[j][0]),
-                "r"(b[j][1]));
-      }
-    }
-  }
-
-  // accumulator (row g or g+8, cols 2q and 2q+1 of each n8 tile), with
-  // g = lane / 4 and q = lane % 4
-  __device__ void store(float* stage) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-    for (int i = 0; i < MF; ++i)
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        float* row = stage + ((warp * MF + i) * 16 + g) * BN + j * 8 + 2 * q;
-        row[0] = acc[i][j][0];
-        row[1] = acc[i][j][1];
-        row[8 * BN] = acc[i][j][2];
-        row[8 * BN + 1] = acc[i][j][3];
-      }
-  }
-};
-
-// f32: thread t owns rows [RT*(t/8), +RT) and channels [8*(t%8), +8).
-struct CudaCoreMath {
-  static constexpr int RT = BM / (NTHREADS / 8);   // rows per thread
-  static_assert(BZ % RT == 0, "a thread's rows stay in one column");
-  float acc[RT][8];
-
-  __device__ void init() {
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-
-  __device__ void chunk(const float* halo, const float* ws) {
-    constexpr int CK = Traits<float>::CK;
-    const int ng = threadIdx.x % 8, mg = threadIdx.x / 8;
-    const int col = mg * RT / BZ, bx = col / BY, by = col % BY;
-    const int zb = (mg * RT) % BZ;
-#pragma unroll 1
-    for (int t = 0; t < 27; ++t) {
-      const int dx = t / 9, dy = (t / 3) % 3, dz = t % 3;
-      const float* hp =
-          halo + (((bx + dx) * HY + (by + dy)) * HZ + zb + dz) * CK;
-      const float* wp = ws + t * CK * WS_LD + ng * 8;
-#pragma unroll
-      for (int k = 0; k < CK; ++k) {
-        float av[RT], bv[8];
-#pragma unroll
-        for (int i = 0; i < RT; ++i) av[i] = hp[i * CK + k];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bv[j] = wp[k * WS_LD + j];
-#pragma unroll
-        for (int i = 0; i < RT; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-  }
-
-  __device__ void store(float* stage) {
-    const int ng = threadIdx.x % 8, mg = threadIdx.x / 8;
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        stage[(mg * RT + i) * BN + ng * 8 + j] = acc[i][j];
-  }
-};
-
-template <typename T> struct MathFor;
-template <> struct MathFor<__nv_bfloat16> { using type = TensorCoreMath; };
-template <> struct MathFor<float> { using type = CudaCoreMath; };
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-conv3x3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 const T* __restrict__ bias, const float* __restrict__ a,
-                 const float* __restrict__ s, const T* __restrict__ res,
-                 T* __restrict__ out, int X, int Y, int Z, int C, int F,
-                 int act, int post_act) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int CK = Traits<T>::CK;
-  T* halo = reinterpret_cast<T*>(smem);
-  T* ws = halo + HX * HY * HZ * CK;
-  float* stage = reinterpret_cast<float*>(smem);
-
-  const int nzt = (Z + BZ - 1) / BZ, nyt = (Y + BY - 1) / BY,
-            nxt = (X + BX - 1) / BX;
-  int id = blockIdx.x;
-  const int zt = id % nzt;
-  id /= nzt;
-  const int yt = id % nyt;
-  id /= nyt;
-  const int xt = id % nxt;
-  const int b = id / nxt;
-  const int x0 = xt * BX, y0 = yt * BY, z0 = zt * BZ, n0 = blockIdx.y * BN;
-
-  typename MathFor<T>::type math;
-  math.init();
-  for (int c0 = 0; c0 < C; c0 += CK) {
-    __syncthreads();
-    load_halo<T>(halo, x, a, s, b, X, Y, Z, C, x0, y0, z0, c0);
-    load_weights<T>(ws, w, C, F, c0, n0);
-    __syncthreads();
-    math.chunk(halo, ws);
-  }
-  __syncthreads();
-  math.store(stage);
-  __syncthreads();
-
-  // epilogue, 16 bytes of output per thread and step (F % 8 == 0, so a
-  // vector is all in or all out of range)
-  constexpr int VEC = Traits<T>::VEC;
+// One block's output: post_act(act(tile + bias) + residual) for the
+// brick's real voxels and channels, from the f32 tile[m][n] (row stride
+// LD; m = (bx * BY + by) * BZ + bz), 16 bytes of output per thread and
+// step.  F % 8 == 0, so a vector is all in or all out of range.
+template <typename T, int BX, int BY, int BZ, int LD>
+__device__ void epilogue(const float* tile, const T* __restrict__ bias,
+                         const T* __restrict__ res, T* __restrict__ out,
+                         int b, int X, int Y, int Z, int F, int x0, int y0,
+                         int z0, int n0, int act, int post_act) {
+  constexpr int VEC = 16 / sizeof(T), BM = BX * BY * BZ;
   for (int i = threadIdx.x; i < BM * BN / VEC; i += NTHREADS) {
     const int m = i / (BN / VEC), n = (i % (BN / VEC)) * VEC;
     const int col = m / BZ;
@@ -349,10 +104,15 @@ conv3x3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
     if (res != nullptr)
       *reinterpret_cast<uint4*>(r) =
           __ldg(reinterpret_cast<const uint4*>(res + o));
+    alignas(16) float acc[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; j += 4)
+      *reinterpret_cast<float4*>(acc + j) =
+          *reinterpret_cast<const float4*>(tile + m * LD + n + j);
     alignas(16) T v[VEC];
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
-      float y = stage[m * BN + n + j];
+      float y = acc[j];
       if (bias != nullptr) y += to_f(bias[f + j]);
       y = apply_act(y, act);
       if (res != nullptr) y += to_f(r[j]);
@@ -362,43 +122,392 @@ conv3x3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* w, const void* bias, const float* a,
-           const float* s, const void* res, void* out, int B, int X, int Y,
-           int Z, int C, int F, int act, int post_act, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>();
-  cudaError_t err = cudaFuncSetAttribute(
-      conv3x3x3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)B * ((X + BX - 1) / BX) *
-                           ((Y + BY - 1) / BY) * ((Z + BZ - 1) / BZ);
+// ---- bf16: tensor cores ---------------------------------------------------
+
+constexpr int CK = 16;                   // input channels per chunk
+constexpr int STAGES = 2;                // the ring
+constexpr int W_BYTES = 27 * CK * BN * 2;   // a chunk's weights: 432 rows
+constexpr int kb_up(int n) { return (n + 1023) / 1024 * 1024; }
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// The bf16 launch's geometry for a BX x BY x BZ brick.  A stage holds the
+// chunk's weights (432 rows of 128 bytes) then its halo (HALO_ROWS rows of
+// 32 bytes), each starting on 1,024 bytes, where the swizzles repeat; the
+// f32 epilogue tile (row stride LD, padded so that the accumulators'
+// stores hit distinct banks) reuses the ring.
+template <int BX_, int BY_, int BZ_>
+struct Tile {
+  static constexpr int BX = BX_, BY = BY_, BZ = BZ_;
+  static constexpr int BM = BX * BY * BZ;
+  static constexpr int HX = BX + 2, HY = BY + 2, HZ = BZ + 2;
+  static constexpr int HALO_ROWS = HX * HY * HZ;
+  static constexpr int HALO_BYTES = HALO_ROWS * CK * 2;
+  static constexpr int STAGE = W_BYTES + kb_up(HALO_BYTES);
+  static constexpr int MT = BM / 16 / NWARPS;   // m16 tiles per warp
+  static constexpr int LD = BN + 8;
+  static constexpr int SMEM = cmax(STAGES * STAGE, BM * LD * 4) + 1024;
+  // every 8-row ldmatrix matrix lies in one (x, y) column: contiguous
+  // halo rows
+  static_assert(BZ % 8 == 0, "z extent a multiple of 8");
+  static_assert(BM % (16 * NWARPS) == 0, "m16 tiles split over the warps");
+  static_assert(SMEM <= 232448, "fits one block's shared memory");
+};
+
+// Grid: one block per (brick, 64-channel output tile), the tile fastest,
+// so the blocks of one brick run side by side and share its halo in L2;
+// bricks in (b, x, y, z) order, z fastest, nxt x nyt x nzt per batch item.
+// Thread 0 issues each chunk's two TMA loads one chunk ahead, into the
+// stage the chunk before freed.
+template <typename G, bool AFFINE>
+__global__ void __launch_bounds__(NTHREADS, 1)
+conv_mma_kernel(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap wmap,
+                const __nv_bfloat16* __restrict__ bias,
+                const float* __restrict__ a, const float* __restrict__ s,
+                const __nv_bfloat16* __restrict__ res,
+                __nv_bfloat16* __restrict__ out, int X, int Y, int Z, int C,
+                int F, int act, int post_act, int nxt, int nyt, int nzt,
+                int ftiles) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bars[STAGES];
+  int id = blockIdx.x;
+  const int n0 = (id % ftiles) * BN;
+  id /= ftiles;
+  const int z0 = (id % nzt) * G::BZ;
+  id /= nzt;
+  const int y0 = (id % nyt) * G::BY;
+  id /= nyt;
+  const int x0 = (id % nxt) * G::BX;
+  const int b = id / nxt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nchunks = (C + CK - 1) / CK;
+
+  const unsigned base = (smem_addr(smem) + 1023u) & ~1023u;
+  unsigned char* const ring = smem + (base - smem_addr(smem));
+  const unsigned full0 = smem_addr(&bars[0]);
+  auto load = [&](int k) {
+    const unsigned st = base + (k % STAGES) * G::STAGE;
+    const unsigned bar = full0 + (k % STAGES) * 8;
+    mbar_expect_tx(bar, W_BYTES + G::HALO_BYTES);
+    tma_load_3d(st, &wmap, bar, n0, k * CK, 0);
+    tma_load_5d(st + W_BYTES, &xmap, bar, k * CK, z0 - 1, y0 - 1, x0 - 1, b);
+  };
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < STAGES; ++i) mbar_init(full0 + 8 * i, 1);
+    mbar_fence_init();
+    load(0);
+  }
+  __syncthreads();
+
+  // ldmatrix.x4 row of this lane.  A (halo, [voxel][c]): row lane % 16 of
+  // the warp's m16 tile i at k-half lane / 16, which is halo row a_row[i]
+  // at tap (0, 0, 0).  B (weights, [k][n], .trans): k-row (lane & 7) +
+  // 8 ((lane >> 3) & 1) at n-half lane / 16.
+  const int a_half = lane >> 4;
+  int a_row[G::MT];
+#pragma unroll
+  for (int i = 0; i < G::MT; ++i) {
+    const int m = (warp * G::MT + i) * 16 + (lane & 15);
+    const int col = m / G::BZ;
+    a_row[i] = ((col / G::BY) * G::HY + col % G::BY) * G::HZ + m % G::BZ;
+  }
+  const int b_k = (lane & 7) + 8 * ((lane >> 3) & 1), b_half = lane >> 4;
+
+  // halo row r is the voxel (x0 + hx - 1, y0 + hy - 1, z0 + hz - 1)
+  auto real = [&](int r) {
+    const int hz = r % G::HZ, run = r / G::HZ;
+    const int hy = run % G::HY, hx = run / G::HY;
+    return (unsigned)(x0 + hx - 1) < (unsigned)X &&
+           (unsigned)(y0 + hy - 1) < (unsigned)Y &&
+           (unsigned)(z0 + hz - 1) < (unsigned)Z;
+  };
+
+  float acc[G::MT][BN / 8][4];
+#pragma unroll
+  for (int i = 0; i < G::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+  for (int k = 0; k < nchunks; ++k) {
+    const int slot = k % STAGES;
+    if (!AFFINE && threadIdx.x == 0 && k + 1 < nchunks) load(k + 1);
+    mbar_wait(full0 + 8 * slot, (k / STAGES) & 1);
+    const unsigned st = base + slot * G::STAGE, halo = st + W_BYTES;
+    if (AFFINE) {
+      // thread t forms the 8 channels of slot t % 2 of its halo rows
+      const int c = k * CK + 8 * (threadIdx.x & 1);
+      unsigned sc[4], sh[4];
+      affine_coeffs(a, s, (size_t)b * C + c, c < C, sc, sh);
+      affine_rows<NTHREADS, 2, G::HALO_ROWS, 8>(
+          ring + slot * G::STAGE + W_BYTES, sc, sh,
+          [](int r, int sl) { return swz32(r, sl); }, real);
+      // the stage's next TMA writes must follow these generic writes
+      fence_proxy_async();
+      __syncthreads();
+      if (threadIdx.x == 0 && k + 1 < nchunks) load(k + 1);
+    }
+#pragma unroll 1
+    for (int dx = 0; dx < 3; ++dx)
+#pragma unroll 1
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dz = 0; dz < 3; ++dz) {
+          const int t = (dx * 3 + dy) * 3 + dz;
+          const int shift = (dx * G::HY + dy) * G::HZ + dz;
+          unsigned bf[BN / 8][2];
+#pragma unroll
+          for (int j = 0; j < BN / 16; ++j)
+            ldsm_x4_trans(st + swz128(t * CK + b_k, 2 * j + b_half),
+                          bf[2 * j][0], bf[2 * j][1], bf[2 * j + 1][0],
+                          bf[2 * j + 1][1]);
+#pragma unroll
+          for (int i = 0; i < G::MT; ++i) {
+            unsigned af[4];
+            ldsm_x4(halo + swz32(a_row[i] + shift, a_half), af);
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j)
+              mma_bf16(acc[i][j], af, bf[j][0], bf[j][1]);
+          }
+        }
+    __syncthreads();   // the loads of chunk k + STAGES overwrite this stage
+  }
+
+  // accumulator (row g or g + 8, cols 2q and 2q + 1 of each n8 tile), with
+  // g = lane / 4 and q = lane % 4, into the f32 tile over the ring
+  float* tile = reinterpret_cast<float*>(ring);
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int i = 0; i < G::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      float* row = tile + ((warp * G::MT + i) * 16 + g) * G::LD + j * 8 + 2 * q;
+      *reinterpret_cast<float2*>(row) = make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(row + 8 * G::LD) =
+          make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+  __syncthreads();
+  epilogue<__nv_bfloat16, G::BX, G::BY, G::BZ, G::LD>(
+      tile, bias, res, out, b, X, Y, Z, F, x0, y0, z0, n0, act, post_act);
+}
+
+template <typename G>
+int launch_mma(const void* x, const void* w, const void* bias, const float* a,
+               const float* s, const void* res, void* out, int B, int X,
+               int Y, int Z, int C, int F, int act, int post_act, int nxt,
+               int nyt, int nzt, int ftiles, int smem, cudaStream_t stream) {
+  if (nxt != (X + G::BX - 1) / G::BX || nyt != (Y + G::BY - 1) / G::BY ||
+      nzt != (Z + G::BZ - 1) / G::BZ || ftiles != (F + BN - 1) / BN ||
+      smem != G::SMEM)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)B * nxt * nyt * nzt * ftiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  dim3 grid((unsigned)blocks, (F + BN - 1) / BN);
-  conv3x3x3_kernel<T><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(bias), a, s, static_cast<const T*>(res),
-      static_cast<T*>(out), X, Y, Z, C, F, act, post_act);
+  CUtensorMap xmap, wmap;
+  cudaError_t err = encode_volume(&xmap, x, B, X, Y, Z, C, CK, G::HZ, G::HY,
+                                  G::HX, CU_TENSOR_MAP_SWIZZLE_32B);
+  if (err != cudaSuccess) return (int)err;
+  // w as (27, C, F): boxes of 64 output channels x 16 input channels x 27
+  // taps
+  const cuuint64_t wdims[3] = {(cuuint64_t)F, (cuuint64_t)C, 27};
+  const cuuint64_t wstrides[2] = {(cuuint64_t)F * 2, (cuuint64_t)F * 2 * C};
+  const cuuint32_t wbox[3] = {BN, CK, 27};
+  err = encode_tiled(&wmap, w, 3, wdims, wstrides, wbox,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return (int)err;
+  const bool affine = a != nullptr || s != nullptr;
+  const auto kernel =
+      affine ? conv_mma_kernel<G, true> : conv_mma_kernel<G, false>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             G::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, NTHREADS, G::SMEM, stream>>>(
+      xmap, wmap, static_cast<const __nv_bfloat16*>(bias), a, s,
+      static_cast<const __nv_bfloat16*>(res),
+      static_cast<__nv_bfloat16*>(out), X, Y, Z, C, F, act, post_act, nxt,
+      nyt, nzt, ftiles);
   return (int)cudaGetLastError();
+}
+
+// ---- f32: CUDA cores ------------------------------------------------------
+
+constexpr int FX = 4, FY = 4, FZ = 16;           // output brick
+constexpr int FM = FX * FY * FZ;                 // 256 GEMM rows
+constexpr int FCK = 8;                           // input channels per chunk
+constexpr int FHX = FX + 2, FHY = FY + 2, FHZ = FZ + 2;
+// Row stride of the staged weights: 8 floats of padding shift each k-row
+// by 32 bytes, so the threads of a warp read distinct banks.
+constexpr int WS_LD = BN + 8;
+constexpr int RT = FM / (NTHREADS / 8);          // rows per thread
+constexpr int FMA_SMEM = (FHX * FHY * FHZ * FCK + 27 * FCK * WS_LD) * 4;
+static_assert(FMA_SMEM >= FM * BN * 4, "epilogue tile fits the operands");
+static_assert(FZ % RT == 0, "a thread's rows stay in one column");
+
+// Input halo of one channel chunk: halo[(hx*FHY + hy)*FHZ + hz][k], the
+// voxel at (x0+hx-1, y0+hy-1, z0+hz-1), channel c0+k, with the affine
+// (each step rounded, as the plain version's are); zero outside the
+// volume and beyond C.
+__device__ void load_halo(float* halo, const float* __restrict__ x,
+                          const float* __restrict__ a,
+                          const float* __restrict__ s, int b, int X, int Y,
+                          int Z, int C, int x0, int y0, int z0, int c0) {
+  constexpr int NV = FCK / 4;
+  for (int i = threadIdx.x; i < FHX * FHY * FHZ * NV; i += NTHREADS) {
+    const int v = i % NV, p = i / NV;
+    const int hz = p % FHZ, hy = (p / FHZ) % FHY, hx = p / (FHZ * FHY);
+    const int gx = x0 + hx - 1, gy = y0 + hy - 1, gz = z0 + hz - 1;
+    const int c = c0 + v * 4;
+    alignas(16) float vals[4] = {0.f, 0.f, 0.f, 0.f};
+    if (gx >= 0 && gx < X && gy >= 0 && gy < Y && gz >= 0 && gz < Z &&
+        c < C) {
+      const size_t off = ((((size_t)b * X + gx) * Y + gy) * Z + gz) * C + c;
+      *reinterpret_cast<float4*>(vals) =
+          __ldg(reinterpret_cast<const float4*>(x + off));
+      const size_t ac = (size_t)b * C + c;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (a != nullptr) vals[j] = __fmul_rn(vals[j], a[ac + j]);
+        if (s != nullptr) vals[j] = __fadd_rn(vals[j], s[ac + j]);
+      }
+    }
+    *reinterpret_cast<float4*>(halo + p * FCK + v * 4) =
+        *reinterpret_cast<const float4*>(vals);
+  }
+}
+
+// Weights of one channel chunk: ws[t][k][n] = w[t][c0+k][n0+n] (row
+// stride WS_LD), zero beyond C and F.  w is the flax layout (3,3,3,C,F),
+// i.e. (27, C, F).
+__device__ void load_weights(float* ws, const float* __restrict__ w, int C,
+                             int F, int c0, int n0) {
+  constexpr int NV = BN / 4;
+  for (int i = threadIdx.x; i < 27 * FCK * NV; i += NTHREADS) {
+    const int v = i % NV, r = i / NV;
+    const int k = r % FCK, t = r / FCK;
+    const int c = c0 + k, f = n0 + v * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < C && f < F)
+      val = __ldg(reinterpret_cast<const float4*>(
+          w + ((size_t)t * C + c) * F + f));
+    *reinterpret_cast<float4*>(ws + (t * FCK + k) * WS_LD + v * 4) = val;
+  }
+}
+
+// Thread t owns rows [RT*(t/8), +RT) and channels [8*(t%8), +8).
+__global__ void __launch_bounds__(NTHREADS)
+conv_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ bias, const float* __restrict__ a,
+                const float* __restrict__ s, const float* __restrict__ res,
+                float* __restrict__ out, int X, int Y, int Z, int C, int F,
+                int act, int post_act) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* halo = reinterpret_cast<float*>(smem);
+  float* ws = halo + FHX * FHY * FHZ * FCK;
+  float* tile = halo;
+
+  const int nzt = (Z + FZ - 1) / FZ, nyt = (Y + FY - 1) / FY,
+            nxt = (X + FX - 1) / FX;
+  int id = blockIdx.x;
+  const int zt = id % nzt;
+  id /= nzt;
+  const int yt = id % nyt;
+  id /= nyt;
+  const int xt = id % nxt;
+  const int b = id / nxt;
+  const int x0 = xt * FX, y0 = yt * FY, z0 = zt * FZ, n0 = blockIdx.y * BN;
+
+  const int ng = threadIdx.x % 8, mg = threadIdx.x / 8;
+  const int col = mg * RT / FZ, bx = col / FY, by = col % FY;
+  const int zb = (mg * RT) % FZ;
+  float acc[RT][8];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int c0 = 0; c0 < C; c0 += FCK) {
+    __syncthreads();
+    load_halo(halo, x, a, s, b, X, Y, Z, C, x0, y0, z0, c0);
+    load_weights(ws, w, C, F, c0, n0);
+    __syncthreads();
+#pragma unroll 1
+    for (int t = 0; t < 27; ++t) {
+      const int dx = t / 9, dy = (t / 3) % 3, dz = t % 3;
+      const float* hp =
+          halo + (((bx + dx) * FHY + (by + dy)) * FHZ + zb + dz) * FCK;
+      const float* wp = ws + t * FCK * WS_LD + ng * 8;
+#pragma unroll
+      for (int k = 0; k < FCK; ++k) {
+        float av[RT], bv[8];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) av[i] = hp[i * FCK + k];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) bv[j] = wp[k * WS_LD + j];
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) tile[(mg * RT + i) * BN + ng * 8 + j] = acc[i][j];
+  __syncthreads();
+  epilogue<float, FX, FY, FZ, BN>(tile, bias, res, out, b, X, Y, Z, F, x0,
+                                  y0, z0, n0, act, post_act);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  x (B,X,Y,Z,C), w (3,3,3,C,F), bias (F,),
-// residual and out (B,X,Y,Z,F) in that dtype; a, s (B,C) float32.  bias,
-// a, s and res may be null.  C and F are multiples of 8.  Returns a
+// bf16 variant.  x (B,X,Y,Z,C), w (3,3,3,C,F), bias (F,), residual and out
+// (B,X,Y,Z,F) bf16, contiguous and 16-byte aligned; a, s (B,C) float32
+// holding bf16 values; bias, a, s and res may be null.  C and F are
+// multiples of 8.  The launch plan: the brick (bx, by, bz), which must be
+// a compiled one; the volume's nxt x nyt x nzt bricks per batch item and
+// ftiles tiles of 64 output channels; the ring's stages and the dynamic
+// shared memory, which must be what the brick needs.  Returns a
 // cudaError_t code (0 on success).
-extern "C" int gfe_conv3x3x3(int dtype, const void* x, const void* w,
-                             const void* bias, const float* a, const float* s,
-                             const void* res, void* out, int B, int X, int Y,
-                             int Z, int C, int F, int act, int post_act,
-                             void* stream) {
+extern "C" int gfe_conv3x3x3_bf16(const void* x, const void* w,
+                                  const void* bias, const float* a,
+                                  const float* s, const void* res, void* out,
+                                  int B, int X, int Y, int Z, int C, int F,
+                                  int act, int post_act, int bx, int by,
+                                  int bz, int nxt, int nyt, int nzt,
+                                  int ftiles, int stages, int smem,
+                                  void* stream) {
+  if (B <= 0 || X <= 0 || Y <= 0 || Z <= 0 || C <= 0 || F <= 0 ||
+      stages != STAGES)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, bias, a, s, res, out, B, X, Y, Z, C,
-                                 F, act, post_act, st);
-  if (dtype == 0)
-    return launch<float>(x, w, bias, a, s, res, out, B, X, Y, Z, C, F, act,
-                         post_act, st);
+  if (bx == 4 && by == 4 && bz == 16)
+    return launch_mma<Tile<4, 4, 16>>(x, w, bias, a, s, res, out, B, X, Y, Z,
+                                      C, F, act, post_act, nxt, nyt, nzt,
+                                      ftiles, smem, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// f32 variant: the same tensors in float32.  Returns a cudaError_t code.
+extern "C" int gfe_conv3x3x3_f32(const float* x, const float* w,
+                                 const float* bias, const float* a,
+                                 const float* s, const float* res,
+                                 float* out, int B, int X, int Y, int Z,
+                                 int C, int F, int act, int post_act,
+                                 void* stream) {
+  const long long blocks = (long long)B * ((X + FX - 1) / FX) *
+                           ((Y + FY - 1) / FY) * ((Z + FZ - 1) / FZ);
+  if (blocks <= 0) return (int)cudaErrorInvalidValue;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_fma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      FMA_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)blocks, (F + BN - 1) / BN);
+  conv_fma_kernel<<<grid, NTHREADS, FMA_SMEM,
+                    static_cast<cudaStream_t>(stream)>>>(
+      x, w, bias, a, s, res, out, X, Y, Z, C, F, act, post_act);
+  return (int)cudaGetLastError();
 }

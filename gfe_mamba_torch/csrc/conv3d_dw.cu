@@ -49,12 +49,11 @@
 //
 // Both write one f32 partial per (split, tap, c, f), every element once;
 // the caller sums the splits in a fixed order, so dw is deterministic (no
-// atomics).  No TPU layout (z-pair packing, parity blocks) is kept.
+// atomics).  No TPU layout (z-pair packing, parity blocks) is kept.  The
+// TMA, mbarrier, ldmatrix / mma.sync and affine helpers come from
+// hopper.cuh, shared with K1.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -77,16 +76,6 @@ static_assert(SLAB_ROWS * ROW_BYTES % 1024 == 0 && STAGE_BYTES % 1024 == 0,
 constexpr int GROUP_TAPS = 9;                  // one dx, every (dy, dz)
 constexpr int N8 = 4;                          // n8 tiles per warp (32 f)
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// byte offset of 16-byte slot `slot` of staged row `r` under the TMA's
-// 128-byte swizzle
-__device__ __forceinline__ unsigned swz(int r, int slot) {
-  return (unsigned)(r * ROW_BYTES + ((slot ^ (r & 7)) << 4));
-}
-
 struct Brick {
   int b, x0, y0, z0;
 };
@@ -104,35 +93,6 @@ __device__ __forceinline__ Brick brick_at(int i, int nxt, int nyt, int nzt) {
   return r;
 }
 
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
-  unsigned done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// One TMA load of a (c, z, y, x, b) box at the given (signed) origin.
-__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map,
-                                         unsigned bar, int c, int z, int y,
-                                         int x, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(z), "r"(y), "r"(x),
-      "r"(b), "r"(bar)
-      : "memory");
-}
-
 // Brick k's raw x slab (for the block's dx) and g1 rows into the stage at
 // `st`; the barrier completes when all STAGE_BYTES have landed.
 __device__ __forceinline__ void stage_brick(unsigned st, unsigned bar,
@@ -140,73 +100,23 @@ __device__ __forceinline__ void stage_brick(unsigned st, unsigned bar,
                                             const CUtensorMap* gmap,
                                             const Brick& k, int dx, int c0,
                                             int f0) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(STAGE_BYTES)
-               : "memory");
-  tma_load(st, xmap, bar, c0, k.z0 - 1, k.y0 - 1, k.x0 + dx - 1, k.b);
-  tma_load(st + SLAB_ROWS * ROW_BYTES, gmap, bar, f0, k.z0, k.y0, k.x0, k.b);
+  mbar_expect_tx(bar, STAGE_BYTES);
+  tma_load_5d(st, xmap, bar, c0, k.z0 - 1, k.y0 - 1, k.x0 + dx - 1, k.b);
+  tma_load_5d(st + SLAB_ROWS * ROW_BYTES, gmap, bar, f0, k.z0, k.y0, k.x0,
+              k.b);
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned& r0,
-                                              unsigned& r1, unsigned& r2,
-                                              unsigned& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two bf16 values of (a or s), lower address in the low half; `none`
-// without p
-__device__ __forceinline__ unsigned bf16_pair(const float* p, size_t i,
-                                              float none) {
-  const float lo = p != nullptr ? __ldg(p + i) : none;
-  const float hi = p != nullptr ? __ldg(p + i + 1) : none;
-  return (unsigned)__bfloat16_as_ushort(__float2bfloat16(lo)) |
-         ((unsigned)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
-}
-
-// round(round(x * a) + s) on a bf16 pair: mul.rn and add.rn round the
-// exact product and the exact sum once each, as the plain version's f32
-// arithmetic rounded to bf16 does
-__device__ __forceinline__ unsigned affine_pair(unsigned v, unsigned sc,
-                                                unsigned sh) {
-  asm("mul.rn.bf16x2 %0, %0, %1;\n" : "+r"(v) : "r"(sc));
-  asm("add.rn.bf16x2 %0, %0, %1;\n" : "+r"(v) : "r"(sh));
-  return v;
-}
-
-// zhat in place on the real voxels of brick k's staged raw slab.  Thread
-// t takes the 16-byte slot t % 8 (8 channels) of rows t / 8 + 32 j, its
-// loads batched (a loop over (x, y) runs with a branch per row cost ~40%
-// more on the H100).  A row is real when its (x, y)
-// run and its z are inside the volume; halo rows keep the TMA's zeros.
-// Without a scale the pass multiplies by 1, without a shift it adds -0;
-// beyond C the slot holds zeros and dw there is never written.
+// zhat in place on the real voxels of brick k's staged raw slab
+// (affine_rows: thread t takes the 16-byte slot t % 8, 8 channels, of
+// rows t / 8 + 32 j).  A row is real when its (x, y) run and its z are
+// inside the volume; beyond C the slot holds zeros and dw there is never
+// written.
 __device__ void affine_slab(unsigned char* slab, const float* __restrict__ a,
                             const float* __restrict__ s, const Brick& k,
                             int dx, int X, int Y, int Z, int C, int c0) {
-  constexpr int ROWS = (SLAB_ROWS + 31) / 32;   // rows per thread, at most
-  constexpr int BATCH = 7;
-  const int slot = threadIdx.x & 7, r0 = threadIdx.x >> 3;
-  const int c = c0 + 8 * slot;
-  const size_t ac = (size_t)k.b * C + c;
+  const int c = c0 + 8 * (threadIdx.x & 7);
   unsigned sc[4], sh[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    sc[j] = bf16_pair(c < C ? a : nullptr, ac + 2 * j, 1.f);
-    sh[j] = bf16_pair(c < C ? s : nullptr, ac + 2 * j, -0.f);
-  }
+  affine_coeffs(a, s, (size_t)k.b * C + c, c < C, sc, sh);
   // real (x, y) runs as a bit mask over run = sx * SY + hy; real z rows
   unsigned runs = 0;
 #pragma unroll
@@ -220,35 +130,12 @@ __device__ void affine_slab(unsigned char* slab, const float* __restrict__ a,
     }
   }
   const int hz_lo = max(0, 1 - k.z0), hz_hi = min(SZ, Z + 1 - k.z0);
-#pragma unroll
-  for (int j0 = 0; j0 < ROWS; j0 += BATCH) {
-    uint4 v[BATCH];
-#pragma unroll
-    for (int j = 0; j < BATCH; ++j) {
-      const int r = r0 + 32 * (j0 + j);
-      if (j0 + j < ROWS && r < SLAB_ROWS)
-        v[j] = *reinterpret_cast<const uint4*>(slab + swz(r, slot));
-    }
-#pragma unroll
-    for (int j = 0; j < BATCH; ++j) {
-      const int r = r0 + 32 * (j0 + j);
-      if (j0 + j >= ROWS || r >= SLAB_ROWS) continue;
-      const int run = r / SZ, hz = r - run * SZ;
-      if (!((runs >> run) & 1u) || hz < hz_lo || hz >= hz_hi) continue;
-      v[j].x = affine_pair(v[j].x, sc[0], sh[0]);
-      v[j].y = affine_pair(v[j].y, sc[1], sh[1]);
-      v[j].z = affine_pair(v[j].z, sc[2], sh[2]);
-      v[j].w = affine_pair(v[j].w, sc[3], sh[3]);
-      *reinterpret_cast<uint4*>(slab + swz(r, slot)) = v[j];
-    }
-  }
-}
-
-// Wait for the phase of `parity`.  A phase that never completes (a fault
-// in a descriptor) ends the kernel with an error instead of a hang.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  for (int spin = 0; !mbar_try_wait(bar, parity);)
-    if (++spin == (1 << 22)) __trap();
+  affine_rows<NTHREADS, 8, SLAB_ROWS, 7>(
+      slab, sc, sh, [](int r, int slot) { return swz128(r, slot); },
+      [&](int r) {
+        const int run = r / SZ, hz = r - run * SZ;
+        return ((runs >> run) & 1u) && hz >= hz_lo && hz < hz_hi;
+      });
 }
 
 // Grid: x = (group, f tile, c tile), group fastest, so the dx groups of
@@ -288,7 +175,7 @@ dw_mma_kernel(const __grid_constant__ CUtensorMap xmap,
   if (threadIdx.x == 0) {
     mbar_init(full0, 1);
     mbar_init(full0 + 8, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
     load(0);
   }
   __syncthreads();
@@ -320,7 +207,7 @@ dw_mma_kernel(const __grid_constant__ CUtensorMap xmap,
       affine_slab(stages + buf * STAGE_BYTES, a, s,
                   brick_at(begin + it, nxt, nyt, nzt), dx, X, Y, Z, C, c0);
       // the stage's next TMA writes must follow these generic writes
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_proxy_async();
       __syncthreads();
     }
     if (threadIdx.x == 0 && it + 1 < n) load(it + 1);
@@ -331,16 +218,17 @@ dw_mma_kernel(const __grid_constant__ CUtensorMap xmap,
       const int bx = col / BY, by = col % BY;
       unsigned b[N8][2];
       const int rb = col * BZ + b_k;
-      ldsm_x4_trans(grows + swz(rb, b_slot), b[0][0], b[0][1], b[1][0],
-                    b[1][1]);
-      ldsm_x4_trans(grows + swz(rb, b_slot + 2), b[2][0], b[2][1], b[3][0],
-                    b[3][1]);
+      ldsm_x4_trans(grows + swz128(rb, b_slot), b[0][0], b[0][1],
+                    b[1][0], b[1][1]);
+      ldsm_x4_trans(grows + swz128(rb, b_slot + 2), b[2][0], b[2][1],
+                    b[3][0], b[3][1]);
 #pragma unroll
       for (int t = 0; t < GROUP_TAPS; ++t) {
         const int dy = t / 3, dz = t % 3;
         const int ra = (bx * SY + by + dy) * SZ + dz + a_k;
         unsigned av[4];
-        ldsm_x4_trans(slab + swz(ra, a_slot), av[0], av[1], av[2], av[3]);
+        ldsm_x4_trans(slab + swz128(ra, a_slot), av[0], av[1], av[2],
+                      av[3]);
 #pragma unroll
         for (int j = 0; j < N8; ++j) mma_bf16(acc[t][j], av, b[j][0], b[j][1]);
       }
@@ -467,50 +355,6 @@ dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// The TMA descriptor of a channels-last bf16 volume (B, X, Y, Z, ch) read
-// in (64, bz, by, bx, 1) boxes with the 128-byte swizzle, zero outside it.
-// cuTensorMapEncodeTiled comes from the driver through the runtime, so
-// the library links nothing beyond cudart.
-cudaError_t encode_map(CUtensorMap* map, const void* base, int B, int X,
-                       int Y, int Z, int ch, int bz, int by, int bx) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t row = (cuuint64_t)ch * 2;
-  const cuuint64_t dims[5] = {(cuuint64_t)ch, (cuuint64_t)Z, (cuuint64_t)Y,
-                              (cuuint64_t)X, (cuuint64_t)B};
-  const cuuint64_t strides[4] = {row, row * Z, row * Z * Y, row * Z * Y * X};
-  const cuuint32_t box[5] = {TILE, (cuuint32_t)bz, (cuuint32_t)by,
-                             (cuuint32_t)bx, 1};
-  const cuuint32_t steps[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims,
-      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 // bf16 variant.  x (B,X,Y,Z,C) and g (B,X,Y,Z,F) bf16, contiguous and
@@ -538,8 +382,11 @@ extern "C" int gfe_conv3x3x3_dw_bf16(const void* x, const void* g,
   if (nbricks > 0x7fffffffLL || splits > 65535 || tiles > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
   CUtensorMap xmap, gmap;
-  cudaError_t err = encode_map(&xmap, x, B, X, Y, Z, C, SZ, SY, BX);
-  if (err == cudaSuccess) err = encode_map(&gmap, g, B, X, Y, Z, F, BZ, BY, BX);
+  cudaError_t err = encode_volume(&xmap, x, B, X, Y, Z, C, TILE, SZ, SY, BX,
+                                  CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = encode_volume(&gmap, g, B, X, Y, Z, F, TILE, BZ, BY, BX,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return (int)err;
   const bool affine = a != nullptr || s != nullptr;
   const auto kernel = affine ? dw_mma_kernel<true> : dw_mma_kernel<false>;

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for ``sm_90a`` into its own shared library, loaded with ``ctypes``.  The
 build runs at first use, from the checkout's sources alone, into
 ``gfe_mamba_torch/_build`` (listed in ``.gitignore``).  A library's file
-name carries a hash of its source and flags, so an edited source is rebuilt
+name carries a hash of its source, of the headers the sources share
+(``csrc/*.cuh``) and of the flags, so an edited source or header is rebuilt
 and a stale library is never loaded.  ``build`` starts one ``nvcc`` per
 source, all at once, and waits for all of them.
 """
@@ -41,6 +42,9 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives once built."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -27,6 +27,15 @@ import torch
 import torch.nn.functional as F
 
 ACT_CODES = {"none": 0, "relu": 1, "elu": 2, "leaky01": 3, "leaky001": 4}
+# K1's bf16 launch (csrc/conv3d.cu): the output brick (x, y, z) of one
+# block, which the kernel must have compiled; the output channels of one
+# block; the input channels of one staged chunk; the stages of the TMA
+# ring; and the shared memory a block may take on the H100.
+CONV_BRICK = (4, 4, 16)
+_CONV_BN = 64
+_CONV_CK = 16
+_CONV_STAGES = 2
+SMEM_LIMIT = 232448
 # K3's launch shapes (csrc/conv3d_dw.cu).  Both variants: the (c, f) tile.
 # f32 (CUDA cores): voxels per shared chunk and the number of blocks the
 # voxel split aims for.  bf16 (tensor cores): the voxel brick; the tap
@@ -130,10 +139,60 @@ def _affine_for_kernel(dtype, pre_scale, pre_shift):
                  for t in (pre_scale, pre_shift))
 
 
+class ConvPlan(NamedTuple):
+    """The bf16 K1 launch.  ``blocks`` = B x ``tiles``: the bricks of the
+    volume along x, y and z and the tiles of ``_CONV_BN`` output channels,
+    decoded by the kernel with the channel tile fastest, then z, y, x and
+    the batch.  The boxes are the two TMA loads of a chunk (innermost
+    dimension first): x's halo ``(channels, z, y, x, batch)`` and w's
+    ``(F, C, taps)`` over its (27, C, F) view; ``strides`` are their
+    tensors' byte strides past the innermost dimension."""
+    brick: tuple[int, int, int]
+    tiles: tuple[int, int, int, int]
+    blocks: int
+    stages: int
+    smem_bytes: int
+    halo_box: tuple[int, ...]
+    weight_box: tuple[int, ...]
+    halo_strides: tuple[int, ...]
+    weight_strides: tuple[int, ...]
+
+
+def _kb_up(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def conv_plan(B, X, Y, Z, C, F) -> ConvPlan:
+    """K1's bf16 launch for x ``(B, X, Y, Z, C)`` and F output channels:
+    one block per (``CONV_BRICK`` brick, 64-channel tile).  A ring stage
+    holds a 16-channel chunk's weights (432 rows of 128 bytes) then its
+    halo (rows of 32 bytes), each from a multiple of 1,024 bytes; the f32
+    output tile (rows of 72 floats) reuses the ring; 1,024 bytes more
+    align the ring."""
+    bx, by, bz = CONV_BRICK
+    tiles = (-(-X // bx), -(-Y // by), -(-Z // bz), -(-F // _CONV_BN))
+    halo_box = (_CONV_CK, bz + 2, by + 2, bx + 2, 1)
+    weight_box = (_CONV_BN, _CONV_CK, 27)
+    halo_bytes = 2 * _CONV_CK * (bz + 2) * (by + 2) * (bx + 2)
+    stage = 2 * _CONV_BN * _CONV_CK * 27 + _kb_up(halo_bytes)
+    tile = bx * by * bz * (_CONV_BN + 8) * 4
+    smem = max(_CONV_STAGES * stage, tile) + 1024
+    row = 2 * C
+    return ConvPlan(
+        brick=CONV_BRICK, tiles=tiles,
+        blocks=B * tiles[0] * tiles[1] * tiles[2] * tiles[3],
+        stages=_CONV_STAGES, smem_bytes=smem, halo_box=halo_box,
+        weight_box=weight_box,
+        halo_strides=(row, row * Z, row * Z * Y, row * Z * Y * X),
+        weight_strides=(2 * F, 2 * F * C))
+
+
 def conv3x3x3_cuda(x, w, bias=None, pre_scale=None, pre_shift=None,
                    residual=None, act="none", post_act="none"):
     """Launch K1.  Takes f32 or bf16 CUDA tensors with C and F multiples
-    of 8; raises on anything else."""
+    of 8; raises on anything else.  bf16 takes the tensor-core variant
+    with ``conv_plan``'s launch, f32 the CUDA-core one; neither falls back
+    to the other."""
     from gfe_mamba_torch.ops.cuda.build import library
 
     global launches
@@ -162,17 +221,22 @@ def conv3x3x3_cuda(x, w, bias=None, pre_scale=None, pre_shift=None,
         return out
     pre_scale, pre_shift = _affine_for_kernel(x.dtype, pre_scale, pre_shift)
     lib = library("conv3d")
-    fn = lib.gfe_conv3x3x3
+    if x.dtype == torch.bfloat16:
+        plan = conv_plan(B, X, Y, Z, C, Fo)
+        plan_args = (*plan.brick, *plan.tiles, plan.stages, plan.smem_bytes)
+        fn = lib.gfe_conv3x3x3_bf16
+    else:
+        plan_args = ()
+        fn = lib.gfe_conv3x3x3_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 \
-        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 \
+        + [ctypes.c_int] * (8 + len(plan_args)) + [ctypes.c_void_p]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(1 if x.dtype == torch.bfloat16 else 0,
-                x.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(pre_scale),
+        rc = fn(x.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(pre_scale),
                 _ptr(pre_shift), _ptr(residual), out.data_ptr(),
                 B, X, Y, Z, C, Fo, ACT_CODES[act], ACT_CODES[post_act],
-                stream)
+                *plan_args, stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3x3 kernel failed: CUDA error {rc}")
     launches += 1

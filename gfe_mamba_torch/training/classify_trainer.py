@@ -44,12 +44,7 @@ class ClassifyTrainer:
         self.optimizer = torch.optim.Adam(list(self.trainable.values()), lr=lr)
         self.grad_clip = grad_clip
         self.dtype = compute_dtype(mixed_precision)
-        # The frozen generator never changes: its compute-dtype copy is
-        # made once, here (weights loaded into it later are not seen).
-        with torch.no_grad():
-            self.frozen = cast_for_compute(
-                dict(model.generator.named_parameters(prefix="generator")),
-                self.dtype)
+        self.frozen, self._frozen_key, self._frozen_from = {}, None, None
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
         seed_dropout(model, self.rng)
         self.step = 0
@@ -57,7 +52,23 @@ class ClassifyTrainer:
     def _inputs(self, *tensors):
         return [t.to(self.device) for t in tensors]
 
+    def _refresh_frozen(self) -> None:
+        """The frozen generator's compute-dtype copy, cast again only when
+        a generator parameter was replaced or written in place since the
+        last cast (``Tensor._version``): weights loaded after construction
+        are seen, as the JAX trainer reads them from its state at every
+        step, and an unchanged generator costs no cast."""
+        named = dict(self.model.generator.named_parameters(
+            prefix="generator"))
+        key = [(id(p), p._version) for p in named.values()]
+        if key != self._frozen_key:
+            with torch.no_grad():
+                self.frozen = cast_for_compute(named, self.dtype)
+            # the sources stay referenced, so their ids are not reused
+            self._frozen_key, self._frozen_from = key, named
+
     def _logits(self, mri, x_cat, x_num) -> torch.Tensor:
+        self._refresh_frozen()
         params = {**self.frozen,
                   **cast_for_compute(self.trainable, self.dtype)}
         logits = functional_call(self.model, params,

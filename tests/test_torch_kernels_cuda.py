@@ -50,12 +50,15 @@ def _randn(gen, *shape, scale=1.0):
                                        (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("act,with_res,post_act", [
     ("relu", False, "none"), ("none", True, "relu"), ("elu", False, "none")])
+@pytest.mark.parametrize("shape,C,F", [((2, 5, 7, 19), 24, 40),
+                                       ((1, 9, 13, 24), 24, 40),
+                                       ((3, 11, 6, 24), 128, 64)])
 def test_conv_kernel_matches_plain(cuda, dtype, rel, act, with_res,
-                                   post_act):
-    """A ragged shape (no dimension a multiple of the brick) with C, F
-    multiples of 8 but not of 16."""
+                                   post_act, shape, C, F):
+    """Ragged shapes: X and Y not multiples of the brick, Z = 24 (the
+    256-channel level's depth) and 19, C and F multiples of 8 but not of
+    16, and more input channels than one 64-wide output tile."""
     gen = np.random.RandomState(0)
-    shape, C, F = (2, 5, 7, 19), 24, 40
     x = _randn(gen, *shape, C).to(cuda, dtype)
     w = _randn(gen, 3, 3, 3, C, F, scale=(27 * C) ** -0.5).to(cuda, dtype)
     bias = _randn(gen, F).to(cuda, dtype)

@@ -224,6 +224,33 @@ def test_finite_guard_skips_the_whole_step(reference):
                          reference["mu2"])
 
 
+def test_bf16_step_sees_generator_weights_loaded_after_construction():
+    """The bf16 copy of the frozen generator follows weights loaded into
+    it after the trainer was built (the JAX trainer reads the generator
+    from its state at every step): logits and the step's loss equal those
+    of a trainer built after the load, bit for bit."""
+    batch = [torch.from_numpy(v) for v in _batch()]
+    new = build_gfe_mamba(img_size=IMG, device="cpu", seq_length=2,
+                          seed=7, **GEN, **CLS).generator.state_dict()
+    trainers = []
+    for load_first in (False, True):
+        model = build_gfe_mamba(img_size=IMG, device="cpu", seq_length=2,
+                                cross_ff_dropout=0.0, seed=0, **GEN, **CLS)
+        if load_first:
+            model.generator.load_state_dict(new)
+        trainers.append(ClassifyTrainer(model, lr=LR, device="cpu"))
+        if not load_first:
+            model.generator.load_state_dict(new)
+    with torch.no_grad():
+        logits = [tr._logits(*batch[:3]) for tr in trainers]
+    assert logits[0].dtype == torch.float32 and torch.equal(*logits)
+    losses = [tr.train_step(*batch)["cla_loss"] for tr in trainers]
+    assert losses[0] == losses[1]
+    assert all(trainers[0].frozen[k].dtype == torch.bfloat16
+               and torch.equal(trainers[0].frozen[k], v)
+               for k, v in trainers[1].frozen.items())
+
+
 @pytest.mark.parametrize("preds,targets", [
     (np.random.RandomState(3).rand(32), np.random.RandomState(4).rand(32)
      > 0.5),
