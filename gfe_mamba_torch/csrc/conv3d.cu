@@ -483,10 +483,10 @@ extern "C" int gfe_conv3x3x3_bf16(const void* x, const void* w,
       stages != STAGES)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bx == 4 && by == 4 && bz == 16)
-    return launch_mma<Tile<4, 4, 16>>(x, w, bias, a, s, res, out, B, X, Y, Z,
-                                      C, F, act, post_act, nxt, nyt, nzt,
-                                      ftiles, smem, st);
+  if (bx == 8 && by == 8 && bz == 8)
+    return launch_mma<Tile<8, 8, 8>>(x, w, bias, a, s, res, out, B, X, Y, Z,
+                                     C, F, act, post_act, nxt, nyt, nzt,
+                                     ftiles, smem, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -31,7 +31,7 @@ ACT_CODES = {"none": 0, "relu": 1, "elu": 2, "leaky01": 3, "leaky001": 4}
 # block, which the kernel must have compiled; the output channels of one
 # block; the input channels of one staged chunk; the stages of the TMA
 # ring; and the shared memory a block may take on the H100.
-CONV_BRICK = (4, 4, 16)
+CONV_BRICK = (8, 8, 8)
 _CONV_BN = 64
 _CONV_CK = 16
 _CONV_STAGES = 2

@@ -81,3 +81,12 @@ def test_conv_plan_strides_are_multiples_of_16_bytes(shape, C, F):
     assert plan.weight_strides == (2 * F, 2 * F * C)
     assert all(s % 16 == 0
                for s in plan.halo_strides + plan.weight_strides)
+
+
+@pytest.mark.parametrize("shape,C,F", SHAPES[:6])
+def test_conv_plan_pads_nothing_at_the_generator_levels(shape, C, F):
+    """The bricks tile every level exactly, Z = 24 included (a 16-deep
+    brick would leave the second z brick half empty there)."""
+    plan = k1.conv_plan(*shape, C, F)
+    voxels = np.prod(shape)
+    assert plan.blocks * np.prod(plan.brick) * 64 == voxels * F
