@@ -18,7 +18,7 @@
 //
 // bf16 (conv_mma_kernel): an implicit GEMM with M = a brick of output
 // voxels (the caller's launch plan, conv_plan in ops/cuda/conv3d.py,
-// names it and the launch checks it against the compiled ones), N = 64
+// names it and the launch checks it against the compiled one), N = 64
 // output channels and K = 27 * C, taken in chunks of 16 input channels
 // (one MMA k-step).  Per chunk one thread issues two TMA loads into a
 // stage of a 2-stage ring, each completing on the stage's mbarrier: the
