@@ -63,62 +63,122 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+
+// activation codes: 0 none, 1 relu, 2 elu, 3 leaky 0.1, 4 leaky 0.01; the
+// code is the same for the whole launch, so the switch is taken once per
+// vector
+template <int N>
+__device__ __forceinline__ void apply_act(float (&y)[N], int act) {
+  switch (act) {
+    case 1:
+#pragma unroll
+      for (int j = 0; j < N; ++j) y[j] = fmaxf(y[j], 0.f);
+      break;
+    case 2:
+#pragma unroll
+      for (int j = 0; j < N; ++j) y[j] = y[j] > 0.f ? y[j] : expf(y[j]) - 1.f;
+      break;
+    case 3:
+#pragma unroll
+      for (int j = 0; j < N; ++j) y[j] = y[j] > 0.f ? y[j] : 0.1f * y[j];
+      break;
+    case 4:
+#pragma unroll
+      for (int j = 0; j < N; ++j) y[j] = y[j] > 0.f ? y[j] : 0.01f * y[j];
+      break;
+    default:
+      break;
+  }
 }
 
-// activation codes: 0 none, 1 relu, 2 elu, 3 leaky 0.1, 4 leaky 0.01
-__device__ __forceinline__ float apply_act(float y, int act) {
-  switch (act) {
-    case 1: return fmaxf(y, 0.f);
-    case 2: return y > 0.f ? y : expf(y) - 1.f;
-    case 3: return y > 0.f ? y : 0.1f * y;
-    case 4: return y > 0.f ? y : 0.01f * y;
-    default: return y;
+// 16 bytes as 4 floats or 8 bf16 values widened to floats, and back (bf16
+// rounded to nearest even, as __float2bfloat16 does)
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[8]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = __uint_as_float(w[k] << 16);
+    f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
   }
+}
+__device__ __forceinline__ uint4 pack16(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint4 pack16(const float (&f)[8]) {
+  return make_uint4(bf16x2_bits(f[0], f[1]), bf16x2_bits(f[2], f[3]),
+                    bf16x2_bits(f[4], f[5]), bf16x2_bits(f[6], f[7]));
 }
 
 // One block's output: post_act(act(tile + bias) + residual) for the
 // brick's real voxels and channels, from the f32 tile[m][n] (row stride
 // LD; m = (bx * BY + by) * BZ + bz), 16 bytes of output per thread and
-// step.  F % 8 == 0, so a vector is all in or all out of range.
+// step.  A thread keeps one 16-byte slot of channels, so it reads its
+// bias once; its rows go BATCH at a time, their residual loads issued
+// together.  F % 8 == 0, so a vector is all in or all out of range.
 template <typename T, int BX, int BY, int BZ, int LD>
 __device__ void epilogue(const float* tile, const T* __restrict__ bias,
                          const T* __restrict__ res, T* __restrict__ out,
                          int b, int X, int Y, int Z, int F, int x0, int y0,
                          int z0, int n0, int act, int post_act) {
-  constexpr int VEC = 16 / sizeof(T), BM = BX * BY * BZ;
-  for (int i = threadIdx.x; i < BM * BN / VEC; i += NTHREADS) {
-    const int m = i / (BN / VEC), n = (i % (BN / VEC)) * VEC;
-    const int col = m / BZ;
-    const int gx = x0 + col / BY, gy = y0 + col % BY, gz = z0 + m % BZ;
-    const int f = n0 + n;
-    if (gx >= X || gy >= Y || gz >= Z || f >= F) continue;
-    const size_t o = ((((size_t)b * X + gx) * Y + gy) * Z + gz) * F + f;
-    alignas(16) T r[VEC];
-    if (res != nullptr)
-      *reinterpret_cast<uint4*>(r) =
-          __ldg(reinterpret_cast<const uint4*>(res + o));
-    alignas(16) float acc[VEC];
+  constexpr int VEC = 16 / sizeof(T), SLOTS = BN / VEC;
+  constexpr int STEP = NTHREADS / SLOTS, ROWS = BX * BY * BZ / STEP;
+  constexpr int BATCH = 4;
+  static_assert(NTHREADS % SLOTS == 0 && ROWS % BATCH == 0, "even split");
+  const int n = (threadIdx.x % SLOTS) * VEC, m0 = threadIdx.x / SLOTS;
+  const int f = n0 + n;
+  if (f >= F) return;
+  float bv[VEC];
 #pragma unroll
-    for (int j = 0; j < VEC; j += 4)
-      *reinterpret_cast<float4*>(acc + j) =
-          *reinterpret_cast<const float4*>(tile + m * LD + n + j);
-    alignas(16) T v[VEC];
+  for (int j = 0; j < VEC; ++j)
+    bv[j] = bias != nullptr ? to_f(bias[f + j]) : 0.f;
+#pragma unroll 1
+  for (int i0 = 0; i0 < ROWS; i0 += BATCH) {
+    size_t o[BATCH];
+    bool in[BATCH];
+    uint4 r[BATCH];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      float y = acc[j];
-      if (bias != nullptr) y += to_f(bias[f + j]);
-      y = apply_act(y, act);
-      if (res != nullptr) y += to_f(r[j]);
-      v[j] = from_f<T>(apply_act(y, post_act));
+    for (int i = 0; i < BATCH; ++i) {
+      const int m = m0 + STEP * (i0 + i), col = m / BZ;
+      const int gx = x0 + col / BY, gy = y0 + col % BY, gz = z0 + m % BZ;
+      in[i] = gx < X && gy < Y && gz < Z;
+      o[i] = ((((size_t)b * X + gx) * Y + gy) * Z + gz) * F + f;
+      if (res != nullptr && in[i])
+        r[i] = __ldg(reinterpret_cast<const uint4*>(res + o[i]));
     }
-    *reinterpret_cast<uint4*>(out + o) = *reinterpret_cast<const uint4*>(v);
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      if (!in[i]) continue;
+      const float* row = tile + (m0 + STEP * (i0 + i)) * LD + n;
+      float y[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; j += 4) {
+        const float4 t = *reinterpret_cast<const float4*>(row + j);
+        y[j] = t.x;
+        y[j + 1] = t.y;
+        y[j + 2] = t.z;
+        y[j + 3] = t.w;
+      }
+      if (bias != nullptr) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) y[j] += bv[j];
+      }
+      apply_act(y, act);
+      if (res != nullptr) {
+        float rv[VEC];
+        unpack16(r[i], rv);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) y[j] += rv[j];
+      }
+      apply_act(y, post_act);
+      *reinterpret_cast<uint4*>(out + o[i]) = pack16(y);
+    }
   }
 }
 
@@ -214,7 +274,10 @@ conv_mma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
   const int b_k = (lane & 7) + 8 * ((lane >> 3) & 1), b_half = lane >> 4;
 
-  // halo row r is the voxel (x0 + hx - 1, y0 + hy - 1, z0 + hz - 1)
+  // halo row r is the voxel (x0 + hx - 1, y0 + hy - 1, z0 + hz - 1); a
+  // brick away from the volume's faces has a halo of real voxels only
+  const bool inside = x0 >= 1 && y0 >= 1 && z0 >= 1 && x0 + G::BX < X &&
+                      y0 + G::BY < Y && z0 + G::BZ < Z;
   auto real = [&](int r) {
     const int hz = r % G::HZ, run = r / G::HZ;
     const int hy = run % G::HY, hx = run / G::HY;
@@ -241,9 +304,13 @@ conv_mma_kernel(const __grid_constant__ CUtensorMap xmap,
       const int c = k * CK + 8 * (threadIdx.x & 1);
       unsigned sc[4], sh[4];
       affine_coeffs(a, s, (size_t)b * C + c, c < C, sc, sh);
-      affine_rows<NTHREADS, 2, G::HALO_ROWS, 8>(
-          ring + slot * G::STAGE + W_BYTES, sc, sh,
-          [](int r, int sl) { return swz32(r, sl); }, real);
+      unsigned char* const hp = ring + slot * G::STAGE + W_BYTES;
+      const auto at = [](int r, int sl) { return swz32(r, sl); };
+      if (inside)
+        affine_rows<NTHREADS, 2, G::HALO_ROWS, 8>(hp, sc, sh, at,
+                                                  [](int) { return true; });
+      else
+        affine_rows<NTHREADS, 2, G::HALO_ROWS, 8>(hp, sc, sh, at, real);
       // the stage's next TMA writes must follow these generic writes
       fence_proxy_async();
       __syncthreads();

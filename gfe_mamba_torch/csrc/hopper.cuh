@@ -131,14 +131,19 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// two floats rounded to bf16 (nearest even), lo in the low half
+__device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+
 // two bf16 values of (a or s), lower address in the low half; `none`
 // without p
 __device__ __forceinline__ unsigned bf16_pair(const float* p, size_t i,
                                               float none) {
   const float lo = p != nullptr ? __ldg(p + i) : none;
   const float hi = p != nullptr ? __ldg(p + i + 1) : none;
-  return (unsigned)__bfloat16_as_ushort(__float2bfloat16(lo)) |
-         ((unsigned)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+  return bf16x2_bits(lo, hi);
 }
 
 // round(round(x * a) + s) on a bf16 pair: mul.rn and add.rn round the
