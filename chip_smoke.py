@@ -117,9 +117,9 @@ K3_V1_STEP_MS = 135.63
 # v5's times (per canonical request and per Stage-1 step's input
 # gradients, H100 80GB HBM3 at 700 W, from PERF.md section 6), logged for
 # comparison and kept out of the kernels line
-K1_VERSION = ("v6: bf16 mma.sync m16n8k16 over a 2-stage TMA ring (halo and "
-              "weights per 16-channel chunk, mbarriers), GN affine applied "
-              "in shared memory")
+K1_VERSION = ("v6: bf16 mma.sync m16n8k16 on an 8x8x8 brick over a 2-stage "
+              "TMA ring (halo and weights per 16-channel chunk, mbarriers), "
+              "GN affine applied in shared memory")
 K1_V5_REQUEST_MS = 60.6
 K1_V5_DZ_STEP_MS = 13.97
 # group_norm_act (K5) runs at the generator's GroupNorm widths (the conv
