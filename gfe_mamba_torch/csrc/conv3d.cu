@@ -123,10 +123,10 @@ __device__ __forceinline__ uint4 pack16(const float (&f)[8]) {
 // bias once; its rows go BATCH at a time, their residual loads issued
 // together.  F % 8 == 0, so a vector is all in or all out of range.
 template <typename T, int BX, int BY, int BZ, int LD>
-__device__ void epilogue(const float* tile, const T* __restrict__ bias,
-                         const T* __restrict__ res, T* __restrict__ out,
-                         int b, int X, int Y, int Z, int F, int x0, int y0,
-                         int z0, int n0, int act, int post_act) {
+__device__ __forceinline__ void epilogue(
+    const float* tile, const T* __restrict__ bias, const T* __restrict__ res,
+    T* __restrict__ out, int b, int X, int Y, int Z, int F, int x0, int y0,
+    int z0, int n0, int act, int post_act) {
   constexpr int VEC = 16 / sizeof(T), SLOTS = BN / VEC;
   constexpr int STEP = NTHREADS / SLOTS, ROWS = BX * BY * BZ / STEP;
   constexpr int BATCH = 4;
@@ -463,7 +463,7 @@ __device__ void load_weights(float* ws, const float* __restrict__ w, int C,
 }
 
 // Thread t owns rows [RT*(t/8), +RT) and channels [8*(t%8), +8).
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, 1)
 conv_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ bias, const float* __restrict__ a,
                 const float* __restrict__ s, const float* __restrict__ res,
