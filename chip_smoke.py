@@ -104,6 +104,15 @@ SCAN_CALLS = 6
 # convs run a backward each (K1 as dz, K3 as dw), the 6 Mamba layers K4
 TRAIN_BATCH = 1
 GRAD_NAMES = ("dx", "ddelta", "dA", "dB", "dC", "dD", "dz", "dbias")
+# dependent latency of one f32 FMA or multiply on Hopper, in cycles (the
+# serial floor of a scan's walk)
+FMA_LATENCY_CYCLES = 4
+# v1's per-call times through the wrapper (one thread per (batch,
+# channel); H100 80GB HBM3 at 700 W, PERF.md section 6), logged for
+# comparison and kept out of the kernels line: K2 at (4,53,1024,16), K4 at
+# (1,53,1024,16)
+K2_V1_CALL_MS = 0.042
+K4_V1_CALL_MS = 0.167
 # K3's design in csrc/conv3d_dw.cu, and v1's times (one tap per block,
 # f32 FMAs on the CUDA cores; per call by channel width and per Stage-1
 # step, H100 80GB HBM3 at 700 W, from PERF.md section 6), logged for
@@ -152,6 +161,60 @@ def time_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Device time per call of ``fn`` alone: ``reps`` calls captured in one
+    CUDA graph, whose replay (after one warm-up replay) is timed by CUDA
+    events, 3 replays averaged.  The host work of the wrapper is not in
+    it; the inputs stay in the L2 cache between calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def serial_floor_ms(dependent_ops: int) -> float:
+    """What one sequential walk cannot beat: its chain of dependent f32
+    FMAs or multiplies, FMA_LATENCY_CYCLES each, at the card's highest SM
+    clock.  Not a roofline."""
+    return dependent_ops * FMA_LATENCY_CYCLES / max_sm_clock_hz() * 1e3
+
+
+def bf16_ulps(got, want) -> float:
+    """max |got - bf16(want)| in bf16 ulps of bf16(want), ``want`` being
+    the plain f32 result.  An element below 2^-8 of max |want| takes the
+    ulp of that floor: there the f32 sums' rounding (~1e-7 of their terms)
+    is what differs, not the kernel's one rounding."""
+    want = want.detach().float().to(got.device)
+    ref = want.to(torch.bfloat16).float()
+    floor = max(want.abs().max().item() * 2.0 ** -8, 1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=floor)))
+                     - 7)
+    return ((got.float() - ref).abs() / ulp).max().item()
 
 
 def rel_err(got, want, floor: float = 1.0) -> tuple[float, float]:
@@ -412,15 +475,29 @@ def serve_canonical(card: str) -> tuple[int, int]:
     return k1.launches, k2.launches
 
 
+def scan_bwd_bound_ms(bsz, L, ED, N) -> tuple[float, str]:
+    # bytes: x, delta, z, g in and dx, ddelta, dz out (L*ED each), A and
+    # dA, B, C, dB, dC, D, bias, dD, dbias; operations: ~20 per state
+    # element and step over both passes plus ~30 per step
+    nbytes = 4 * (7 * bsz * L * ED + 2 * ED * N + 4 * bsz * L * N + 4 * ED)
+    ops = bsz * L * ED * (20 * N + 30)
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def check_k4(gen) -> dict:
     """K4 against its plain version (every gradient; gate/bias/softplus on
-    and off; batch 1 and 4; a ragged ED), then timed at the Stage-2 shape
-    (batch 1, every flag on)."""
+    and off; batch 1 and 4; ragged ED), in f32 and with bf16 operands; a
+    second call bitwise equal to the first; then its device time alone
+    (a CUDA graph) and through the wrapper at batch 1 (the Stage-2 shape)
+    and 4, beside its bound and serial floor."""
     from gfe_mamba_torch.ops.cuda import selective_scan as ks
 
     _, L, ED, N = SCAN_SHAPE
     worst = 0.0
-    for bsz, ed in ((TRAIN_BATCH, ED), (BATCH, ED), (TRAIN_BATCH, 1000)):
+    for bsz, ed in ((TRAIN_BATCH, ED), (BATCH, ED), (TRAIN_BATCH, 1000),
+                    (BATCH, 1001)):
         x, d, A, B, C, D, z, bias = scan_inputs(gen, bsz, L, ed, N)
         g = torch.randn(bsz, L, ed, generator=gen, device="cuda")
         for gate, with_bias, softplus in ((True, True, True),
@@ -436,7 +513,7 @@ def check_k4(gen) -> dict:
                     if b is not None}
             err = max(e for e, _ in errs.values())
             rel = max(r for _, r in errs.values())
-            log(f"K4 check ({bsz},{L},{ed},N={N}) gate={gate} "
+            log(f"K4 check ({bsz},{L},{ed},N={N}) f32 gate={gate} "
                 f"bias={with_bias} softplus={softplus}: max_abs_err="
                 f"{err:.3e} rel={rel:.3e} over {len(errs)} gradients "
                 f"(tol 1e-4)")
@@ -445,30 +522,70 @@ def check_k4(gen) -> dict:
                                      f"{errs}")
             if (bsz, ed) == (TRAIN_BATCH, ED) and gate and with_bias:
                 worst = err
+    for bsz in (TRAIN_BATCH, BATCH):
+        # bf16 operands as on the bf16 path (A, D, bias stay f32): dx,
+        # ddelta, dz in bf16 against the plain f32 result rounded once;
+        # dA, dB, dC, dD, dbias in f32 at 1e-4
+        f32 = scan_inputs(gen, bsz, L, ED, N)
+        g = torch.randn(bsz, L, ED, generator=gen, device="cuda")
+        x, d, A, B, C, D, z, bias = [
+            t if i in (2, 5, 7) else t.bfloat16() for i, t in enumerate(f32)]
+        got = ks.selective_scan_bwd_cuda(x, d, A, B, C, D, z, bias,
+                                         g.bfloat16(), True)
+        want = ks.selective_scan_bwd_plain(
+            *[t.float() for t in (x, d, A, B, C, D, z, bias)],
+            g.bfloat16().float(), True)
+        torch.cuda.synchronize()
+        ulps = max(bf16_ulps(got[i], want[i]) for i in (0, 1, 6))
+        rel = max(rel_err(got[i], want[i])[1] for i in (2, 3, 4, 5, 7))
+        log(f"K4 check ({bsz},{L},{ED},N={N}) bf16 operands: dx, ddelta, dz "
+            f"{ulps:.3f} bf16 ulp of the plain f32 result rounded (tol 1 "
+            f"ulp); dA, dB, dC, dD, dbias rel={rel:.3e} (tol 1e-4)")
+        if not (ulps <= 1.0 and rel <= 1e-4
+                and all(got[i].dtype == torch.bfloat16 for i in (0, 1, 6))):
+            raise AssertionError("K4 with bf16 operands disagrees with its "
+                                 "plain version")
     x, d, A, B, C, D, z, bias = scan_inputs(gen, TRAIN_BATCH, L, ED, N)
     g = torch.randn(TRAIN_BATCH, L, ED, generator=gen, device="cuda")
     args = (x, d, A, B, C, D, z, bias, g, True)
-    ms = time_ms(lambda: ks.selective_scan_bwd_cuda(*args), reps=50)
-    plain = time_ms(lambda: ks.selective_scan_bwd_plain(*args))
-    # bytes: x, delta, z, g in and dx, ddelta, dz out (L*ED each), A and
-    # dA, B, C, dB, dC, D, bias, dD, dbias; operations: ~20 per state
-    # element and step over both passes plus ~30 per step
-    nbytes = 4 * (7 * TRAIN_BATCH * L * ED + 2 * ED * N
-                  + 4 * TRAIN_BATCH * L * N + 4 * ED)
-    ops = TRAIN_BATCH * L * ED * (20 * N + 30)
-    t_ops, t_bytes = ops / PEAK_F32, nbytes / HBM_BYTES_PER_S
-    bound = max(t_ops, t_bytes) * 1e3
-    log(f"K4 time ({TRAIN_BATCH},{L},{ED},N={N}): kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, bound {bound:.5f} ms; {SCAN_CALLS} per Stage-2 "
-        f"step")
+    first = ks.selective_scan_bwd_cuda(*args)
+    second = ks.selective_scan_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("K4: two calls on the same inputs differ")
+    log("K4 determinism: a second call is bitwise equal to the first")
+    times = {}
+    for bsz in (TRAIN_BATCH, BATCH):
+        x, d, A, B, C, D, z, bias = scan_inputs(gen, bsz, L, ED, N)
+        g = torch.randn(bsz, L, ED, generator=gen, device="cuda")
+        args = (x, d, A, B, C, D, z, bias, g, True)
+        times[bsz] = (graph_ms(lambda: ks.selective_scan_bwd_cuda(*args)),
+                      time_ms(lambda: ks.selective_scan_bwd_cuda(*args),
+                              reps=50),
+                      scan_bwd_bound_ms(bsz, L, ED, N)[0])
+        if bsz == TRAIN_BATCH:
+            plain = time_ms(lambda: ks.selective_scan_bwd_plain(*args))
+    bound, bound_by = scan_bwd_bound_ms(TRAIN_BATCH, L, ED, N)
+    floor = serial_floor_ms(3 * L)
+    for bsz, (dev, call, bnd) in times.items():
+        log(f"K4 time ({bsz},{L},{ED},N={N}): device {dev:.4f} ms per call "
+            f"(CUDA graph of 50), through the wrapper {call:.4f} ms, bound "
+            f"{bnd:.5f} ms, serial floor {floor:.5f} ms")
+    log(f"K4 at ({TRAIN_BATCH},{L},{ED},N={N}): v1 {K4_V1_CALL_MS} ms per "
+        f"call through the wrapper (PERF.md); plain {plain:.4f} ms; {SCAN_CALLS} calls per Stage-2 step")
+    dev1, call1, _ = times[TRAIN_BATCH]
     return dict(name="K4 selective-scan backward", route="cuda",
                 source="gfe_mamba_torch/csrc/selective_scan_bwd.cu",
                 replaces="gfe_mamba_tpu/ops/pallas/selective_scan.py:126",
-                max_abs_err=worst, ms=SCAN_CALLS * ms,
+                max_abs_err=worst, ms=SCAN_CALLS * dev1,
+                call_ms=SCAN_CALLS * call1,
                 plain_ms=SCAN_CALLS * plain, bound_ms=SCAN_CALLS * bound,
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_by=bound_by, serial_floor_ms=SCAN_CALLS * floor,
+                batch4_device_ms_per_call=times[BATCH][0],
+                batch4_call_ms_per_call=times[BATCH][1],
                 library_ms=None,
-                per="Stage-2 step: 6 calls of (1,53,1024,N=16), f32")
+                per="Stage-2 step: 6 calls of (1,53,1024,N=16), f32; ms is "
+                    "device time (CUDA graph), call_ms through the wrapper")
 
 
 def cudnn_conv_grad(x, w, g, which):

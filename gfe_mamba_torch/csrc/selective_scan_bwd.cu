@@ -19,206 +19,238 @@
 //           dB_t  = sum_e dh d_t x_t;  dC_t = sum_e h_t ds
 //           dh   *= exp(d_t A)
 //
-// What bounds it on the H100: at the Stage-2 shape (1, 53, 1024, N = 16)
-// it reads and writes ~1.5 MB and does ~1e7 operations, so memory and
-// arithmetic allow a few microseconds; the two sequential walks over L
-// and the launch set its time, as for K2.
+// What bounds it on the H100.  At the Stage-2 shape (1, 53, 1024, N = 16)
+// it must move ~1.5 MB (x, delta, z, g in; dx, ddelta, dz out; A, B, C
+// and their gradients), 0.0005 ms at 3.35 TB/s, and its ~2e7 f32
+// operations take less.  Below that lies the serial floor of one (b, e, n)
+// walk: pass 1 carries one FMA per step, pass 2 an FMA and a multiply, so
+// 3 * L dependent operations of ~4 cycles, ~0.3 us.  What v1 lost was the
+// rest: 8 blocks at batch 1, dependent global loads in every step, a
+// global h_buf (3.5 MB per call) and 32 warp reductions inside the walk.
 //
-// Design: one thread per (b, e), as in K2, with B_t and C_t for the whole
-// sequence staged once per block in shared memory.  h over all L does not
-// fit in registers (L * N floats per thread), so pass 1 writes h_t to a
-// global scratch laid out (B, L, N, ED), coalesced over e; pass 2 reads
-// h_{t-1} back from it and keeps h_t, dh[N] and dA[N] in registers.  dB
-// and dC reduce over channels: each warp sums its 32 lanes with shuffles
-// and writes one partial per (batch, warp, t, n); the caller sums the
-// partials over warps in a fixed order, so the result is deterministic.
-// dA, dD and dbias are written per (batch, channel) and summed over batch
-// by the caller.  Threads past a ragged ED take part in the shuffles with
-// zero inputs, which contribute nothing.
+// Design (v2; the block and thread split is in scan.cuh: 4 channels x N
+// states per block, 256 blocks at batch 1):
+// - the block stages x, delta, z, g for its channels and the whole
+//   sequence, B and C, with d = softplus(delta + bias) and its sigmoid
+//   computed while staging;
+// - pass 1 keeps h_t for every t in shared memory (L (N+1) 4 floats per
+//   buffer, 14.4 KB at the Stage-2 shape); no global scratch;
+// - what needs no carried state runs between the walks, in parallel over
+//   (t, c) or (t, n): s_t, ds and dz after pass 1; dh . B_t, the dd sum,
+//   dx and dd after pass 2, from dh_t which pass 2 stores per step;
+// - the walks hold one state per thread, so they have no reductions: pass
+//   2 stores dh_t and w_t = dh_t h_{t-1} exp(d_t A) A (into h_{t-1}'s
+//   slot, which nothing reads again) and accumulates dA;
+// - dB and dC are summed over the block's channels in a fixed order after
+//   the walks and written as per-block partials; a second kernel sums
+//   them over blocks, dA, dD and dbias over batch, all in a fixed order
+//   (no atomics), into one f32 buffer: one launch for the caller's four
+//   reductions.
+// bf16 or f32 operands (per operand), with any strides; dx, ddelta, dz
+// are written in x's, delta's and z's dtype, rounded once.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "scan.cuh"
+
 #include <stddef.h>
 
 namespace {
 
-constexpr int NTHREADS = 128;
-constexpr int NWARPS = NTHREADS / 32;
-
-__device__ __forceinline__ float softplus(float v) {
-  return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
-}
-
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.f / (1.f + expf(-v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
+constexpr int TILES = 6;  // xs, ds, zs, gs (then ds of s), sg, dd
 
 template <int N>
-__global__ void __launch_bounds__(NTHREADS)
-scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ delta,
-                const float* __restrict__ A, const float* __restrict__ Bm,
-                const float* __restrict__ Cm, const float* __restrict__ D,
-                const float* __restrict__ z, const float* __restrict__ bias,
-                const float* __restrict__ g, float* __restrict__ hbuf,
-                float* __restrict__ dx, float* __restrict__ ddelta,
-                float* __restrict__ dz, float* __restrict__ da_part,
-                float* __restrict__ daux, float* __restrict__ db_part,
-                float* __restrict__ dc_part, int L, int ED, int softplus_on) {
-  extern __shared__ float bc[];  // B then C, each (L, N)
-  const int b = blockIdx.y;
-  const int e = blockIdx.x * NTHREADS + threadIdx.x;
-  const bool valid = e < ED;
-  const int lane = threadIdx.x % 32;
-  const int nwarps = gridDim.x * NWARPS;
-  const int warp = blockIdx.x * NWARPS + threadIdx.x / 32;
-  const size_t bc_off = (size_t)b * L * N;
-  for (int i = threadIdx.x; i < L * N; i += NTHREADS) {
-    bc[i] = Bm[bc_off + i];
-    bc[L * N + i] = Cm[bc_off + i];
+__global__ void __launch_bounds__(SCAN_CH * N)
+scan_bwd_kernel(const __grid_constant__ ScanArgs a) {
+  constexpr int CH = SCAN_CH, P = (N + 1) * CH;
+  extern __shared__ __align__(16) float sm[];
+  const int L = a.L;
+  float* hs = sm;            // h_t, then w_t at slot t - 1
+  float* dhs = hs + L * P;   // dh_t
+  float* Bs = dhs + L * P;
+  float* Cs = Bs + L * N;
+  float* xs = Cs + L * N;
+  float* dts = xs + L * CH;  // d_t
+  float* zs = dts + L * CH;
+  float* gs = zs + L * CH;   // g, then the gradient of s: ds
+  float* sg = gs + L * CH;
+  float* dds = sg + L * CH;
+  float* Dv = dds + L * CH;
+
+  const int b = blockIdx.y, blk = blockIdx.x, e0 = blk * CH;
+  const int tid = threadIdx.x, c = tid % CH, n = tid / CH, e = e0 + c;
+  const bool valid = e < a.ED;
+  const bool gate = a.z.p != nullptr;
+  const float an = valid ? a.A[(size_t)e * N + n] : 0.f;
+  stage<N>(a, b, e0, xs, dts, gate ? zs : nullptr, gs, sg, Bs, Cs, Dv);
+
+  forward_walk<N>(L, an, xs, dts, Bs, hs);
+  __syncthreads();
+
+  // s_t, ds and dz, over (t, c)
+  for (int i = tid; i < L * CH; i += blockDim.x) {
+    const int t = i / CH, ci = i % CH;
+    const float gv = gs[i];
+    float dsv = gv;
+    if (gate) {
+      float s = Dv[ci] * xs[i];
+#pragma unroll
+      for (int k = 0; k < N; ++k) s = fmaf(hs[t * P + k * CH + ci],
+                                           Cs[t * N + k], s);
+      const float zv = zs[i], sig = sigmoid(zv);
+      dsv = gv * zv * sig;
+      if (e0 + ci < a.ED)
+        st(a.dz, b, t, e0 + ci, gv * s * (sig * (1.f + zv * (1.f - sig))));
+    }
+    gs[i] = dsv;
   }
   __syncthreads();
 
-  float a[N], h[N];
+  // dC_t[n] = sum over the block's channels of h_t ds_t, over (t, n)
+  float* part = a.part + ((size_t)b * gridDim.x + blk) * 2 * L * N;
+  for (int i = tid; i < L * N; i += blockDim.x) {
+    const int t = i / N, k = i % N;
+    float acc = 0.f;
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    a[n] = valid ? A[(size_t)e * N + n] : 0.f;
-    h[n] = 0.f;
+    for (int ci = 0; ci < CH; ++ci)
+      acc = fmaf(hs[t * P + k * CH + ci], gs[t * CH + ci], acc);
+    part[L * N + i] = acc;
   }
-  const float d_skip = valid ? D[e] : 0.f;
-  const float d_bias = (valid && bias != nullptr) ? bias[e] : 0.f;
-  // h_t of (b, t) sits at hbuf[((b * L + t) * N + n) * ED + e]
-  float* hb = hbuf + (size_t)b * L * N * ED + e;
+  __syncthreads();
 
-  // pass 1: recompute the states
-  for (int t = 0; t < L; ++t) {
-    const size_t o = ((size_t)b * L + t) * ED + e;
-    const float xv = valid ? x[o] : 0.f;
-    float d = (valid ? delta[o] : 0.f) + d_bias;
-    if (softplus_on) d = softplus(d);
-    const float dxv = d * xv;
-    const float* Bt = bc + t * N;
+  // pass 2: only dh carries (an FMA and a multiply per step)
+  float dh = 0.f, da = 0.f;
+  for (int t0 = L - 1; t0 >= 0; t0 -= SCAN_UNROLL) {
+    float cds[SCAN_UNROLL], hp[SCAN_UNROLL], ea[SCAN_UNROLL],
+        dv[SCAN_UNROLL];
 #pragma unroll
-    for (int n = 0; n < N; ++n) {
-      h[n] = expf(d * a[n]) * h[n] + dxv * Bt[n];
-      if (valid) hb[((size_t)t * N + n) * ED] = h[n];
+    for (int k = 0; k < SCAN_UNROLL; ++k) {
+      const int t = max(t0 - k, 0);
+      dv[k] = dts[t * CH + c];
+      ea[k] = expf(dv[k] * an);
+      cds[k] = Cs[t * N + n] * gs[t * CH + c];
+      hp[k] = t > 0 ? hs[(t - 1) * P + tid] : 0.f;
     }
-  }
-
-  // pass 2: reverse-time gradient recurrence; h holds h_t
-  float dh[N], da[N];
 #pragma unroll
-  for (int n = 0; n < N; ++n) dh[n] = da[n] = 0.f;
-  float d_d = 0.f, d_b = 0.f;
-  for (int t = L - 1; t >= 0; --t) {
-    const size_t o = ((size_t)b * L + t) * ED + e;
-    const float xv = valid ? x[o] : 0.f;
-    const float gv = valid ? g[o] : 0.f;
-    const float raw = (valid ? delta[o] : 0.f) + d_bias;
-    const float d = softplus_on ? softplus(raw) : raw;
-    const float* Bt = bc + t * N;
-    const float* Ct = bc + L * N + t * N;
-    float ds = gv;
-    if (z != nullptr) {
-      const float zv = valid ? z[o] : 0.f;
-      float s = d_skip * xv;
-#pragma unroll
-      for (int n = 0; n < N; ++n) s = fmaf(h[n], Ct[n], s);
-      const float sig = sigmoid(zv);
-      ds = gv * zv * sig;
-      if (valid) dz[o] = gv * s * (sig * (1.f + zv * (1.f - sig)));
-    }
-    float dh_b = 0.f, dh_a = 0.f;
-    const float dxv = d * xv;
-    float* db_row = db_part + (((size_t)b * nwarps + warp) * L + t) * N;
-    float* dc_row = dc_part + (((size_t)b * nwarps + warp) * L + t) * N;
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const float hp = (t > 0 && valid) ? hb[((size_t)(t - 1) * N + n) * ED]
-                                        : 0.f;
-      const float ea = expf(d * a[n]);
-      dh[n] = fmaf(Ct[n], ds, dh[n]);
-      dh_b = fmaf(dh[n], Bt[n], dh_b);
-      const float dhp = dh[n] * hp;
-      dh_a = fmaf(dhp * a[n], ea, dh_a);
-      da[n] = fmaf(dhp * d, ea, da[n]);
-      const float db_sum = warp_sum(dh[n] * dxv);
-      const float dc_sum = warp_sum(h[n] * ds);
-      if (lane == 0) {
-        db_row[n] = db_sum;
-        dc_row[n] = dc_sum;
+    for (int k = 0; k < SCAN_UNROLL; ++k) {
+      const int t = t0 - k;
+      if (t >= 0) {
+        dh += cds[k];
+        dhs[t * P + tid] = dh;
+        const float w = dh * hp[k] * ea[k];
+        da = fmaf(w, dv[k], da);
+        if (t > 0) hs[(t - 1) * P + tid] = w * an;
+        dh *= ea[k];
       }
-      dh[n] *= ea;
-      h[n] = hp;
-    }
-    float dd = dh_b * xv + dh_a;
-    if (softplus_on) dd *= sigmoid(raw);
-    d_b += dd;
-    d_d = fmaf(ds, xv, d_d);
-    if (valid) {
-      dx[o] = fmaf(dh_b, d, d_skip * ds);
-      ddelta[o] = dd;
     }
   }
-  if (!valid) return;
+  if (valid) a.part[(size_t)a.batch * gridDim.x * 2 * L * N +
+                    ((size_t)b * a.ED + e) * N + n] = da;
+  __syncthreads();
+
+  // dx and dd over (t, c); dB_t[n] over (t, n): both read only
+  for (int i = tid; i < L * CH; i += blockDim.x) {
+    const int t = i / CH, ci = i % CH;
+    float dhb = 0.f, dha = 0.f;
 #pragma unroll
-  for (int n = 0; n < N; ++n) da_part[((size_t)b * N + n) * ED + e] = da[n];
-  daux[((size_t)b * 2) * ED + e] = d_d;
-  daux[((size_t)b * 2 + 1) * ED + e] = d_b;
+    for (int k = 0; k < N; ++k) {
+      dhb = fmaf(dhs[t * P + k * CH + ci], Bs[t * N + k], dhb);
+      if (t > 0) dha += hs[(t - 1) * P + k * CH + ci];
+    }
+    const float dd = (dhb * xs[i] + dha) * sg[i];
+    dds[i] = dd;
+    if (e0 + ci < a.ED) {
+      st(a.y, b, t, e0 + ci, fmaf(dhb, dts[i], Dv[ci] * gs[i]));
+      st(a.ddelta, b, t, e0 + ci, dd);
+    }
+  }
+  for (int i = tid; i < L * N; i += blockDim.x) {
+    const int t = i / N, k = i % N;
+    float acc = 0.f;
+#pragma unroll
+    for (int ci = 0; ci < CH; ++ci)
+      acc = fmaf(dhs[t * P + k * CH + ci],
+                 dts[t * CH + ci] * xs[t * CH + ci], acc);
+    part[i] = acc;
+  }
+  __syncthreads();
+
+  // dD and dbias of the block's channels, summed over t in order
+  if (tid < CH && e0 + tid < a.ED) {
+    float d_d = 0.f, d_b = 0.f;
+    for (int t = 0; t < L; ++t) {
+      d_d = fmaf(gs[t * CH + tid], xs[t * CH + tid], d_d);
+      d_b += dds[t * CH + tid];
+    }
+    float* aux = a.part + (size_t)a.batch * gridDim.x * 2 * L * N +
+                 (size_t)a.batch * a.ED * N;
+    aux[((size_t)b * 2) * a.ED + e0 + tid] = d_d;
+    aux[((size_t)b * 2 + 1) * a.ED + e0 + tid] = d_b;
+  }
+}
+
+// Sums the partials in a fixed order into grads: dB (batch, L, N), dC
+// (batch, L, N), dA (ED, N), dD (ED), dbias (ED).
+__global__ void __launch_bounds__(256)
+finish_kernel(const float* __restrict__ part, float* __restrict__ grads,
+              int batch, int nblk, int L, int N, int ED) {
+  const size_t LN = (size_t)L * N, nbc = 2 * (size_t)batch * LN;
+  const size_t nda = (size_t)ED * N, total = nbc + nda + 2 * (size_t)ED;
+  const float* da_part = part + (size_t)batch * nblk * 2 * LN;
+  const float* aux = da_part + (size_t)batch * nda;
+  for (size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x; j < total;
+       j += (size_t)gridDim.x * blockDim.x) {
+    float acc = 0.f;
+    if (j < nbc) {
+      const size_t s = j / (batch * LN), r = j % (batch * LN);
+      const float* p = part + ((r / LN) * nblk * 2 + s) * LN + r % LN;
+#pragma unroll 8
+      for (int k = 0; k < nblk; ++k) acc += p[(size_t)k * 2 * LN];
+    } else if (j < nbc + nda) {
+      for (int b = 0; b < batch; ++b) acc += da_part[b * nda + (j - nbc)];
+    } else {
+      const size_t r = j - nbc - nda;  // dD then dbias
+      for (int b = 0; b < batch; ++b) acc += aux[b * 2 * (size_t)ED + r];
+    }
+    grads[j] = acc;
+  }
 }
 
 template <int N>
-int launch(const float* x, const float* delta, const float* A,
-           const float* Bm, const float* Cm, const float* D, const float* z,
-           const float* bias, const float* g, float* hbuf, float* dx,
-           float* ddelta, float* dz, float* da_part, float* daux,
-           float* db_part, float* dc_part, int batch, int L, int ED,
-           int softplus, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)L * N * sizeof(float);
+int launch(const ScanArgs& a, cudaStream_t stream) {
+  const size_t smem = scan_smem_floats<N>(a.L, 2, TILES) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         scan_bwd_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((ED + NTHREADS - 1) / NTHREADS, batch);
-  scan_bwd_kernel<N><<<grid, NTHREADS, smem, stream>>>(
-      x, delta, A, Bm, Cm, D, z, bias, g, hbuf, dx, ddelta, dz, da_part,
-      daux, db_part, dc_part, L, ED, softplus);
+  const int nblk = (a.ED + SCAN_CH - 1) / SCAN_CH;
+  scan_bwd_kernel<N><<<dim3(nblk, a.batch), SCAN_CH * N, smem, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t total = 2 * (size_t)a.batch * a.L * N + (size_t)a.ED * N +
+                       2 * (size_t)a.ED;
+  const int blocks = (int)((total + 255) / 256);
+  finish_kernel<<<blocks, 256, 0, stream>>>(a.part, a.grads, a.batch, nblk,
+                                            a.L, N, a.ED);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// All tensors float32 and contiguous: x, delta, z, g, dx, ddelta, dz
-// (batch, L, ED); A (ED, N); B, C (batch, L, N); D, bias (ED,); hbuf
-// (batch, L, N, ED) scratch; da_part (batch, N, ED); daux (batch, 2, ED)
-// (dD then dbias); db_part, dc_part (batch, nwarps, L, N) with nwarps =
-// 4 * ceil(ED / 128).  z/dz and bias may be null.  N is one of 4, 8, 16,
-// 32.  Returns a cudaError_t code (0 on success).
-extern "C" int gfe_selective_scan_bwd(
-    const float* x, const float* delta, const float* A, const float* Bm,
-    const float* Cm, const float* D, const float* z, const float* bias,
-    const float* g, float* hbuf, float* dx, float* ddelta, float* dz,
-    float* da_part, float* daux, float* db_part, float* dc_part, int batch,
-    int L, int ED, int N, int softplus, void* stream) {
+// x, delta, z, g (batch, L, ED); B, C (batch, L, N); D, bias (ED,): each
+// f32 or bf16, with any strides.  y (dx), ddelta, dz: outputs shaped like
+// x.  A (ED, N) f32 contiguous.  part: scratch of
+// batch * nblk * 2 * L * N + batch * ED * N + batch * 2 * ED floats with
+// nblk = ceil(ED / 4); grads: 2 * batch * L * N + ED * N + 2 * ED floats.
+// z/dz and bias may be null.  N is one of 4, 8, 16, 32.  Returns a
+// cudaError_t code (0 on success).
+extern "C" int gfe_selective_scan_bwd(const ScanArgs* args, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GFE_SCAN_BWD(NN)                                                     \
-  return launch<NN>(x, delta, A, Bm, Cm, D, z, bias, g, hbuf, dx, ddelta,    \
-                    dz, da_part, daux, db_part, dc_part, batch, L, ED,       \
-                    softplus, st)
-  switch (N) {
-    case 4: GFE_SCAN_BWD(4);
-    case 8: GFE_SCAN_BWD(8);
-    case 16: GFE_SCAN_BWD(16);
-    case 32: GFE_SCAN_BWD(32);
+  switch (args->N) {
+    case 4: return launch<4>(*args, st);
+    case 8: return launch<8>(*args, st);
+    case 16: return launch<16>(*args, st);
+    case 32: return launch<32>(*args, st);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef GFE_SCAN_BWD
 }

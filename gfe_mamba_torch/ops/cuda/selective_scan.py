@@ -28,8 +28,12 @@ launches = 0
 bwd_launches = 0
 
 _STATE_SIZES = (4, 8, 16, 32)
-_NTHREADS = 128          # threads per block of both kernels
+_NTHREADS = 128          # threads per block of K2
+# channels per block of K4 (SCAN_CH in csrc/scan.cuh); a block has
+# BLOCK_CHANNELS * N threads, one per (channel, state)
+BLOCK_CHANNELS = 4
 _MAX_SMEM = 227 * 1024
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def softplus(v: torch.Tensor) -> torch.Tensor:
@@ -109,21 +113,80 @@ def selective_scan_bwd_plain(x, delta, A, B, C, D, z, delta_bias, g,
     return dx, ddelta, dA.sum(0), dB, dC, dD.sum(0), dz, dbias
 
 
-def _check(name, t, shape, device):
+class Operand(ctypes.Structure):
+    """``Operand`` of ``csrc/scan.cuh``: a tensor's data pointer, its
+    batch, time and last-dimension strides in elements (a vector's batch
+    and time strides 0) and whether it is bf16; an absent operand's
+    pointer is null."""
+
+    _fields_ = [("p", ctypes.c_void_p), ("sb", ctypes.c_int64),
+                ("st", ctypes.c_int64), ("se", ctypes.c_int64),
+                ("bf16", ctypes.c_int), ("pad", ctypes.c_int)]
+
+
+class ScanArgs(ctypes.Structure):
+    """``ScanArgs`` of ``csrc/scan.cuh``, field for field."""
+
+    _fields_ = ([(name, Operand) for name in (
+        "x", "delta", "z", "B", "C", "D", "bias", "g", "y", "ddelta", "dz")]
+        + [(name, ctypes.c_void_p) for name in ("A", "part", "grads")]
+        + [(name, ctypes.c_int) for name in (
+            "batch", "L", "ED", "N", "softplus")])
+
+
+def operand_meta(t) -> tuple[int, int, int, int]:
+    """(bf16, batch stride, time stride, last-dimension stride) with which
+    the kernels read ``t``: its own strides, a vector's batch and time
+    strides 0."""
+    if t is None:
+        return 0, 0, 0, 0
+    bf16 = int(t.dtype == torch.bfloat16)
+    if t.dim() == 3:
+        return (bf16, *t.stride())
+    return bf16, 0, 0, t.stride(0)
+
+
+def kernel_operand(t):
+    """``t`` as the kernels take it: as it is (a view, strided, bf16) when
+    it is f32 or bf16, else cast to f32.  The caller makes this choice;
+    the wrappers raise on anything else."""
+    if t is None or t.dtype in KERNEL_DTYPES:
+        return t
+    return t.float()
+
+
+def _operand(t) -> Operand:
+    if t is None:
+        return Operand()
+    bf16, sb, st, se = operand_meta(t)
+    return Operand(t.data_ptr(), sb, st, se, bf16, 0)
+
+
+def smem_bytes(L: int, N: int, states: int, tiles: int) -> int:
+    """A block's shared memory (``scan_smem_floats`` in ``csrc/scan.cuh``):
+    ``states`` buffers of L (N + 1) BLOCK_CHANNELS floats, ``tiles`` of
+    L BLOCK_CHANNELS, B and C, and D."""
+    ch = BLOCK_CHANNELS
+    return 4 * (L * (states * (N + 1) * ch + 2 * N + tiles * ch) + ch)
+
+
+def _check(name, t, shape, device, dtypes=KERNEL_DTYPES):
     if t is None:
         return
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: dtype {t.dtype} != torch.float32")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {t.dtype} not in {dtypes}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, x is on {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
 
 
-def _check_inputs(x, delta, A, B, C, D, z, delta_bias):
-    """Validate the scan's inputs for a kernel; returns (B, L, ED, N)."""
+def _check_inputs(x, delta, A, B, C, D, z, delta_bias, smem):
+    """Validate the scan's inputs for a kernel; returns (B, L, ED, N).
+
+    x, delta, z, B, C, D and delta_bias may each be f32 or bf16, with any
+    strides; A is f32 and contiguous.
+    ``smem(L, N)`` gives the kernel's shared memory per block."""
     if not x.is_cuda:
         raise ValueError("the scan kernels take CUDA tensors")
     if x.dim() != 3 or A.dim() != 2:
@@ -132,11 +195,14 @@ def _check_inputs(x, delta, A, B, C, D, z, delta_bias):
     N = A.shape[1]
     if N not in _STATE_SIZES:
         raise ValueError(f"state size N={N} not in {_STATE_SIZES}")
-    if 2 * L * N * 4 > _MAX_SMEM:
-        raise ValueError(f"L={L} too long: B and C do not fit shared memory")
+    if smem(L, N) > _MAX_SMEM:
+        raise ValueError(f"L={L} too long: a block's tiles do not fit "
+                         f"shared memory")
     _check("x", x, (bsz, L, ED), x.device)
     _check("delta", delta, (bsz, L, ED), x.device)
-    _check("A", A, (ED, N), x.device)
+    _check("A", A, (ED, N), x.device, (torch.float32,))
+    if not A.is_contiguous():
+        raise ValueError("A: must be contiguous")
     _check("B", B, (bsz, L, N), x.device)
     _check("C", C, (bsz, L, N), x.device)
     _check("D", D, (ED,), x.device)
@@ -149,13 +215,23 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _k2_smem(L, N):
+    return 2 * L * N * 4
+
+
 def selective_scan_cuda(x, delta, A, B, C, D, z=None, delta_bias=None,
                         delta_softplus=False):
     """Launch K2 on contiguous f32 CUDA tensors; raises on anything else."""
     from gfe_mamba_torch.ops.cuda.build import library
 
     global launches
-    bsz, L, ED, N = _check_inputs(x, delta, A, B, C, D, z, delta_bias)
+    bsz, L, ED, N = _check_inputs(x, delta, A, B, C, D, z, delta_bias,
+                                  _k2_smem)
+    for name, t in (("x", x), ("delta", delta), ("B", B), ("C", C),
+                    ("D", D), ("z", z), ("delta_bias", delta_bias)):
+        if t is not None and not (t.dtype == torch.float32
+                                  and t.is_contiguous()):
+            raise ValueError(f"{name}: K2 takes contiguous f32 tensors")
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
@@ -175,45 +251,62 @@ def selective_scan_cuda(x, delta, A, B, C, D, z=None, delta_bias=None,
     return out
 
 
+def _k4_smem(L, N):
+    return smem_bytes(L, N, states=2, tiles=6)
+
+
+def bwd_buffers(bsz: int, L: int, ED: int, N: int) -> tuple[int, int]:
+    """Floats of K4's scratch (per-block dB/dC partials, per-(batch,
+    channel) dA, dD and dbias) and of its f32 gradient buffer (dB, dC, dA,
+    dD, dbias back to back), as ``csrc/selective_scan_bwd.cu`` lays them
+    out."""
+    nblk = -(-ED // BLOCK_CHANNELS)
+    return (bsz * nblk * 2 * L * N + bsz * ED * N + bsz * 2 * ED,
+            2 * bsz * L * N + ED * N + 2 * ED)
+
+
 def selective_scan_bwd_cuda(x, delta, A, B, C, D, z, delta_bias, g,
                             delta_softplus=False):
-    """Launch K4 on contiguous f32 CUDA tensors; raises on anything else.
+    """Launch K4 on CUDA tensors; raises on anything it cannot take.
 
-    The kernel writes dx, ddelta and dz whole, and per-(batch, channel)
-    partials of dA, dD and ddelta_bias plus per-(batch, warp) partials of
-    dB and dC; the sums over batch and warps run here, in a fixed order."""
+    x, delta, z, g, B, C, D and delta_bias may be f32 or bf16, with any
+    strides.  dx, ddelta and dz come back in x's, delta's and z's dtype; dA, dB, dC,
+    dD and ddelta_bias in f32, summed over blocks and batch in a fixed
+    order by the kernel's second launch."""
     from gfe_mamba_torch.ops.cuda.build import library
 
     global bwd_launches
-    bsz, L, ED, N = _check_inputs(x, delta, A, B, C, D, z, delta_bias)
+    bsz, L, ED, N = _check_inputs(x, delta, A, B, C, D, z, delta_bias,
+                                  _k4_smem)
     _check("g", g, (bsz, L, ED), x.device)
     if x.numel() == 0:
         raise ValueError("selective_scan_bwd_cuda: empty input")
-    dx, ddelta = torch.empty_like(x), torch.empty_like(x)
-    dz = None if z is None else torch.empty_like(x)
-    nwarps = (ED + _NTHREADS - 1) // _NTHREADS * (_NTHREADS // 32)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    h_buf = torch.empty(bsz, L, N, ED, **f32)
-    da_part = torch.empty(bsz, N, ED, **f32)
-    daux = torch.empty(bsz, 2, ED, **f32)
-    db_part = torch.empty(bsz, nwarps, L, N, **f32)
-    dc_part = torch.empty(bsz, nwarps, L, N, **f32)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    ddelta = torch.empty(x.shape, dtype=delta.dtype, device=x.device)
+    dz = None if z is None else torch.empty(x.shape, dtype=z.dtype,
+                                            device=x.device)
+    n_part, n_grads = bwd_buffers(bsz, L, ED, N)
+    part = torch.empty(n_part, dtype=torch.float32, device=x.device)
+    grads = torch.empty(n_grads, dtype=torch.float32, device=x.device)
+    args = ScanArgs(
+        x=_operand(x), delta=_operand(delta), z=_operand(z), B=_operand(B),
+        C=_operand(C), D=_operand(D), bias=_operand(delta_bias),
+        g=_operand(g), y=_operand(dx), ddelta=_operand(ddelta),
+        dz=_operand(dz), A=A.data_ptr(), part=part.data_ptr(),
+        grads=grads.data_ptr(), batch=bsz, L=L, ED=ED, N=N,
+        softplus=int(bool(delta_softplus)))
     fn = library("selective_scan_bwd").gfe_selective_scan_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(ScanArgs), ctypes.c_void_p]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
-                C.data_ptr(), D.data_ptr(), _ptr(z), _ptr(delta_bias),
-                g.data_ptr(), h_buf.data_ptr(), dx.data_ptr(),
-                ddelta.data_ptr(), _ptr(dz), da_part.data_ptr(),
-                daux.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
-                bsz, L, ED, N, int(bool(delta_softplus)), stream)
+        rc = fn(ctypes.byref(args), stream)
     if rc != 0:
         raise RuntimeError(f"selective_scan_bwd kernel failed: CUDA error "
                            f"{rc}")
     bwd_launches += 1
-    dbias = None if delta_bias is None else daux[:, 1].sum(0)
-    return (dx, ddelta, da_part.sum(0).t().contiguous(), db_part.sum(1),
-            dc_part.sum(1), daux[:, 0].sum(0), dz, dbias)
+    bln = bsz * L * N
+    dB, dC, dA, dD, dbias = torch.split(grads, [bln, bln, ED * N, ED, ED])
+    return (dx, ddelta, dA.view(ED, N), dB.view(bsz, L, N),
+            dC.view(bsz, L, N), dD, dz,
+            None if delta_bias is None else dbias)

@@ -9,7 +9,8 @@ installed::
     python -m pytest --noconftest tests/test_torch_train_kernels_cuda.py -q
 
 Tolerances, relative to max(1, max |plain|): K4 1e-4 (f32 state on both
-sides; dA/dB/dC/dD summed in other orders), K3 1e-4 in f32 and bf16
+sides; dA/dB/dC/dD summed in other orders), and one bf16 ulp for its bf16
+outputs against the plain f32 result rounded once, K3 1e-4 in f32 and bf16
 (both sides form the same zhat and sum the same products, exact in f32,
 in other orders), the autograd Functions 1e-3 (bf16-free f32 paths,
 cuDNN vs the kernels' accumulation order).
@@ -58,13 +59,17 @@ def _scan_args(gen, bsz, L, ED, N, gate, bias, softplus, device):
     return [None if t is None else t.to(device) for t in args]
 
 
+@pytest.mark.parametrize("bsz", [1, 2, 4])
 @pytest.mark.parametrize("gate,bias,softplus,ED,N", [
     (True, True, True, 1024, 16), (False, False, True, 1000, 16),
-    (True, False, False, 1000, 16), (True, True, True, 256, 8)])
-def test_scan_bwd_kernel_matches_plain(cuda, gate, bias, softplus, ED, N):
+    (True, False, False, 1001, 16), (True, True, True, 256, 8)])
+def test_scan_bwd_kernel_matches_plain(cuda, gate, bias, softplus, ED, N,
+                                       bsz):
+    """Batch 1 (the Stage-2 step) to 4; ED = 1001 leaves one channel in
+    the last block of 4."""
     gen = np.random.RandomState(0)
-    args = _scan_args(gen, 2, 53, ED, N, gate, bias, softplus, cuda)
-    g = _randn(gen, 2, 53, ED).to(cuda)
+    args = _scan_args(gen, bsz, 53, ED, N, gate, bias, softplus, cuda)
+    g = _randn(gen, bsz, 53, ED).to(cuda)
     got = k2.selective_scan_bwd_cuda(*args, g, delta_softplus=softplus)
     want = k2.selective_scan_bwd_plain(*args, g, delta_softplus=softplus)
     torch.cuda.synchronize()
@@ -73,6 +78,69 @@ def test_scan_bwd_kernel_matches_plain(cuda, gate, bias, softplus, ED, N):
         assert (a is None) == (b is None), name
         if b is not None:
             _assert_close(a, b, 1e-4, name)
+
+
+def _mamba_scan_operands(cuda, dtype, bsz):
+    """The scan's operands as a real ``MambaBlock`` forward makes them on
+    the card: x channel-major from the depthwise conv, z a ``chunk`` view,
+    B and C ``split`` views; A f32, D and delta_bias in ``dtype``."""
+    import torch.nn.functional as F
+
+    from gfe_mamba_torch.models.mamba import MambaBlock, MambaConfig
+
+    torch.manual_seed(0)
+    cfg = MambaConfig(d_model=128, n_layers=1)
+    block = MambaBlock(cfg)
+    block.reset_ssm_parameters(torch.Generator().manual_seed(0))
+    block = block.to(cuda, dtype)
+    L = 53
+    h = _randn(np.random.RandomState(bsz), bsz, L, 128).to(cuda, dtype)
+    with torch.no_grad():
+        x, z = block.in_proj(h).chunk(2, dim=-1)
+        x = F.silu(block.conv1d(x.transpose(1, 2))[..., :L].transpose(1, 2))
+        delta, B, C = torch.split(block.x_proj(x), [cfg.dt_rank_, 16, 16],
+                                  dim=-1)
+        delta = F.linear(delta, block.dt_proj.weight)
+    A = -torch.exp(block.A_log.detach().float())
+    return [x, delta, A, B, C, block.D.detach(), z,
+            block.dt_proj.bias.detach()]
+
+
+def _bf16_ulps(got, want):
+    """max |got - bf16(want)| in bf16 ulps of bf16(want); an element below
+    2^-8 of max |want| takes the ulp of that floor (there the f32 sums'
+    rounding differs, not the kernel's one rounding)."""
+    want = want.float()
+    ref = want.bfloat16().float()
+    floor = max(want.abs().max().item() * 2.0 ** -8, 1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=floor))) - 7)
+    return ((got.float() - ref).abs() / ulp).max().item()
+
+
+@pytest.mark.parametrize("bsz", [1, 4])
+def test_scan_bwd_kernel_takes_bf16_views_and_is_deterministic(cuda, bsz):
+    """A Mamba layer's own bf16 operands (views, channel-major x) go in as
+    they are: dx, ddelta, dz come back in bf16 within one bf16 ulp of the
+    plain f32 result rounded once, the f32 gradients within 1e-4; a second
+    call is bitwise equal to the first."""
+    args = _mamba_scan_operands(cuda, torch.bfloat16, bsz)
+    assert not args[0].is_contiguous() and not args[6].is_contiguous()
+    g = _randn(np.random.RandomState(9), bsz, 53, 256).to(cuda,
+                                                           torch.bfloat16)
+    got = k2.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
+    again = k2.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
+    want = k2.selective_scan_bwd_plain(*[t.float() for t in args],
+                                       g.float(), delta_softplus=True)
+    torch.cuda.synchronize()
+    for i, name in enumerate(("dx", "ddelta", "dA", "dB", "dC", "dD", "dz",
+                              "dbias")):
+        assert torch.equal(got[i], again[i]), name
+        if name in ("dx", "ddelta", "dz"):
+            assert got[i].dtype == torch.bfloat16, name
+            assert _bf16_ulps(got[i], want[i]) <= 1.0, name
+        else:
+            assert got[i].dtype == torch.float32, name
+            _assert_close(got[i], want[i], 1e-4, name)
 
 
 def _dw_args(gen, shape, C, F, affine, dtype, device):
