@@ -347,15 +347,28 @@ def scan_inputs(gen, bsz, L, ED, N):
             r(ED, scale=0.1)]
 
 
+def scan_bound_ms(bsz, L, ED, N) -> tuple[float, str]:
+    # bytes: x, delta, z in and y out (L*ED each), A, B, C, D, bias
+    nbytes = 4 * (4 * bsz * L * ED + ED * N + 2 * bsz * L * N + 2 * ED)
+    ops = bsz * L * ED * (6 * N + 10)
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def check_k2(gen) -> dict:
-    """K2 against its plain version (gate/bias/softplus on and off, and a
-    ragged ED), then timed at the main path's shape."""
+    """K2 against its plain version (gate/bias/softplus on and off; batch
+    1 and 4; ragged ED) in f32 and with bf16 operands, then its device
+    time alone (a CUDA graph) and through the wrapper at batch 4 (the
+    main path's shape) and 1 (the Stage-2 step's), beside its bound and
+    serial floor."""
     from gfe_mamba_torch.ops.cuda import selective_scan as k2
 
     bsz, L, ED, N = SCAN_SHAPE
     worst = 0.0
-    for ed in (ED, 1000):
-        x, d, A, B, C, D, z, bias = scan_inputs(gen, bsz, L, ed, N)
+    for b, ed in ((bsz, ED), (TRAIN_BATCH, ED), (bsz, 1000),
+                  (TRAIN_BATCH, 1001)):
+        x, d, A, B, C, D, z, bias = scan_inputs(gen, b, L, ed, N)
         for gate, with_bias, softplus in ((True, True, True),
                                           (False, False, True),
                                           (True, False, False)):
@@ -368,33 +381,61 @@ def check_k2(gen) -> dict:
             want = k2.selective_scan_plain(*args)
             torch.cuda.synchronize()
             err, rel = rel_err(got, want)
-            log(f"K2 check ({bsz},{L},{ed},N={N}) gate={gate} "
+            log(f"K2 check ({b},{L},{ed},N={N}) f32 gate={gate} "
                 f"bias={with_bias} softplus={softplus}: max_abs_err="
                 f"{err:.3e} rel={rel:.3e} (tol 1e-5)")
             if not rel <= 1e-5:
                 raise AssertionError(f"K2 disagrees with its plain version: "
                                      f"rel {rel} > 1e-5")
-            if ed == ED and gate and with_bias and softplus:
+            if (b, ed) == (bsz, ED) and gate and with_bias and softplus:
                 worst = err
-    x, d, A, B, C, D, z, bias = scan_inputs(gen, bsz, L, ED, N)
-    ms = time_ms(lambda: k2.selective_scan_cuda(x, d, A, B, C, D, z, bias,
-                                                True), reps=50)
-    plain = time_ms(lambda: k2.selective_scan_plain(x, d, A, B, C, D, z,
-                                                    bias, True))
-    nbytes = 4 * (4 * bsz * L * ED + ED * N + 2 * bsz * L * N + 2 * ED)
-    ops = bsz * L * ED * (6 * N + 10)
-    t_ops, t_bytes = ops / PEAK_F32, nbytes / HBM_BYTES_PER_S
-    bound = max(t_ops, t_bytes) * 1e3
-    log(f"K2 time ({bsz},{L},{ED},N={N}): kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, bound {bound:.5f} ms; {SCAN_CALLS} per forward")
+    for b in (bsz, TRAIN_BATCH):
+        # bf16 operands as on the bf16 path (A, D, bias stay f32): y in
+        # bf16 against the plain f32 result rounded once
+        x, d, A, B, C, D, z, bias = [
+            t if i in (2, 5, 7) else t.bfloat16()
+            for i, t in enumerate(scan_inputs(gen, b, L, ED, N))]
+        got = k2.selective_scan_cuda(x, d, A, B, C, D, z, bias, True)
+        want = k2.selective_scan_plain(
+            *[t.float() for t in (x, d, A, B, C, D, z, bias)], True)
+        torch.cuda.synchronize()
+        ulps = bf16_ulps(got, want)
+        log(f"K2 check ({b},{L},{ED},N={N}) bf16 operands: y {ulps:.3f} "
+            f"bf16 ulp of the plain f32 result rounded (tol 1 ulp)")
+        if not (ulps <= 1.0 and got.dtype == torch.bfloat16):
+            raise AssertionError("K2 with bf16 operands disagrees with its "
+                                 "plain version")
+    times = {}
+    for b in (bsz, TRAIN_BATCH):
+        x, d, A, B, C, D, z, bias = scan_inputs(gen, b, L, ED, N)
+        args = (x, d, A, B, C, D, z, bias, True)
+        times[b] = (graph_ms(lambda: k2.selective_scan_cuda(*args)),
+                    time_ms(lambda: k2.selective_scan_cuda(*args), reps=50),
+                    scan_bound_ms(b, L, ED, N)[0])
+        if b == bsz:
+            plain = time_ms(lambda: k2.selective_scan_plain(*args))
+    bound, bound_by = scan_bound_ms(bsz, L, ED, N)
+    floor = serial_floor_ms(L)
+    for b, (dev, call, bnd) in times.items():
+        log(f"K2 time ({b},{L},{ED},N={N}): device {dev:.4f} ms per call "
+            f"(CUDA graph of 50), through the wrapper {call:.4f} ms, bound "
+            f"{bnd:.5f} ms, serial floor {floor:.5f} ms")
+    log(f"K2 at ({bsz},{L},{ED},N={N}): v1 {K2_V1_CALL_MS} ms per call "
+        f"through the wrapper (PERF.md); plain {plain:.4f} ms; "
+        f"{SCAN_CALLS} calls per forward")
+    dev4, call4, _ = times[bsz]
     return dict(name="K2 selective-scan forward", route="cuda",
                 source="gfe_mamba_torch/csrc/selective_scan.cu",
                 replaces="gfe_mamba_tpu/ops/pallas/selective_scan.py:42",
-                max_abs_err=worst, ms=SCAN_CALLS * ms,
+                max_abs_err=worst, ms=SCAN_CALLS * dev4,
+                call_ms=SCAN_CALLS * call4,
                 plain_ms=SCAN_CALLS * plain, bound_ms=SCAN_CALLS * bound,
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_by=bound_by, serial_floor_ms=SCAN_CALLS * floor,
+                batch1_device_ms_per_call=times[TRAIN_BATCH][0],
+                batch1_call_ms_per_call=times[TRAIN_BATCH][1],
                 library_ms=None,
-                per="forward: 6 calls of (4,53,1024,N=16), f32")
+                per="forward: 6 calls of (4,53,1024,N=16), f32; ms is device "
+                    "time (CUDA graph), call_ms through the wrapper")
 
 
 def check_pipeline_parity():

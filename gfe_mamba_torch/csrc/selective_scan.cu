@@ -9,121 +9,101 @@
 //   y    = C[b,t,:] . h + D[e] * x[b,t,e]
 //   y   *= silu(z[b,t,e])                            (optional gate)
 //
-// What bounds it on the H100: at the GFE-Mamba shapes (L = 53, ED = 1024,
-// N = 16, batch 4) it reads and writes ~3.5 MB and does ~1e8 flops, so
-// its floor is a few microseconds of memory traffic; in practice the
-// sequential dependence over L and the launch itself set the time.
+// What bounds it on the H100.  At the serving shape (4, 53, 1024, N = 16)
+// it must move ~3.6 MB (x, delta, z in, y out, B, C, A), 0.0011 ms at
+// 3.35 TB/s; its ~2e7 f32 operations take less.  Below that lies the
+// serial floor of one (b, e, n) walk: one dependent FMA per step, L of
+// them, ~0.1 us.  v1 (one thread per (b, e) walking L with dependent
+// global loads of x, delta, z in every step, 8 blocks at batch 1) ran at
+// roughly one memory round trip per step.
 //
-// Design: one thread per (b, e) keeps h[N] and A[e,:] in registers and
-// walks L in order; consecutive threads take consecutive e, so every load
-// of x, delta, z and store of y is coalesced.  B_t and C_t are shared by
-// all channels of a batch row, so a block stages them for the whole
-// sequence in shared memory once (2 * L * N floats, 6.8 KB at L = 53).
-// Softplus is log(1 + exp(v)) written as max(v, 0) + log1p(exp(-|v|)),
-// which is jax.nn.softplus's exact form (no threshold shortcut).
+// Design (v2; the block and thread split is in scan.cuh: 4 channels x N
+// states per block, 1024 blocks at batch 4 and 256 at batch 1):
+// - the block stages x, delta, z for its channels and the whole sequence,
+//   B and C, with d = softplus(delta + bias) computed while staging;
+// - the walk holds one state per thread and carries only its FMA: each
+//   group of steps loads its inputs and computes its exps first; it
+//   stores h_t for every t in shared memory (L (N+1) 4 floats);
+// - y_t = C_t . h_t + D x_t and the gate then run in parallel over (t, c),
+//   reading the stored states, and store y.
+// bf16 or f32 operands (per operand), with any strides; y is written in
+// its own dtype (the caller's: x's), rounded once.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "scan.cuh"
+
 #include <stddef.h>
 
 namespace {
 
-constexpr int NTHREADS = 128;
+constexpr int TILES = 3;  // xs, ds, zs
 
 template <int N>
-__global__ void __launch_bounds__(NTHREADS)
-scan_kernel(const float* __restrict__ x, const float* __restrict__ delta,
-            const float* __restrict__ A, const float* __restrict__ Bm,
-            const float* __restrict__ Cm, const float* __restrict__ D,
-            const float* __restrict__ z, const float* __restrict__ bias,
-            float* __restrict__ out, int L, int ED, int softplus) {
-  extern __shared__ float bc[];  // B then C, each (L, N)
-  const int b = blockIdx.y;
-  const int e = blockIdx.x * NTHREADS + threadIdx.x;
-  const size_t bc_off = (size_t)b * L * N;
-  for (int i = threadIdx.x; i < L * N; i += NTHREADS) {
-    bc[i] = Bm[bc_off + i];
-    bc[L * N + i] = Cm[bc_off + i];
-  }
+__global__ void __launch_bounds__(SCAN_CH * N)
+scan_kernel(const __grid_constant__ ScanArgs a) {
+  constexpr int CH = SCAN_CH, P = (N + 1) * CH;
+  extern __shared__ __align__(16) float sm[];
+  const int L = a.L;
+  float* hs = sm;
+  float* Bs = hs + L * P;
+  float* Cs = Bs + L * N;
+  float* xs = Cs + L * N;
+  float* dts = xs + L * CH;
+  float* zs = dts + L * CH;
+  float* Dv = zs + L * CH;
+
+  const int b = blockIdx.y, e0 = blockIdx.x * CH;
+  const int c = threadIdx.x % CH, n = threadIdx.x / CH, e = e0 + c;
+  const bool gate = a.z.p != nullptr;
+  const float an = e < a.ED ? a.A[(size_t)e * N + n] : 0.f;
+  stage<N>(a, b, e0, xs, dts, gate ? zs : nullptr, nullptr, nullptr, Bs,
+           Cs, Dv);
+
+  forward_walk<N>(L, an, xs, dts, Bs, hs);
   __syncthreads();
-  if (e >= ED) return;
 
-  float a[N], h[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    a[n] = A[(size_t)e * N + n];
-    h[n] = 0.f;
-  }
-  const float d_skip = D[e];
-  const float d_bias = bias != nullptr ? bias[e] : 0.f;
-
-  for (int t = 0; t < L; ++t) {
-    const size_t o = ((size_t)b * L + t) * ED + e;
-    const float xv = x[o];
-    float d = delta[o] + d_bias;
-    if (softplus) d = fmaxf(d, 0.f) + log1pf(expf(-fabsf(d)));
-    const float dx = d * xv;
-    const float* Bt = bc + t * N;
-    const float* Ct = bc + L * N + t * N;
+  for (int i = threadIdx.x; i < L * CH; i += blockDim.x) {
+    const int t = i / CH, ci = i % CH;
+    if (e0 + ci >= a.ED) continue;
     float y = 0.f;
 #pragma unroll
-    for (int n = 0; n < N; ++n) {
-      h[n] = expf(d * a[n]) * h[n] + dx * Bt[n];
-      y = fmaf(h[n], Ct[n], y);
-    }
-    y = fmaf(d_skip, xv, y);
-    if (z != nullptr) {
-      const float zv = z[o];
+    for (int k = 0; k < N; ++k)
+      y = fmaf(hs[t * P + k * CH + ci], Cs[t * N + k], y);
+    y = fmaf(Dv[ci], xs[i], y);
+    if (gate) {
+      const float zv = zs[i];
       y *= zv / (1.f + expf(-zv));
     }
-    out[o] = y;
+    st(a.y, b, t, e0 + ci, y);
   }
 }
 
 template <int N>
-int launch(const float* x, const float* delta, const float* A,
-           const float* Bm, const float* Cm, const float* D, const float* z,
-           const float* bias, float* out, int batch, int L, int ED,
-           int softplus, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)L * N * sizeof(float);
+int launch(const ScanArgs& a, cudaStream_t stream) {
+  const size_t smem = scan_smem_floats<N>(a.L, 1, TILES) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         scan_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((ED + NTHREADS - 1) / NTHREADS, batch);
-  scan_kernel<N><<<grid, NTHREADS, smem, stream>>>(
-      x, delta, A, Bm, Cm, D, z, bias, out, L, ED, softplus);
+  const int nblk = (a.ED + SCAN_CH - 1) / SCAN_CH;
+  scan_kernel<N><<<dim3(nblk, a.batch), SCAN_CH * N, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// All tensors float32 and contiguous: x, delta, z, out (batch, L, ED);
-// A (ED, N); B, C (batch, L, N); D, bias (ED,).  z and bias may be null.
-// N is one of 4, 8, 16, 32.  Returns a cudaError_t code (0 on success).
-extern "C" int gfe_selective_scan(const float* x, const float* delta,
-                                  const float* A, const float* Bm,
-                                  const float* Cm, const float* D,
-                                  const float* z, const float* bias,
-                                  float* out, int batch, int L, int ED, int N,
-                                  int softplus, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (N) {
-    case 4:
-      return launch<4>(x, delta, A, Bm, Cm, D, z, bias, out, batch, L, ED,
-                       softplus, st);
-    case 8:
-      return launch<8>(x, delta, A, Bm, Cm, D, z, bias, out, batch, L, ED,
-                       softplus, st);
-    case 16:
-      return launch<16>(x, delta, A, Bm, Cm, D, z, bias, out, batch, L, ED,
-                        softplus, st);
-    case 32:
-      return launch<32>(x, delta, A, Bm, Cm, D, z, bias, out, batch, L, ED,
-                        softplus, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+// x, delta, z (batch, L, ED); B, C (batch, L, N); D, bias (ED,): each f32
+// or bf16, with any strides; y: the output, shaped like x.  A (ED, N) f32
+// contiguous.  z and bias may be null.  N is one of 4, 8, 16, 32.  Returns
+// a cudaError_t code (0 on success).
+extern "C" int gfe_selective_scan(const ScanArgs* args, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (args->N) {
+    case 4: return launch<4>(*args, s);
+    case 8: return launch<8>(*args, s);
+    case 16: return launch<16>(*args, s);
+    case 32: return launch<32>(*args, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -188,28 +188,40 @@ scan_bwd_kernel(const __grid_constant__ ScanArgs a) {
 }
 
 // Sums the partials in a fixed order into grads: dB (batch, L, N), dC
-// (batch, L, N), dA (ED, N), dD (ED), dbias (ED).
-__global__ void __launch_bounds__(256)
+// (batch, L, N), dA (ED, N), dD (ED), dbias (ED).  A block takes 32
+// consecutive outputs; its FINISH_GROUPS warps sum every FINISH_GROUPS-th
+// block's dB/dC partial from a different start (loads coalesced over the
+// outputs), then warp 0 adds the groups in order.
+constexpr int FINISH_GROUPS = 8;
+
+__global__ void __launch_bounds__(32 * FINISH_GROUPS)
 finish_kernel(const float* __restrict__ part, float* __restrict__ grads,
               int batch, int nblk, int L, int N, int ED) {
+  __shared__ float red[FINISH_GROUPS][32];
   const size_t LN = (size_t)L * N, nbc = 2 * (size_t)batch * LN;
   const size_t nda = (size_t)ED * N, total = nbc + nda + 2 * (size_t)ED;
   const float* da_part = part + (size_t)batch * nblk * 2 * LN;
   const float* aux = da_part + (size_t)batch * nda;
-  for (size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x; j < total;
-       j += (size_t)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    if (j < nbc) {
-      const size_t s = j / (batch * LN), r = j % (batch * LN);
-      const float* p = part + ((r / LN) * nblk * 2 + s) * LN + r % LN;
+  const int o = threadIdx.x % 32, grp = threadIdx.x / 32;
+  const size_t j = (size_t)blockIdx.x * 32 + o;
+  float acc = 0.f;
+  if (j < nbc) {
+    const size_t s = j / (batch * LN), r = j % (batch * LN);
+    const float* p = part + ((r / LN) * nblk * 2 + s) * LN + r % LN;
 #pragma unroll 8
-      for (int k = 0; k < nblk; ++k) acc += p[(size_t)k * 2 * LN];
-    } else if (j < nbc + nda) {
-      for (int b = 0; b < batch; ++b) acc += da_part[b * nda + (j - nbc)];
-    } else {
-      const size_t r = j - nbc - nda;  // dD then dbias
-      for (int b = 0; b < batch; ++b) acc += aux[b * 2 * (size_t)ED + r];
-    }
+    for (int k = grp; k < nblk; k += FINISH_GROUPS)
+      acc += p[(size_t)k * 2 * LN];
+  } else if (j < nbc + nda && grp == 0) {
+    for (int b = 0; b < batch; ++b) acc += da_part[b * nda + (j - nbc)];
+  } else if (j < total && grp == 0) {
+    const size_t r = j - nbc - nda;  // dD then dbias
+    for (int b = 0; b < batch; ++b) acc += aux[b * 2 * (size_t)ED + r];
+  }
+  red[grp][o] = acc;
+  __syncthreads();
+  if (grp == 0 && j < total) {
+#pragma unroll
+    for (int g = 1; g < FINISH_GROUPS; ++g) acc += red[g][o];
     grads[j] = acc;
   }
 }
@@ -229,9 +241,8 @@ int launch(const ScanArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   const size_t total = 2 * (size_t)a.batch * a.L * N + (size_t)a.ED * N +
                        2 * (size_t)a.ED;
-  const int blocks = (int)((total + 255) / 256);
-  finish_kernel<<<blocks, 256, 0, stream>>>(a.part, a.grads, a.batch, nblk,
-                                            a.L, N, a.ED);
+  finish_kernel<<<(unsigned)((total + 31) / 32), 32 * FINISH_GROUPS, 0,
+                  stream>>>(a.part, a.grads, a.batch, nblk, a.L, N, a.ED);
   return (int)cudaGetLastError();
 }
 
@@ -245,12 +256,12 @@ int launch(const ScanArgs& a, cudaStream_t stream) {
 // z/dz and bias may be null.  N is one of 4, 8, 16, 32.  Returns a
 // cudaError_t code (0 on success).
 extern "C" int gfe_selective_scan_bwd(const ScanArgs* args, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (args->N) {
-    case 4: return launch<4>(*args, st);
-    case 8: return launch<8>(*args, st);
-    case 16: return launch<16>(*args, st);
-    case 32: return launch<32>(*args, st);
+    case 4: return launch<4>(*args, s);
+    case 8: return launch<8>(*args, s);
+    case 16: return launch<16>(*args, s);
+    case 32: return launch<32>(*args, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -2,9 +2,9 @@
 (``csrc/selective_scan.cu``) and its backward (``csrc/selective_scan_bwd.cu``),
 each with its plain PyTorch version.
 
-All take f32 tensors with the mamba_ssm contract: x, delta, z
-``(B, L, ED)``; A ``(ED, N)``; B, C ``(B, L, N)``; D, delta_bias
-``(ED,)``.  The forward returns y ``(B, L, ED)`` in f32::
+All follow the mamba_ssm contract: x, delta, z ``(B, L, ED)``; A
+``(ED, N)``; B, C ``(B, L, N)``; D, delta_bias ``(ED,)``.  The forward
+returns y ``(B, L, ED)``, computed with f32 state::
 
     d = softplus(delta + delta_bias)            (each step optional)
     h = exp(d * A) * h + (d * x) * B_t;  y = C_t . h + D * x
@@ -13,7 +13,9 @@ All take f32 tensors with the mamba_ssm contract: x, delta, z
 The backward takes the cotangent g of y and returns
 ``(dx, ddelta, dA, dB, dC, dD, dz, ddelta_bias)``, dz None without a gate
 and ddelta_bias None without a bias.  ``*_cuda`` launch the kernels on
-CUDA tensors; ``*_plain`` are the sequential reference loops over L.
+CUDA tensors, each operand f32 or bf16 with any strides (``ScanArgs``
+carries each one's pointer, strides and dtype); ``*_plain`` are the
+sequential f32 reference loops over L.
 """
 
 from __future__ import annotations
@@ -28,9 +30,8 @@ launches = 0
 bwd_launches = 0
 
 _STATE_SIZES = (4, 8, 16, 32)
-_NTHREADS = 128          # threads per block of K2
-# channels per block of K4 (SCAN_CH in csrc/scan.cuh); a block has
-# BLOCK_CHANNELS * N threads, one per (channel, state)
+# channels per block of both kernels (SCAN_CH in csrc/scan.cuh); a block
+# has BLOCK_CHANNELS * N threads, one per (channel, state)
 BLOCK_CHANNELS = 4
 _MAX_SMEM = 227 * 1024
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -211,40 +212,39 @@ def _check_inputs(x, delta, A, B, C, D, z, delta_bias, smem):
     return bsz, L, ED, N
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def _k2_smem(L, N):
-    return 2 * L * N * 4
+    return smem_bytes(L, N, states=1, tiles=3)
+
+
+def _launch(name, args: ScanArgs, device) -> int:
+    from gfe_mamba_torch.ops.cuda.build import library
+
+    fn = getattr(library(name), f"gfe_{name}")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(ScanArgs), ctypes.c_void_p]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        return fn(ctypes.byref(args), stream)
 
 
 def selective_scan_cuda(x, delta, A, B, C, D, z=None, delta_bias=None,
                         delta_softplus=False):
-    """Launch K2 on contiguous f32 CUDA tensors; raises on anything else."""
-    from gfe_mamba_torch.ops.cuda.build import library
+    """Launch K2 on CUDA tensors; raises on anything it cannot take.
 
+    x, delta, z, B, C, D and delta_bias may be f32 or bf16, with any
+    strides; y comes back contiguous in x's dtype."""
     global launches
     bsz, L, ED, N = _check_inputs(x, delta, A, B, C, D, z, delta_bias,
                                   _k2_smem)
-    for name, t in (("x", x), ("delta", delta), ("B", B), ("C", C),
-                    ("D", D), ("z", z), ("delta_bias", delta_bias)):
-        if t is not None and not (t.dtype == torch.float32
-                                  and t.is_contiguous()):
-            raise ValueError(f"{name}: K2 takes contiguous f32 tensors")
-    out = torch.empty_like(x)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    fn = library("selective_scan").gfe_selective_scan
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
-                C.data_ptr(), D.data_ptr(), _ptr(z), _ptr(delta_bias),
-                out.data_ptr(), bsz, L, ED, N, int(bool(delta_softplus)),
-                stream)
+    args = ScanArgs(
+        x=_operand(x), delta=_operand(delta), z=_operand(z), B=_operand(B),
+        C=_operand(C), D=_operand(D), bias=_operand(delta_bias),
+        y=_operand(out), A=A.data_ptr(), batch=bsz, L=L, ED=ED, N=N,
+        softplus=int(bool(delta_softplus)))
+    rc = _launch("selective_scan", args, x.device)
     if rc != 0:
         raise RuntimeError(f"selective_scan kernel failed: CUDA error {rc}")
     launches += 1
@@ -273,8 +273,6 @@ def selective_scan_bwd_cuda(x, delta, A, B, C, D, z, delta_bias, g,
     strides.  dx, ddelta and dz come back in x's, delta's and z's dtype; dA, dB, dC,
     dD and ddelta_bias in f32, summed over blocks and batch in a fixed
     order by the kernel's second launch."""
-    from gfe_mamba_torch.ops.cuda.build import library
-
     global bwd_launches
     bsz, L, ED, N = _check_inputs(x, delta, A, B, C, D, z, delta_bias,
                                   _k4_smem)
@@ -295,12 +293,7 @@ def selective_scan_bwd_cuda(x, delta, A, B, C, D, z, delta_bias, g,
         dz=_operand(dz), A=A.data_ptr(), part=part.data_ptr(),
         grads=grads.data_ptr(), batch=bsz, L=L, ED=ED, N=N,
         softplus=int(bool(delta_softplus)))
-    fn = library("selective_scan_bwd").gfe_selective_scan_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(ScanArgs), ctypes.c_void_p]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(ctypes.byref(args), stream)
+    rc = _launch("selective_scan_bwd", args, x.device)
     if rc != 0:
         raise RuntimeError(f"selective_scan_bwd kernel failed: CUDA error "
                            f"{rc}")

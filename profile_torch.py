@@ -11,7 +11,8 @@ generator, ``PatchDiscriminator(3, 32)`` and ``PerceptualLoss(0.25)``
 (bf16, batch 1, adversary on).  After two warm-up iterations it traces
 two more with ``torch.profiler`` (CPU and CUDA activities) and prints the
 host time per iteration, the device's busy time (the sum of kernel
-times; the work runs on one stream) and its idle share, and the kernels
+times; the work runs on one stream), its idle share and the number of
+kernel launches, and the kernels
 by device time with each one's share.  With a file name it also writes
 the chrome trace there.
 """
@@ -117,7 +118,8 @@ def main() -> int:
     busy_ms = sum(r[0] for r in rows)
     print(f"{card}: {args.path} {wall_ms:.2f} ms per iteration (host "
           f"clock), device busy {busy_ms:.2f} ms, idle share "
-          f"{1 - busy_ms / wall_ms:.3f}")
+          f"{1 - busy_ms / wall_ms:.3f}, {sum(r[1] for r in rows)} kernel "
+          f"launches")
     print(f"{'ms/iter':>10} {'share':>6} {'calls':>5}  kernel")
     for ms, calls, key in rows[:30]:
         print(f"{ms:10.3f} {ms / busy_ms:6.3f} {calls:5d}  {key[:110]}")

@@ -8,7 +8,8 @@ is not installed::
 Tolerances, relative to max(1, max |plain|): K1 f32 1e-4 (summation
 order; TF32 is off for the reference), K1 bf16 3e-2 (the plain version
 rounds the conv output to bf16 before its epilogue: up to 1 bf16 ulp,
-0.8%, at the output's scale), K2 1e-5 (f32 state on both sides), K5a
+0.8%, at the output's scale), K2 1e-5 (f32 state on both sides) and one
+bf16 ulp for its bf16 output against the plain f32 result rounded, K5a
 1e-5 (f32 sums in two orders), K5b 1e-6 in f32 and one bf16 ulp (2^-7)
 in bf16 (the same f32 arithmetic, op by op, rounded once), the group-norm
 Function's gradients 1e-4 (autograd of the same reference on both
@@ -79,12 +80,15 @@ def test_conv_kernel_rejects_channels_not_multiple_of_8(cuda):
         k1.conv3x3x3_cuda(x, w)
 
 
+@pytest.mark.parametrize("bsz", [1, 4])
 @pytest.mark.parametrize("gate,bias,softplus,ED", [
     (True, True, True, 1024), (False, False, True, 1000),
-    (True, False, False, 1000)])
-def test_scan_kernel_matches_plain(cuda, gate, bias, softplus, ED):
+    (True, False, False, 1001)])
+def test_scan_kernel_matches_plain(cuda, gate, bias, softplus, ED, bsz):
+    """Batch 4 (serving) and 1 (the Stage-2 step); ED = 1001 leaves one
+    channel in the last block of 4."""
     gen = np.random.RandomState(1)
-    bsz, L, N = 4, 53, 16
+    L, N = 53, 16
     x = _randn(gen, bsz, L, ED)
     delta = _randn(gen, bsz, L, ED, scale=0.5)
     if not softplus:          # a real step is positive without softplus
@@ -100,6 +104,51 @@ def test_scan_kernel_matches_plain(cuda, gate, bias, softplus, ED):
     want = k2.selective_scan_plain(*args, delta_softplus=softplus)
     torch.cuda.synchronize()
     _assert_close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("bsz", [1, 4])
+def test_scan_kernel_takes_bf16_views(cuda, bsz):
+    """A Mamba layer's own bf16 operands, as its forward makes them on the
+    card (x channel-major from the depthwise conv, z a ``chunk`` view, B
+    and C ``split`` views, D and delta_bias bf16), go in as they are: y
+    comes back in bf16 within one bf16 ulp of the plain f32 result rounded
+    once (an element below 2^-8 of max |y| takes the ulp of that floor);
+    the same call in f32 agrees to 1e-5."""
+    import torch.nn.functional as F
+
+    from gfe_mamba_torch.models.mamba import MambaBlock, MambaConfig
+
+    for dtype in (torch.bfloat16, torch.float32):
+        torch.manual_seed(0)
+        cfg = MambaConfig(d_model=128, n_layers=1)
+        block = MambaBlock(cfg)
+        block.reset_ssm_parameters(torch.Generator().manual_seed(0))
+        block = block.to(cuda, dtype)
+        h = _randn(np.random.RandomState(bsz), bsz, 53, 128).to(cuda, dtype)
+        with torch.no_grad():
+            x, z = block.in_proj(h).chunk(2, dim=-1)
+            x = F.silu(block.conv1d(x.transpose(1, 2))[..., :53]
+                       .transpose(1, 2))
+            delta, B, C = torch.split(block.x_proj(x),
+                                      [cfg.dt_rank_, 16, 16], dim=-1)
+            delta = F.linear(delta, block.dt_proj.weight)
+        args = [x, delta, -torch.exp(block.A_log.detach().float()), B, C,
+                block.D.detach(), z, block.dt_proj.bias.detach()]
+        assert not (x.is_contiguous() or z.is_contiguous()
+                    or B.is_contiguous())
+        got = k2.selective_scan_cuda(*args, delta_softplus=True)
+        want = k2.selective_scan_plain(*[t.float() for t in args],
+                                       delta_softplus=True)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            _assert_close(got, want, 1e-5)
+            continue
+        ref = want.bfloat16().float()
+        floor = want.abs().max().item() * 2.0 ** -8
+        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=floor)))
+                         - 7)
+        assert ((got.float() - ref).abs() <= ulp).all()
 
 
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-6),
