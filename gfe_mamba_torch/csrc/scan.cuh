@@ -34,9 +34,9 @@ struct Operand {
   int bf16, pad;
 };
 
-// Mirrored by ScanArgs in ops/cuda/selective_scan.py.  Both structs stay
-// outside the anonymous namespace: the C entry points that take them are
-// exported.
+// Packed byte for byte by ``_args`` in ops/cuda/selective_scan.py (488
+// bytes).  Both structs stay outside the anonymous namespace: the C entry
+// points that take them are exported.
 struct ScanArgs {
   Operand x, delta, z, B, C, D, bias, g;  // inputs; z, bias, g may be null
   Operand y, ddelta, dz;  // outputs: K2's y, or K4's dx, ddelta, dz
@@ -45,6 +45,8 @@ struct ScanArgs {
   float* grads;           // K4: dB, dC, dA, dD, dbias in f32
   int batch, L, ED, N, softplus;
 };
+static_assert(sizeof(Operand) == 40 && sizeof(ScanArgs) == 488,
+              "the layout _args packs in ops/cuda/selective_scan.py");
 
 namespace {
 
@@ -82,28 +84,58 @@ __device__ __forceinline__ float sigmoid(float v) {
 // ds = d_t, zs = z (if zs), gs = g (if gs), sg = sigmoid(delta + bias)
 // under softplus and 1 without (if sg); Bs, Cs (L, N) of batch row b; Dv
 // (CH).  Channels past ED stage zeros, so their states and gradients stay
-// 0.  Ends with a barrier.
+// 0.  A thread issues the global loads of STAGE_BATCH elements before it
+// stores any of them: a store to shared memory may alias a generic
+// pointer, so the compiler would otherwise wait for each load in turn.
+// Ends with a barrier.
+constexpr int STAGE_BATCH = 8;
+
 template <int N>
 __device__ __forceinline__ void stage(const ScanArgs& a, int b, int e0,
                                       float* xs, float* ds, float* zs,
                                       float* gs, float* sg, float* Bs,
                                       float* Cs, float* Dv) {
-  const int L = a.L;
-  for (int i = threadIdx.x; i < L * SCAN_CH; i += blockDim.x) {
-    const int t = i / SCAN_CH, e = e0 + i % SCAN_CH;
-    const bool valid = e < a.ED;
-    const float raw = valid ? ld(a.delta, b, t, e) +
-                                  (a.bias.p ? ld(a.bias, 0, 0, e) : 0.f)
-                            : 0.f;
-    xs[i] = valid ? ld(a.x, b, t, e) : 0.f;
-    ds[i] = a.softplus ? softplus(raw) : raw;
-    if (zs) zs[i] = valid ? ld(a.z, b, t, e) : 0.f;
-    if (gs) gs[i] = valid ? ld(a.g, b, t, e) : 0.f;
-    if (sg) sg[i] = a.softplus ? sigmoid(raw) : 1.f;
+  const int L = a.L, step = blockDim.x;
+  for (int i0 = threadIdx.x; i0 < L * SCAN_CH; i0 += STAGE_BATCH * step) {
+    float vx[STAGE_BATCH], vd[STAGE_BATCH], vz[STAGE_BATCH],
+        vg[STAGE_BATCH];
+#pragma unroll
+    for (int k = 0; k < STAGE_BATCH; ++k) {
+      const int i = i0 + k * step, t = i / SCAN_CH, e = e0 + i % SCAN_CH;
+      const bool valid = i < L * SCAN_CH && e < a.ED;
+      vx[k] = valid ? ld(a.x, b, t, e) : 0.f;
+      vd[k] = valid ? ld(a.delta, b, t, e) +
+                          (a.bias.p ? ld(a.bias, 0, 0, e) : 0.f)
+                    : 0.f;
+      vz[k] = valid && zs ? ld(a.z, b, t, e) : 0.f;
+      vg[k] = valid && gs ? ld(a.g, b, t, e) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < STAGE_BATCH; ++k) {
+      const int i = i0 + k * step;
+      if (i >= L * SCAN_CH) break;
+      xs[i] = vx[k];
+      ds[i] = a.softplus ? softplus(vd[k]) : vd[k];
+      if (zs) zs[i] = vz[k];
+      if (gs) gs[i] = vg[k];
+      if (sg) sg[i] = a.softplus ? sigmoid(vd[k]) : 1.f;
+    }
   }
-  for (int i = threadIdx.x; i < L * N; i += blockDim.x) {
-    Bs[i] = ld(a.B, b, i / N, i % N);
-    Cs[i] = ld(a.C, b, i / N, i % N);
+  for (int i0 = threadIdx.x; i0 < L * N; i0 += STAGE_BATCH * step) {
+    float vb[STAGE_BATCH], vc[STAGE_BATCH];
+#pragma unroll
+    for (int k = 0; k < STAGE_BATCH; ++k) {
+      const int i = min(i0 + k * step, L * N - 1);
+      vb[k] = ld(a.B, b, i / N, i % N);
+      vc[k] = ld(a.C, b, i / N, i % N);
+    }
+#pragma unroll
+    for (int k = 0; k < STAGE_BATCH; ++k) {
+      const int i = i0 + k * step;
+      if (i >= L * N) break;
+      Bs[i] = vb[k];
+      Cs[i] = vc[k];
+    }
   }
   if (threadIdx.x < SCAN_CH)
     Dv[threadIdx.x] = e0 + (int)threadIdx.x < a.ED

@@ -13,14 +13,15 @@ returns y ``(B, L, ED)``, computed with f32 state::
 The backward takes the cotangent g of y and returns
 ``(dx, ddelta, dA, dB, dC, dD, dz, ddelta_bias)``, dz None without a gate
 and ddelta_bias None without a bias.  ``*_cuda`` launch the kernels on
-CUDA tensors, each operand f32 or bf16 with any strides (``ScanArgs``
-carries each one's pointer, strides and dtype); ``*_plain`` are the
-sequential f32 reference loops over L.
+CUDA tensors, each operand f32 or bf16 with any strides (the packed
+``ScanArgs`` carry each one's pointer, strides and dtype); ``*_plain``
+are the sequential f32 reference loops over L.
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 import torch.nn.functional as F
@@ -114,25 +115,18 @@ def selective_scan_bwd_plain(x, delta, A, B, C, D, z, delta_bias, g,
     return dx, ddelta, dA.sum(0), dB, dC, dD.sum(0), dz, dbias
 
 
-class Operand(ctypes.Structure):
-    """``Operand`` of ``csrc/scan.cuh``: a tensor's data pointer, its
-    batch, time and last-dimension strides in elements (a vector's batch
-    and time strides 0) and whether it is bf16; an absent operand's
-    pointer is null."""
-
-    _fields_ = [("p", ctypes.c_void_p), ("sb", ctypes.c_int64),
-                ("st", ctypes.c_int64), ("se", ctypes.c_int64),
-                ("bf16", ctypes.c_int), ("pad", ctypes.c_int)]
-
-
-class ScanArgs(ctypes.Structure):
-    """``ScanArgs`` of ``csrc/scan.cuh``, field for field."""
-
-    _fields_ = ([(name, Operand) for name in (
-        "x", "delta", "z", "B", "C", "D", "bias", "g", "y", "ddelta", "dz")]
-        + [(name, ctypes.c_void_p) for name in ("A", "part", "grads")]
-        + [(name, ctypes.c_int) for name in (
-            "batch", "L", "ED", "N", "softplus")])
+# ``Operand`` of csrc/scan.cuh: data pointer; batch, time and
+# last-dimension strides in elements; bf16 flag; padding.  An absent
+# operand is all zeros (a null pointer).
+OPERAND = struct.Struct("@qqqqii")
+_ABSENT = bytes(OPERAND.size)
+# ``ScanArgs`` of csrc/scan.cuh is 11 operands (x, delta, z, B, C, D, bias,
+# g, y, ddelta, dz) then this tail: A, part, grads; batch, L, ED, N,
+# softplus; padding to 8 bytes.  The arguments go to the C entry points
+# as these bytes (packing them costs a third of filling a
+# ctypes.Structure, and the training step is host-bound).
+_TAIL = struct.Struct("@qqqiiiiii")
+ARGS_SIZE = 11 * OPERAND.size + _TAIL.size
 
 
 def operand_meta(t) -> tuple[int, int, int, int]:
@@ -156,11 +150,16 @@ def kernel_operand(t):
     return t.float()
 
 
-def _operand(t) -> Operand:
+def _operand(t) -> bytes:
     if t is None:
-        return Operand()
+        return _ABSENT
     bf16, sb, st, se = operand_meta(t)
-    return Operand(t.data_ptr(), sb, st, se, bf16, 0)
+    return OPERAND.pack(t.data_ptr(), sb, st, se, bf16, 0)
+
+
+def _args(operands, A, part, grads, bsz, L, ED, N, softplus) -> bytes:
+    return b"".join([*map(_operand, operands), _TAIL.pack(
+        A.data_ptr(), part, grads, bsz, L, ED, N, int(bool(softplus)), 0)])
 
 
 def smem_bytes(L: int, N: int, states: int, tiles: int) -> int:
@@ -174,8 +173,8 @@ def smem_bytes(L: int, N: int, states: int, tiles: int) -> int:
 def _check(name, t, shape, device, dtypes=KERNEL_DTYPES):
     if t is None:
         return
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+    if t.shape != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
     if t.dtype not in dtypes:
         raise ValueError(f"{name}: dtype {t.dtype} not in {dtypes}")
     if t.device != device:
@@ -216,15 +215,24 @@ def _k2_smem(L, N):
     return smem_bytes(L, N, states=1, tiles=3)
 
 
-def _launch(name, args: ScanArgs, device) -> int:
-    from gfe_mamba_torch.ops.cuda.build import library
+_entry: dict[str, object] = {}
 
-    fn = getattr(library(name), f"gfe_{name}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(ScanArgs), ctypes.c_void_p]
+
+def _launch(name, args: bytes, device) -> int:
+    """Call ``gfe_<name>`` of ``csrc/<name>.cu`` on ``device``'s current
+    stream with the packed ``ScanArgs``; returns its CUDA error code."""
+    fn = _entry.get(name)
+    if fn is None:
+        from gfe_mamba_torch.ops.cuda.build import library
+
+        fn = getattr(library(name), f"gfe_{name}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+        _entry[name] = fn
+    if device.index == torch.cuda.current_device():
+        return fn(args, torch.cuda.current_stream().cuda_stream)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        return fn(ctypes.byref(args), stream)
+        return fn(args, torch.cuda.current_stream().cuda_stream)
 
 
 def selective_scan_cuda(x, delta, A, B, C, D, z=None, delta_bias=None,
@@ -239,11 +247,8 @@ def selective_scan_cuda(x, delta, A, B, C, D, z=None, delta_bias=None,
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    args = ScanArgs(
-        x=_operand(x), delta=_operand(delta), z=_operand(z), B=_operand(B),
-        C=_operand(C), D=_operand(D), bias=_operand(delta_bias),
-        y=_operand(out), A=A.data_ptr(), batch=bsz, L=L, ED=ED, N=N,
-        softplus=int(bool(delta_softplus)))
+    args = _args((x, delta, z, B, C, D, delta_bias, None, out, None, None),
+                 A, 0, 0, bsz, L, ED, N, delta_softplus)
     rc = _launch("selective_scan", args, x.device)
     if rc != 0:
         raise RuntimeError(f"selective_scan kernel failed: CUDA error {rc}")
@@ -270,8 +275,8 @@ def selective_scan_bwd_cuda(x, delta, A, B, C, D, z, delta_bias, g,
     """Launch K4 on CUDA tensors; raises on anything it cannot take.
 
     x, delta, z, g, B, C, D and delta_bias may be f32 or bf16, with any
-    strides.  dx, ddelta and dz come back in x's, delta's and z's dtype; dA, dB, dC,
-    dD and ddelta_bias in f32, summed over blocks and batch in a fixed
+    strides.  dx, ddelta and dz come back in x's, delta's and z's dtype;
+    dA, dB, dC, dD and ddelta_bias in f32, summed over blocks and batch in a fixed
     order by the kernel's second launch."""
     global bwd_launches
     bsz, L, ED, N = _check_inputs(x, delta, A, B, C, D, z, delta_bias,
@@ -284,22 +289,20 @@ def selective_scan_bwd_cuda(x, delta, A, B, C, D, z, delta_bias, g,
     dz = None if z is None else torch.empty(x.shape, dtype=z.dtype,
                                             device=x.device)
     n_part, n_grads = bwd_buffers(bsz, L, ED, N)
-    part = torch.empty(n_part, dtype=torch.float32, device=x.device)
-    grads = torch.empty(n_grads, dtype=torch.float32, device=x.device)
-    args = ScanArgs(
-        x=_operand(x), delta=_operand(delta), z=_operand(z), B=_operand(B),
-        C=_operand(C), D=_operand(D), bias=_operand(delta_bias),
-        g=_operand(g), y=_operand(dx), ddelta=_operand(ddelta),
-        dz=_operand(dz), A=A.data_ptr(), part=part.data_ptr(),
-        grads=grads.data_ptr(), batch=bsz, L=L, ED=ED, N=N,
-        softplus=int(bool(delta_softplus)))
+    # one f32 allocation: the gradients first, the scratch after them
+    buf = torch.empty(n_grads + n_part, dtype=torch.float32,
+                      device=x.device)
+    args = _args((x, delta, z, B, C, D, delta_bias, g, dx, ddelta, dz), A,
+                 buf.data_ptr() + 4 * n_grads, buf.data_ptr(), bsz, L, ED,
+                 N, delta_softplus)
     rc = _launch("selective_scan_bwd", args, x.device)
     if rc != 0:
         raise RuntimeError(f"selective_scan_bwd kernel failed: CUDA error "
                            f"{rc}")
     bwd_launches += 1
     bln = bsz * L * N
-    dB, dC, dA, dD, dbias = torch.split(grads, [bln, bln, ED * N, ED, ED])
+    dB, dC, dA, dD, dbias, _ = torch.split(
+        buf, [bln, bln, ED * N, ED, ED, n_part])
     return (dx, ddelta, dA.view(ED, N), dB.view(bsz, L, N),
             dC.view(bsz, L, N), dD, dz,
             None if delta_bias is None else dbias)

@@ -122,10 +122,24 @@ def test_mamba_operands_pass_as_they_are(dtype):
     assert k2.operand_meta(delta) == (bf16, 5 * ED, ED, 1)
     assert k2.operand_meta(z) == (bf16, 5 * 2 * ED, 2 * ED, 1)
     assert k2.operand_meta(C) == (bf16, 5 * (R + 8), R + 8, 1)
-    op = k2._operand(C)
-    assert (op.p, op.sb, op.st, op.se, op.bf16) == (
-        C.data_ptr(), 5 * (R + 8), R + 8, 1, bf16)
+    assert k2.OPERAND.unpack(k2._operand(C)) == (
+        C.data_ptr(), 5 * (R + 8), R + 8, 1, bf16, 0)
     assert C.data_ptr() == B.data_ptr() + 4 * B.element_size()
+
+
+def test_packed_args_have_the_kernels_layout():
+    """``ScanArgs`` of csrc/scan.cuh: 11 operands of 40 bytes, then A,
+    part, grads, batch, L, ED, N, softplus and padding: 488 bytes."""
+    x, A = torch.randn(2, 5, 8), torch.randn(8, 4)
+    args = k2._args((x, None, x, None, None, None, None, None, x, None,
+                     None), A, 7, 9, 2, 5, 8, 4, True)
+    assert len(args) == k2.ARGS_SIZE == 488
+    assert args[40:80] == bytes(40)
+    assert k2.OPERAND.unpack(args[:40]) == (x.data_ptr(), 40, 8, 1, 0, 0)
+    assert np.frombuffer(args[440:464], np.int64).tolist() == [
+        A.data_ptr(), 7, 9]
+    assert np.frombuffer(args[464:], np.int32).tolist() == [
+        2, 5, 8, 4, 1, 0]
 
 
 def test_what_the_caller_casts():
