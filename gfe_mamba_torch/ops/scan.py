@@ -6,7 +6,8 @@ from __future__ import annotations
 
 import torch
 
-from gfe_mamba_torch.ops.cuda.selective_scan import (selective_scan_bwd_cuda,
+from gfe_mamba_torch.ops.cuda.selective_scan import (kernel_operand,
+                                                     selective_scan_bwd_cuda,
                                                      selective_scan_bwd_plain,
                                                      selective_scan_cuda,
                                                      selective_scan_plain)
@@ -19,25 +20,43 @@ def _f32(t):
 class SelectiveScanFn(torch.autograd.Function):
     """The scan with its backward: forward through K2 on CUDA tensors and
     the plain loop on CPU ones; backward through K4 or
-    ``selective_scan_bwd_plain``.  It saves the f32 inputs, not h: the
+    ``selective_scan_bwd_plain``.  It saves its inputs, not h: the
     backward recomputes the states, as ``_vjp_fwd`` in the JAX package
-    does.  Each gradient comes back in its input's dtype."""
+    does.  Each gradient comes back in its input's dtype.
+
+    On CUDA the kernels read f32 or bf16 with any strides and widen to
+    f32 in registers, so the operands go in as they are (``chunk`` and
+    ``split`` views, channel-major x, bf16): only another dtype is cast
+    to f32 (``kernel_operand``), and A, which K2 and K4 read as f32, is
+    made f32 and contiguous (already so in a Mamba layer).  y, dx, ddelta
+    and dz come out of the kernels in their operands' dtypes; the f32
+    dA, dB, dC, dD and ddelta_bias are cast here.  On the CPU every
+    operand is cast to a contiguous f32 copy for the plain loops."""
 
     @staticmethod
     def forward(ctx, x, delta, A, B, C, D, z, delta_bias, delta_softplus):
-        args = [_f32(t) for t in (x, delta, A, B, C, D, z, delta_bias)]
-        ctx.dtypes = [None if t is None else t.dtype
-                      for t in (x, delta, A, B, C, D, z, delta_bias)]
+        ins = (x, delta, A, B, C, D, z, delta_bias)
+        ctx.dtypes = [None if t is None else t.dtype for t in ins]
         ctx.delta_softplus = delta_softplus
+        if x.is_cuda:
+            args = [kernel_operand(t) for t in ins]
+            args[2] = A.float().contiguous()
+            y = selective_scan_cuda(*args, delta_softplus=delta_softplus)
+        else:
+            args = [_f32(t) for t in ins]
+            y = selective_scan_plain(*args, delta_softplus=delta_softplus)
         ctx.save_for_backward(*args)
-        scan = selective_scan_cuda if x.is_cuda else selective_scan_plain
-        return scan(*args, delta_softplus=delta_softplus).to(x.dtype)
+        return y.to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         args = ctx.saved_tensors
-        bwd = selective_scan_bwd_cuda if g.is_cuda else selective_scan_bwd_plain
-        grads = bwd(*args, _f32(g), delta_softplus=ctx.delta_softplus)
+        if g.is_cuda:
+            grads = selective_scan_bwd_cuda(
+                *args, kernel_operand(g), delta_softplus=ctx.delta_softplus)
+        else:
+            grads = selective_scan_bwd_plain(
+                *args, _f32(g), delta_softplus=ctx.delta_softplus)
         return (*(None if d is None else d.to(dt)
                   for d, dt in zip(grads, ctx.dtypes)), None)
 
@@ -49,8 +68,9 @@ def selective_scan(x, delta, A, B, C, D, z=None, delta_bias=None,
     ``(B, L, N)``; D, delta_bias ``(ED,)``.  Returns y ``(B, L, ED)`` in
     x's dtype.
 
-    Every input is cast to f32 and the recurrence runs in f32, whatever
-    the surrounding dtype.  CUDA tensors go through K2 (K4 backward); CPU
-    tensors through the sequential plain loops."""
+    The recurrence runs in f32, whatever the surrounding dtype.  CUDA
+    tensors go through K2 (K4 backward), which read bf16 and strided
+    operands as they are; CPU tensors are cast to f32 for the sequential
+    plain loops."""
     return SelectiveScanFn.apply(x, delta, A, B, C, D, z, delta_bias,
                                  delta_softplus)

@@ -143,6 +143,41 @@ def test_scan_bwd_kernel_takes_bf16_views_and_is_deterministic(cuda, bsz):
             _assert_close(got[i], want[i], 1e-4, name)
 
 
+def test_scan_fn_takes_bf16_views_without_casts_or_copies(cuda):
+    """``SelectiveScanFn`` forward and backward on a Mamba layer's own
+    bf16 operands: no op casts anything to f32 and none copies (``clone``,
+    ``copy_``, ``contiguous``); the only casts are the f32 dB, dC, dD and
+    ddelta_bias back to bf16.  K2 and K4 launch once each."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            self.ops.append((func, kwargs.get("dtype")))
+            return func(*args, **kwargs)
+
+    leaves = [t.detach().requires_grad_()
+              for t in _mamba_scan_operands(cuda, torch.bfloat16, 1)]
+    g = _randn(np.random.RandomState(5), 1, 53, 256).to(cuda,
+                                                         torch.bfloat16)
+    k2.launches = k2.bwd_launches = 0
+    with Record() as rec:
+        selective_scan(*leaves, delta_softplus=True).backward(g)
+        torch.cuda.synchronize()
+    assert (k2.launches, k2.bwd_launches) == (1, 1)
+    casts = [dtype for func, dtype in rec.ops
+             if func is torch.ops.aten._to_copy.default]
+    copies = [func for func, _ in rec.ops if func in (
+        torch.ops.aten.clone.default, torch.ops.aten.copy_.default)]
+    assert casts == [torch.bfloat16] * 4 and not copies, (casts, copies)
+    assert all(t.grad is not None and t.grad.dtype == t.dtype
+               for t in leaves)
+
+
 def _dw_args(gen, shape, C, F, affine, dtype, device):
     x = _randn(gen, *shape, C).to(device, dtype)
     g1 = _randn(gen, *shape, F).to(device, dtype)
