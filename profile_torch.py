@@ -12,9 +12,9 @@ generator, ``PatchDiscriminator(3, 32)`` and ``PerceptualLoss(0.25)``
 two more with ``torch.profiler`` (CPU and CUDA activities) and prints the
 host time per iteration, the device's busy time (the sum of kernel
 times; the work runs on one stream), its idle share and the number of
-kernel launches, and the kernels
-by device time with each one's share.  With a file name it also writes
-the chrome trace there.
+kernel launches, the kernels by device time with each one's share, and
+the port's own kernels (``csrc/*.cu``) wherever they rank.  With a file
+name it also writes the chrome trace there.
 """
 
 from __future__ import annotations
@@ -32,6 +32,11 @@ IMG = (160, 160, 96)
 BATCH = 4
 REQUESTS = 2
 CATEGORIES = dict(categories=(6,) * 8, num_continuous=40)
+# how the profiler names the kernels of gfe_mamba_torch/csrc
+PORT_KERNELS = tuple(f"void (anonymous namespace)::{name}" for name in (
+    "conv_mma_kernel", "conv_fma_kernel", "dw_mma_kernel", "dw_fma_kernel",
+    "scan_kernel", "scan_bwd_kernel", "finish_kernel", "stats_kernel",
+    "apply_kernel"))
 
 
 def _work(path: str, gen: torch.Generator):
@@ -123,6 +128,10 @@ def main() -> int:
     print(f"{'ms/iter':>10} {'share':>6} {'calls':>5}  kernel")
     for ms, calls, key in rows[:30]:
         print(f"{ms:10.3f} {ms / busy_ms:6.3f} {calls:5d}  {key[:110]}")
+    print("the port's own kernels (csrc/*.cu):")
+    for ms, calls, key in rows:
+        if key.startswith(PORT_KERNELS):
+            print(f"{ms:10.4f} {ms / busy_ms:6.3f} {calls:5d}  {key[:110]}")
     if args.trace:
         prof.export_chrome_trace(args.trace)
     return 0
