@@ -10,17 +10,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    source, all at once), timed;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it and ragged ones (K1: X and Y not
-   multiples of its brick, Z = 24, C != F); each timed beside its bound
-   (the least time the H100 could take: bytes over 3.35 TB/s or
-   operations over the peak rate of their type) and, for K1, the cuDNN
-   convolution;
+   multiples of its brick, Z = 24, C != F; K2: batch 4 and 1, ED 1000
+   and 1001, every flag on and off, f32 and bf16 operands, the bf16 y
+   within one bf16 ulp of the plain f32 result rounded); each timed
+   beside its bound (the least time the H100 could take: bytes over 3.35
+   TB/s or operations over the peak rate of their type) and, for K1, the
+   cuDNN convolution; K2 by its device time alone (a CUDA graph of 50
+   calls) and through its wrapper, at batch 4 and 1, beside the serial
+   floor of its walk;
 4. pipeline parity: the full channel widths at a reduced volume in f32,
    the CPU (plain versions) against the card (kernels), same weights;
 5. the main path: ``build_gfe_mamba`` at the canonical (160,160,96) bf16
    configuration serves 3 requests of batch 4; every forward must launch
    K1 10 times and K2 6 times;
 6. the training kernels against their plain versions: K4 (scan
-   backward) at (1|4, 53, 1024|1000, 16) with every flag on and off, K3
+   backward) at (1|4, 53, 1024|1000|1001, 16) with every flag on and
+   off, in f32 and with bf16 operands (dx, ddelta, dz within one bf16
+   ulp), a second call bitwise equal, timed like K2 at batch 1 and 4; K3
    (conv weight gradient) at the three generator levels (batch 1) and two
    ragged shapes (one with C != F) in f32 and bf16 with and without the
    GN affine (bf16 on the tensor-core variant, f32 on the CUDA-core one,
@@ -64,7 +70,10 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  K1's ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are per forward of the main path (its 10
 conv calls at batch 4), its ``dz`` entry per Stage-1 step; K2's per
-forward (its 6 scan calls); K4's per Stage-2 step (6 calls); K3's per
+forward (its 6 scan calls at batch 4) and K4's per Stage-2 step (6 calls
+at batch 1), ``ms`` being their device time alone and ``call_ms`` their
+time through the wrapper, with ``serial_floor_ms`` and the other batch's
+per-call times beside them; K3's per
 Stage-1 step (10 calls); K5a's and K5b's per pass over the three widths
 (one call each).  ``launches`` counts each kernel over the run of the
 path it serves: K1 and K2 the 3 requests of phase 5, K4 the 3 steps of

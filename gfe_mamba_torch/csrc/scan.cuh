@@ -8,8 +8,9 @@
 // 256 blocks at the Stage-2 shape (1, 53, 1024, 16), one at least for each
 // of the H100's 132 SMs.  A block first stages everything its walks read
 // (x, delta, z, g for its channels and the whole sequence, B and C of its
-// batch row) with every load of every thread issued before one barrier,
-// and computes d = softplus(delta + bias) there, outside the walks.
+// batch row), each thread issuing its loads in batches ahead of their
+// stores, all before one barrier, and computes d = softplus(delta + bias)
+// there, outside the walks.
 //
 // State buffers hold one value per (t, n, c), laid out [t][n][c] with a
 // step stride of P = (N + 1) * CH floats: in a walk the block's threads

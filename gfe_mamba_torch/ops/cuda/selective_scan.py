@@ -123,8 +123,8 @@ _ABSENT = bytes(OPERAND.size)
 # ``ScanArgs`` of csrc/scan.cuh is 11 operands (x, delta, z, B, C, D, bias,
 # g, y, ddelta, dz) then this tail: A, part, grads; batch, L, ED, N,
 # softplus; padding to 8 bytes.  The arguments go to the C entry points
-# as these bytes (packing them costs a third of filling a
-# ctypes.Structure, and the training step is host-bound).
+# as these bytes: cheaper on the host than a ctypes.Structure filled field
+# by field, and the training step is host-bound.
 _TAIL = struct.Struct("@qqqiiiiii")
 ARGS_SIZE = 11 * OPERAND.size + _TAIL.size
 
@@ -181,12 +181,12 @@ def _check(name, t, shape, device, dtypes=KERNEL_DTYPES):
         raise ValueError(f"{name}: on {t.device}, x is on {device}")
 
 
-def _check_inputs(x, delta, A, B, C, D, z, delta_bias, smem):
-    """Validate the scan's inputs for a kernel; returns (B, L, ED, N).
+def _check_inputs(x, delta, A, B, C, D, z, delta_bias, states, tiles):
+    """Validate the scan's inputs for a kernel whose blocks hold
+    ``states`` state buffers and ``tiles`` tiles; returns (B, L, ED, N).
 
     x, delta, z, B, C, D and delta_bias may each be f32 or bf16, with any
-    strides; A is f32 and contiguous.
-    ``smem(L, N)`` gives the kernel's shared memory per block."""
+    strides; A is f32 and contiguous."""
     if not x.is_cuda:
         raise ValueError("the scan kernels take CUDA tensors")
     if x.dim() != 3 or A.dim() != 2:
@@ -195,7 +195,7 @@ def _check_inputs(x, delta, A, B, C, D, z, delta_bias, smem):
     N = A.shape[1]
     if N not in _STATE_SIZES:
         raise ValueError(f"state size N={N} not in {_STATE_SIZES}")
-    if smem(L, N) > _MAX_SMEM:
+    if smem_bytes(L, N, states, tiles) > _MAX_SMEM:
         raise ValueError(f"L={L} too long: a block's tiles do not fit "
                          f"shared memory")
     _check("x", x, (bsz, L, ED), x.device)
@@ -209,10 +209,6 @@ def _check_inputs(x, delta, A, B, C, D, z, delta_bias, smem):
     _check("z", z, (bsz, L, ED), x.device)
     _check("delta_bias", delta_bias, (ED,), x.device)
     return bsz, L, ED, N
-
-
-def _k2_smem(L, N):
-    return smem_bytes(L, N, states=1, tiles=3)
 
 
 _entry: dict[str, object] = {}
@@ -243,7 +239,7 @@ def selective_scan_cuda(x, delta, A, B, C, D, z=None, delta_bias=None,
     strides; y comes back contiguous in x's dtype."""
     global launches
     bsz, L, ED, N = _check_inputs(x, delta, A, B, C, D, z, delta_bias,
-                                  _k2_smem)
+                                  states=1, tiles=3)
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
@@ -254,10 +250,6 @@ def selective_scan_cuda(x, delta, A, B, C, D, z=None, delta_bias=None,
         raise RuntimeError(f"selective_scan kernel failed: CUDA error {rc}")
     launches += 1
     return out
-
-
-def _k4_smem(L, N):
-    return smem_bytes(L, N, states=2, tiles=6)
 
 
 def bwd_buffers(bsz: int, L: int, ED: int, N: int) -> tuple[int, int]:
@@ -280,7 +272,7 @@ def selective_scan_bwd_cuda(x, delta, A, B, C, D, z, delta_bias, g,
     order by the kernel's second launch."""
     global bwd_launches
     bsz, L, ED, N = _check_inputs(x, delta, A, B, C, D, z, delta_bias,
-                                  _k4_smem)
+                                  states=2, tiles=6)
     _check("g", g, (bsz, L, ED), x.device)
     if x.numel() == 0:
         raise ValueError("selective_scan_bwd_cuda: empty input")
