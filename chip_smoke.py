@@ -622,7 +622,8 @@ def check_k4(gen) -> dict:
             f"(CUDA graph of 50), through the wrapper {call:.4f} ms, bound "
             f"{bnd:.5f} ms, serial floor {floor:.5f} ms")
     log(f"K4 at ({TRAIN_BATCH},{L},{ED},N={N}): v1 {K4_V1_CALL_MS} ms per "
-        f"call through the wrapper (PERF.md); plain {plain:.4f} ms; {SCAN_CALLS} calls per Stage-2 step")
+        f"call through the wrapper (PERF.md); plain {plain:.4f} ms; "
+        f"{SCAN_CALLS} calls per Stage-2 step")
     dev1, call1, _ = times[TRAIN_BATCH]
     return dict(name="K4 selective-scan backward", route="cuda",
                 source="gfe_mamba_torch/csrc/selective_scan_bwd.cu",

@@ -268,8 +268,8 @@ def selective_scan_bwd_cuda(x, delta, A, B, C, D, z, delta_bias, g,
 
     x, delta, z, g, B, C, D and delta_bias may be f32 or bf16, with any
     strides.  dx, ddelta and dz come back in x's, delta's and z's dtype;
-    dA, dB, dC, dD and ddelta_bias in f32, summed over blocks and batch in a fixed
-    order by the kernel's second launch."""
+    dA, dB, dC, dD and ddelta_bias in f32, summed over blocks and batch
+    in a fixed order by the kernel's second launch."""
     global bwd_launches
     bsz, L, ED, N = _check_inputs(x, delta, A, B, C, D, z, delta_bias,
                                   states=2, tiles=6)

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 import time
@@ -32,11 +33,13 @@ IMG = (160, 160, 96)
 BATCH = 4
 REQUESTS = 2
 CATEGORIES = dict(categories=(6,) * 8, num_continuous=40)
-# how the profiler names the kernels of gfe_mamba_torch/csrc
-PORT_KERNELS = tuple(f"void (anonymous namespace)::{name}" for name in (
-    "conv_mma_kernel", "conv_fma_kernel", "dw_mma_kernel", "dw_fma_kernel",
-    "scan_kernel", "scan_bwd_kernel", "finish_kernel", "stats_kernel",
-    "apply_kernel"))
+# the kernels of gfe_mamba_torch/csrc, as the profiler names them
+# ("void (anonymous namespace)::scan_kernel<16>(...)"; a kernel that is
+# not a template has no "void")
+PORT_KERNELS = re.compile(
+    r"^(void )?\(anonymous namespace\)::"
+    r"(conv_mma|conv_fma|dw_mma|dw_fma|scan|scan_bwd|finish|stats|apply)"
+    r"_kernel[<(]")
 
 
 def _work(path: str, gen: torch.Generator):
@@ -130,7 +133,7 @@ def main() -> int:
         print(f"{ms:10.3f} {ms / busy_ms:6.3f} {calls:5d}  {key[:110]}")
     print("the port's own kernels (csrc/*.cu):")
     for ms, calls, key in rows:
-        if key.startswith(PORT_KERNELS):
+        if PORT_KERNELS.match(key):
             print(f"{ms:10.4f} {ms / busy_ms:6.3f} {calls:5d}  {key[:110]}")
     if args.trace:
         prof.export_chrome_trace(args.trace)
