@@ -85,13 +85,11 @@ __device__ __forceinline__ float sigmoid(float v) {
 // ds = d_t, zs = z (if zs), gs = g (if gs), sg = sigmoid(delta + bias)
 // under softplus and 1 without (if sg); Bs, Cs (L, N) of batch row b; Dv
 // (CH).  Channels past ED stage zeros, so their states and gradients stay
-// 0.  Each round a thread issues the global loads of STAGE_TILES tile
-// elements and STAGE_BC elements of B and C before it stores any of them
-// (a store to shared memory may alias a generic pointer, so the compiler
-// would otherwise wait for each load in turn); at the Stage-2 and serving
-// shapes one round covers the block.  Ends with a barrier.
-constexpr int STAGE_TILES = 4;
-constexpr int STAGE_BC = 16;
+// 0.  A thread issues the global loads of STAGE_BATCH elements before it
+// stores any of them: a store to shared memory may alias a generic
+// pointer, so the compiler would otherwise wait for each load in turn.
+// Ends with a barrier.
+constexpr int STAGE_BATCH = 8;
 
 template <int N>
 __device__ __forceinline__ void stage(const ScanArgs& a, int b, int e0,
@@ -99,15 +97,11 @@ __device__ __forceinline__ void stage(const ScanArgs& a, int b, int e0,
                                       float* gs, float* sg, float* Bs,
                                       float* Cs, float* Dv) {
   const int L = a.L, step = blockDim.x;
-  for (int r = 0; r * STAGE_TILES * step < L * SCAN_CH ||
-                  r * STAGE_BC * step < L * N;
-       ++r) {
-    const int i0 = r * STAGE_TILES * step + threadIdx.x;
-    const int j0 = r * STAGE_BC * step + threadIdx.x;
-    float vx[STAGE_TILES], vd[STAGE_TILES], vz[STAGE_TILES],
-        vg[STAGE_TILES], vb[STAGE_BC], vc[STAGE_BC];
+  for (int i0 = threadIdx.x; i0 < L * SCAN_CH; i0 += STAGE_BATCH * step) {
+    float vx[STAGE_BATCH], vd[STAGE_BATCH], vz[STAGE_BATCH],
+        vg[STAGE_BATCH];
 #pragma unroll
-    for (int k = 0; k < STAGE_TILES; ++k) {
+    for (int k = 0; k < STAGE_BATCH; ++k) {
       const int i = i0 + k * step, t = i / SCAN_CH, e = e0 + i % SCAN_CH;
       const bool valid = i < L * SCAN_CH && e < a.ED;
       vx[k] = valid ? ld(a.x, b, t, e) : 0.f;
@@ -118,29 +112,30 @@ __device__ __forceinline__ void stage(const ScanArgs& a, int b, int e0,
       vg[k] = valid && gs ? ld(a.g, b, t, e) : 0.f;
     }
 #pragma unroll
-    for (int k = 0; k < STAGE_BC; ++k) {
-      const int j = min(j0 + k * step, L * N - 1);
-      vb[k] = ld(a.B, b, j / N, j % N);
-      vc[k] = ld(a.C, b, j / N, j % N);
-    }
-#pragma unroll
-    for (int k = 0; k < STAGE_TILES; ++k) {
+    for (int k = 0; k < STAGE_BATCH; ++k) {
       const int i = i0 + k * step;
-      if (i < L * SCAN_CH) {
-        xs[i] = vx[k];
-        ds[i] = a.softplus ? softplus(vd[k]) : vd[k];
-        if (zs) zs[i] = vz[k];
-        if (gs) gs[i] = vg[k];
-        if (sg) sg[i] = a.softplus ? sigmoid(vd[k]) : 1.f;
-      }
+      if (i >= L * SCAN_CH) break;
+      xs[i] = vx[k];
+      ds[i] = a.softplus ? softplus(vd[k]) : vd[k];
+      if (zs) zs[i] = vz[k];
+      if (gs) gs[i] = vg[k];
+      if (sg) sg[i] = a.softplus ? sigmoid(vd[k]) : 1.f;
+    }
+  }
+  for (int i0 = threadIdx.x; i0 < L * N; i0 += STAGE_BATCH * step) {
+    float vb[STAGE_BATCH], vc[STAGE_BATCH];
+#pragma unroll
+    for (int k = 0; k < STAGE_BATCH; ++k) {
+      const int i = min(i0 + k * step, L * N - 1);
+      vb[k] = ld(a.B, b, i / N, i % N);
+      vc[k] = ld(a.C, b, i / N, i % N);
     }
 #pragma unroll
-    for (int k = 0; k < STAGE_BC; ++k) {
-      const int j = j0 + k * step;
-      if (j < L * N) {
-        Bs[j] = vb[k];
-        Cs[j] = vc[k];
-      }
+    for (int k = 0; k < STAGE_BATCH; ++k) {
+      const int i = i0 + k * step;
+      if (i >= L * N) break;
+      Bs[i] = vb[k];
+      Cs[i] = vc[k];
     }
   }
   if (threadIdx.x < SCAN_CH)
@@ -150,37 +145,29 @@ __device__ __forceinline__ void stage(const ScanArgs& a, int b, int e0,
 }
 
 // The forward walk of thread (c, n): h_t = exp(d_t a) h_{t-1} + d_t x_t
-// B_t[n] into hs[t * P + tid], t = 0 .. L-1.  The exps carry nothing, so
-// a loop of their own computes them first (they pipeline), into hs and,
-// if ea, into ea[t * P + tid] too; the walk then reads exp(d_t a) from
-// hs[t], overwrites it with h_t, and carries only the FMA, each group of
-// SCAN_UNROLL steps loading its inputs before its chain of FMAs.
+// B_t[n] into hs[t * P + tid], t = 0 .. L-1.  Only the FMA carries from
+// one step to the next: each group of SCAN_UNROLL steps loads its inputs
+// and computes its exps before its chain of FMAs.
 template <int N>
 __device__ __forceinline__ void forward_walk(int L, float a, const float* xs,
                                              const float* ds,
-                                             const float* Bs, float* hs,
-                                             float* ea) {
+                                             const float* Bs, float* hs) {
   constexpr int P = (N + 1) * SCAN_CH;
   const int tid = threadIdx.x, c = tid % SCAN_CH, n = tid / SCAN_CH;
-#pragma unroll 4
-  for (int t = 0; t < L; ++t) {
-    const float e = expf(ds[t * SCAN_CH + c] * a);
-    hs[t * P + tid] = e;
-    if (ea) ea[t * P + tid] = e;
-  }
   float h = 0.f;
   for (int t0 = 0; t0 < L; t0 += SCAN_UNROLL) {
-    float et[SCAN_UNROLL], u[SCAN_UNROLL];
+    float ea[SCAN_UNROLL], u[SCAN_UNROLL];
 #pragma unroll
     for (int k = 0; k < SCAN_UNROLL; ++k) {
       const int t = min(t0 + k, L - 1);
-      et[k] = hs[t * P + tid];
-      u[k] = ds[t * SCAN_CH + c] * xs[t * SCAN_CH + c] * Bs[t * N + n];
+      const float d = ds[t * SCAN_CH + c];
+      ea[k] = expf(d * a);
+      u[k] = d * xs[t * SCAN_CH + c] * Bs[t * N + n];
     }
 #pragma unroll
     for (int k = 0; k < SCAN_UNROLL; ++k) {
       if (t0 + k < L) {
-        h = fmaf(et[k], h, u[k]);
+        h = fmaf(ea[k], h, u[k]);
         hs[(t0 + k) * P + tid] = h;
       }
     }

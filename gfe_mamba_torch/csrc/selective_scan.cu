@@ -21,10 +21,9 @@
 // states per block, 1024 blocks at batch 4 and 256 at batch 1):
 // - the block stages x, delta, z for its channels and the whole sequence,
 //   B and C, with d = softplus(delta + bias) computed while staging;
-// - the walk holds one state per thread and carries only its FMA: the
-//   exps are computed in a loop of their own before it, and each group of
-//   steps loads its inputs first; it stores h_t for every t in shared
-//   memory (L (N+1) 4 floats);
+// - the walk holds one state per thread and carries only its FMA: each
+//   group of steps loads its inputs and computes its exps first; it
+//   stores h_t for every t in shared memory (L (N+1) 4 floats);
 // - y_t = C_t . h_t + D x_t and the gate then run in parallel over (t, c),
 //   reading the stored states, and store y.
 // bf16 or f32 operands (per operand), with any strides; y is written in
@@ -59,7 +58,7 @@ scan_kernel(const __grid_constant__ ScanArgs a) {
   stage<N>(a, b, e0, xs, dts, gate ? zs : nullptr, nullptr, nullptr, Bs,
            Cs, Dv);
 
-  forward_walk<N>(L, an, xs, dts, Bs, hs, nullptr);
+  forward_walk<N>(L, an, xs, dts, Bs, hs);
   __syncthreads();
 
   for (int i = threadIdx.x; i < L * CH; i += blockDim.x) {

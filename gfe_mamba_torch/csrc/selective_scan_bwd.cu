@@ -35,9 +35,6 @@
 //   computed while staging;
 // - pass 1 keeps h_t for every t in shared memory (L (N+1) 4 floats per
 //   buffer, 14.4 KB at the Stage-2 shape); no global scratch;
-// - exp(d_t A) is computed once, before the walks, in a loop with no
-//   carried value, into both state buffers; each walk reads it from its
-//   own buffer and overwrites it in place;
 // - what needs no carried state runs between the walks, in parallel over
 //   (t, c) or (t, n): s_t, ds and dz after pass 1; dh . B_t, the dd sum,
 //   dx and dd after pass 2, from dh_t which pass 2 stores per step;
@@ -67,7 +64,7 @@ scan_bwd_kernel(const __grid_constant__ ScanArgs a) {
   extern __shared__ __align__(16) float sm[];
   const int L = a.L;
   float* hs = sm;            // h_t, then w_t at slot t - 1
-  float* dhs = hs + L * P;   // exp(d_t A), then dh_t
+  float* dhs = hs + L * P;   // dh_t
   float* Bs = dhs + L * P;
   float* Cs = Bs + L * N;
   float* xs = Cs + L * N;
@@ -85,7 +82,7 @@ scan_bwd_kernel(const __grid_constant__ ScanArgs a) {
   const float an = valid ? a.A[(size_t)e * N + n] : 0.f;
   stage<N>(a, b, e0, xs, dts, gate ? zs : nullptr, gs, sg, Bs, Cs, Dv);
 
-  forward_walk<N>(L, an, xs, dts, Bs, hs, dhs);  // dhs: exp(d_t A)
+  forward_walk<N>(L, an, xs, dts, Bs, hs);
   __syncthreads();
 
   // s_t, ds and dz, over (t, c)
@@ -119,8 +116,7 @@ scan_bwd_kernel(const __grid_constant__ ScanArgs a) {
   }
   __syncthreads();
 
-  // pass 2: only dh carries (an FMA and a multiply per step); it reads
-  // exp(d_t A) from dh_t's slot, where the forward walk left it
+  // pass 2: only dh carries (an FMA and a multiply per step)
   float dh = 0.f, da = 0.f;
   for (int t0 = L - 1; t0 >= 0; t0 -= SCAN_UNROLL) {
     float cds[SCAN_UNROLL], hp[SCAN_UNROLL], ea[SCAN_UNROLL],
@@ -129,7 +125,7 @@ scan_bwd_kernel(const __grid_constant__ ScanArgs a) {
     for (int k = 0; k < SCAN_UNROLL; ++k) {
       const int t = max(t0 - k, 0);
       dv[k] = dts[t * CH + c];
-      ea[k] = dhs[t * P + tid];
+      ea[k] = expf(dv[k] * an);
       cds[k] = Cs[t * N + n] * gs[t * CH + c];
       hp[k] = t > 0 ? hs[(t - 1) * P + tid] : 0.f;
     }
