@@ -11,13 +11,15 @@ Phases, in order; any failure exits non-zero and prints no result:
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it and ragged ones (K1: X and Y not
    multiples of its brick, Z = 24, C != F; K2: batch 4 and 1, ED 1000
-   and 1001, every flag on and off, f32 and bf16 operands, the bf16 y
-   within one bf16 ulp of the plain f32 result rounded); each timed
-   beside its bound (the least time the H100 could take: bytes over 3.35
-   TB/s or operations over the peak rate of their type) and, for K1, the
-   cuDNN convolution; K2 by its device time alone (a CUDA graph of 50
-   calls) and through its wrapper, at batch 4 and 1, beside the serial
-   floor of its walk;
+   and 1001, every flag on and off in f32, and a canonical Mamba layer's
+   bf16 operands as its forward hands them over (channel-major x, z, B
+   and C views), y within one bf16 ulp of the plain f32 result rounded);
+   each timed beside its bound (the least time the H100 could take: bytes
+   over 3.35 TB/s or operations over the peak rate of their type) and,
+   for K1, the cuDNN convolution; K2 by its device time alone (a CUDA
+   graph of 50 calls) and through its wrapper, at batch 4 and 1, on the
+   layer's bf16 operands and (logged) on contiguous f32 ones, beside the
+   serial floor of its walk (logged);
 4. pipeline parity: the full channel widths at a reduced volume in f32,
    the CPU (plain versions) against the card (kernels), same weights;
 5. the main path: ``build_gfe_mamba`` at the canonical (160,160,96) bf16
@@ -25,8 +27,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    K1 10 times and K2 6 times;
 6. the training kernels against their plain versions: K4 (scan
    backward) at (1|4, 53, 1024|1000|1001, 16) with every flag on and
-   off, in f32 and with bf16 operands (dx, ddelta, dz within one bf16
-   ulp), a second call bitwise equal, timed like K2 at batch 1 and 4; K3
+   off in f32, and on a canonical Mamba layer's bf16 operands (dx,
+   ddelta, dz within one bf16 ulp), a second call on those bitwise equal,
+   timed like K2 at batch 1 and 4; K3
    (conv weight gradient) at the three generator levels (batch 1) and two
    ragged shapes (one with C != F) in f32 and bf16 with and without the
    GN affine (bf16 on the tensor-core variant, f32 on the CUDA-core one,
@@ -71,9 +74,10 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``bound_ms`` and ``library_ms`` are per forward of the main path (its 10
 conv calls at batch 4), its ``dz`` entry per Stage-1 step; K2's per
 forward (its 6 scan calls at batch 4) and K4's per Stage-2 step (6 calls
-at batch 1), ``ms`` being their device time alone and ``call_ms`` their
-time through the wrapper, with ``serial_floor_ms`` and the other batch's
-per-call times beside them; K3's per
+at batch 1), on a Mamba layer's bf16 operands as the main path gives
+them, ``ms`` being their device time alone and ``call_ms`` their time
+through the wrapper, with the other batch's per-call times beside them
+and ``bound_ms`` from the bf16 bytes; K3's per
 Stage-1 step (10 calls); K5a's and K5b's per pass over the three widths
 (one call each).  ``launches`` counts each kernel over the run of the
 path it serves: K1 and K2 the 3 requests of phase 5, K4 the 3 steps of
@@ -114,14 +118,8 @@ SCAN_CALLS = 6
 TRAIN_BATCH = 1
 GRAD_NAMES = ("dx", "ddelta", "dA", "dB", "dC", "dD", "dz", "dbias")
 # dependent latency of one f32 FMA or multiply on Hopper, in cycles (the
-# serial floor of a scan's walk)
+# serial floor of a scan's walk, logged beside its times)
 FMA_LATENCY_CYCLES = 4
-# v1's per-call times through the wrapper (one thread per (batch,
-# channel); H100 80GB HBM3 at 700 W, PERF.md section 6), logged for
-# comparison and kept out of the kernels line: K2 at (4,53,1024,16), K4 at
-# (1,53,1024,16)
-K2_V1_CALL_MS = 0.042
-K4_V1_CALL_MS = 0.167
 # K3's design in csrc/conv3d_dw.cu, and v1's times (one tap per block,
 # f32 FMAs on the CUDA cores; per call by channel width and per Stage-1
 # step, H100 80GB HBM3 at 700 W, from PERF.md section 6), logged for
@@ -211,19 +209,6 @@ def serial_floor_ms(dependent_ops: int) -> float:
     FMAs or multiplies, FMA_LATENCY_CYCLES each, at the card's highest SM
     clock.  Not a roofline."""
     return dependent_ops * FMA_LATENCY_CYCLES / max_sm_clock_hz() * 1e3
-
-
-def bf16_ulps(got, want) -> float:
-    """max |got - bf16(want)| in bf16 ulps of bf16(want), ``want`` being
-    the plain f32 result.  An element below 2^-8 of max |want| takes the
-    ulp of that floor: there the f32 sums' rounding (~1e-7 of their terms)
-    is what differs, not the kernel's one rounding."""
-    want = want.detach().float().to(got.device)
-    ref = want.to(torch.bfloat16).float()
-    floor = max(want.abs().max().item() * 2.0 ** -8, 1e-30)
-    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=floor)))
-                     - 7)
-    return ((got.float() - ref).abs() / ulp).max().item()
 
 
 def rel_err(got, want, floor: float = 1.0) -> tuple[float, float]:
@@ -356,25 +341,49 @@ def scan_inputs(gen, bsz, L, ED, N):
             r(ED, scale=0.1)]
 
 
-def scan_bound_ms(bsz, L, ED, N) -> tuple[float, str]:
-    # bytes: x, delta, z in and y out (L*ED each), A, B, C, D, bias
-    nbytes = 4 * (4 * bsz * L * ED + ED * N + 2 * bsz * L * N + 2 * ED)
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def mamba_operands(bsz, seed):
+    """The scan's operands as a canonical Mamba layer (d_model = the
+    classifier's dim, ED 1024, N 16) hands them over in bf16 on the card
+    (``MambaBlock.scan_operands``): x channel-major from the depthwise
+    conv, z a ``chunk`` view, B and C ``split`` views, D and delta_bias
+    bf16, A f32."""
+    from gfe_mamba_torch.testing import mamba_scan_operands
+
+    _, L, ED, N = SCAN_SHAPE
+    args = mamba_scan_operands(bsz, L, CANONICAL["dim"], torch.bfloat16,
+                               "cuda", d_state=N, seed=seed)
+    assert args[0].shape == (bsz, L, ED) and args[2].shape == (ED, N)
+    return args
+
+
+def scan_bound_ms(args, y) -> tuple[float, str]:
+    """K2's bound on these operands: every input read once and y written
+    once, in their own dtypes; ~6N + 10 f32 operations per (b, t, e)."""
+    bsz, L, ED = args[0].shape
+    N = args[2].shape[1]
     ops = bsz * L * ED * (6 * N + 10)
-    t_ops, t_bytes = ops / PEAK_F32, nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = ops / PEAK_F32, nbytes(*args, y) / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
 def check_k2(gen) -> dict:
-    """K2 against its plain version (gate/bias/softplus on and off; batch
-    1 and 4; ragged ED) in f32 and with bf16 operands, then its device
-    time alone (a CUDA graph) and through the wrapper at batch 4 (the
-    main path's shape) and 1 (the Stage-2 step's), beside its bound and
-    serial floor."""
+    """K2 against its plain version in f32 (gate/bias/softplus on and off;
+    batch 4 and 1; ragged ED) and on a canonical Mamba layer's bf16
+    operands (views, channel-major x) at batch 4 and 1; then its device
+    time alone (a CUDA graph) and through the wrapper, beside its bound
+    and the serial floor of its walk: on the bf16 views for the kernels
+    line (batch 4, the main path's, and 1, the Stage-2 step's), and on
+    contiguous f32 operands for the log."""
     from gfe_mamba_torch.ops.cuda import selective_scan as k2
+    from gfe_mamba_torch.testing import bf16_ulps
 
     bsz, L, ED, N = SCAN_SHAPE
-    worst = 0.0
     for b, ed in ((bsz, ED), (TRAIN_BATCH, ED), (bsz, 1000),
                   (TRAIN_BATCH, 1001)):
         x, d, A, B, C, D, z, bias = scan_inputs(gen, b, L, ed, N)
@@ -396,55 +405,61 @@ def check_k2(gen) -> dict:
             if not rel <= 1e-5:
                 raise AssertionError(f"K2 disagrees with its plain version: "
                                      f"rel {rel} > 1e-5")
-            if (b, ed) == (bsz, ED) and gate and with_bias and softplus:
-                worst = err
+    views, worst = {}, {}
     for b in (bsz, TRAIN_BATCH):
-        # bf16 operands as on the bf16 path (A, D, bias stay f32): y in
-        # bf16 against the plain f32 result rounded once
-        x, d, A, B, C, D, z, bias = [
-            t if i in (2, 5, 7) else t.bfloat16()
-            for i, t in enumerate(scan_inputs(gen, b, L, ED, N))]
-        got = k2.selective_scan_cuda(x, d, A, B, C, D, z, bias, True)
-        want = k2.selective_scan_plain(
-            *[t.float() for t in (x, d, A, B, C, D, z, bias)], True)
+        # y in bf16 against the plain f32 result on the same operands,
+        # rounded once
+        views[b] = args = mamba_operands(b, seed=b)
+        got = k2.selective_scan_cuda(*args, delta_softplus=True)
+        want = k2.selective_scan_plain(*[t.float() for t in args],
+                                       delta_softplus=True)
         torch.cuda.synchronize()
         ulps = bf16_ulps(got, want)
-        log(f"K2 check ({b},{L},{ED},N={N}) bf16 operands: y {ulps:.3f} "
-            f"bf16 ulp of the plain f32 result rounded (tol 1 ulp)")
+        worst[b] = (rel_err(got, want)[0], ulps)
+        log(f"K2 check ({b},{L},{ED},N={N}) bf16 Mamba-layer operands "
+            f"(channel-major x, z/B/C views): y {ulps:.3f} bf16 ulp of the "
+            f"plain f32 result rounded (tol 1 ulp), max_abs_err "
+            f"{worst[b][0]:.3e}")
         if not (ulps <= 1.0 and got.dtype == torch.bfloat16):
             raise AssertionError("K2 with bf16 operands disagrees with its "
                                  "plain version")
+    floor = serial_floor_ms(L)
     times = {}
     for b in (bsz, TRAIN_BATCH):
-        x, d, A, B, C, D, z, bias = scan_inputs(gen, b, L, ED, N)
-        args = (x, d, A, B, C, D, z, bias, True)
-        times[b] = (graph_ms(lambda: k2.selective_scan_cuda(*args)),
-                    time_ms(lambda: k2.selective_scan_cuda(*args), reps=50),
-                    scan_bound_ms(b, L, ED, N)[0])
-        if b == bsz:
-            plain = time_ms(lambda: k2.selective_scan_plain(*args))
-    bound, bound_by = scan_bound_ms(bsz, L, ED, N)
-    floor = serial_floor_ms(L)
-    for b, (dev, call, bnd) in times.items():
-        log(f"K2 time ({b},{L},{ED},N={N}): device {dev:.4f} ms per call "
-            f"(CUDA graph of 50), through the wrapper {call:.4f} ms, bound "
-            f"{bnd:.5f} ms, serial floor {floor:.5f} ms")
-    log(f"K2 at ({bsz},{L},{ED},N={N}): v1 {K2_V1_CALL_MS} ms per call "
-        f"through the wrapper (PERF.md); plain {plain:.4f} ms; "
-        f"{SCAN_CALLS} calls per forward")
-    dev4, call4, _ = times[bsz]
+        for kind, args in (("bf16 views", views[b]),
+                           ("f32", scan_inputs(gen, b, L, ED, N))):
+            y = k2.selective_scan_cuda(*args, delta_softplus=True)
+            dev = graph_ms(lambda: k2.selective_scan_cuda(
+                *args, delta_softplus=True))
+            call = time_ms(lambda: k2.selective_scan_cuda(
+                *args, delta_softplus=True), reps=50)
+            bound = scan_bound_ms(args, y)[0]
+            log(f"K2 time ({b},{L},{ED},N={N}) {kind}: device {dev:.4f} ms "
+                f"per call (CUDA graph of 50), through the wrapper "
+                f"{call:.4f} ms, bound {bound:.5f} ms, serial floor "
+                f"{floor:.5f} ms")
+            times[b, kind] = dev, call
+    args = views[bsz]
+    plain = time_ms(lambda: k2.selective_scan_plain(
+        *[t.float() for t in args], delta_softplus=True))
+    bound, bound_by = scan_bound_ms(
+        args, k2.selective_scan_cuda(*args, delta_softplus=True))
+    log(f"K2 at ({bsz},{L},{ED},N={N}) bf16 views: plain {plain:.4f} ms "
+        f"per call (f32 casts and the loop); {SCAN_CALLS} calls per forward")
+    dev4, call4 = times[bsz, "bf16 views"]
+    dev1, call1 = times[TRAIN_BATCH, "bf16 views"]
     return dict(name="K2 selective-scan forward", route="cuda",
                 source="gfe_mamba_torch/csrc/selective_scan.cu",
                 replaces="gfe_mamba_tpu/ops/pallas/selective_scan.py:42",
-                max_abs_err=worst, ms=SCAN_CALLS * dev4,
-                call_ms=SCAN_CALLS * call4,
+                max_abs_err=worst[bsz][0], bf16_ulps=worst[bsz][1],
+                ms=SCAN_CALLS * dev4, call_ms=SCAN_CALLS * call4,
                 plain_ms=SCAN_CALLS * plain, bound_ms=SCAN_CALLS * bound,
-                bound_by=bound_by, serial_floor_ms=SCAN_CALLS * floor,
-                batch1_device_ms_per_call=times[TRAIN_BATCH][0],
-                batch1_call_ms_per_call=times[TRAIN_BATCH][1],
-                library_ms=None,
-                per="forward: 6 calls of (4,53,1024,N=16), f32; ms is device "
-                    "time (CUDA graph), call_ms through the wrapper")
+                bound_by=bound_by, batch1_device_ms_per_call=dev1,
+                batch1_call_ms_per_call=call1, library_ms=None,
+                per="forward: 6 calls of (4,53,1024,N=16) on a Mamba "
+                    "layer's bf16 operands (channel-major x, z/B/C views); "
+                    "ms is device time (CUDA graph), call_ms through the "
+                    "wrapper")
 
 
 def check_pipeline_parity():
@@ -525,27 +540,32 @@ def serve_canonical(card: str) -> tuple[int, int]:
     return k1.launches, k2.launches
 
 
-def scan_bwd_bound_ms(bsz, L, ED, N) -> tuple[float, str]:
-    # bytes: x, delta, z, g in and dx, ddelta, dz out (L*ED each), A and
-    # dA, B, C, dB, dC, D, bias, dD, dbias; operations: ~20 per state
-    # element and step over both passes plus ~30 per step
-    nbytes = 4 * (7 * bsz * L * ED + 2 * ED * N + 4 * bsz * L * N + 4 * ED)
+def scan_bwd_bound_ms(args, g, grads) -> tuple[float, str]:
+    """K4's bound on these operands: every input (and g) read once and
+    every gradient written once, in their own dtypes; ~20 operations per
+    state element and step over both passes plus ~30 per step."""
+    bsz, L, ED = args[0].shape
+    N = args[2].shape[1]
     ops = bsz * L * ED * (20 * N + 30)
-    t_ops, t_bytes = ops / PEAK_F32, nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_F32
+    t_bytes = nbytes(*args, g, *grads) / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
 def check_k4(gen) -> dict:
-    """K4 against its plain version (every gradient; gate/bias/softplus on
-    and off; batch 1 and 4; ragged ED), in f32 and with bf16 operands; a
-    second call bitwise equal to the first; then its device time alone
-    (a CUDA graph) and through the wrapper at batch 1 (the Stage-2 shape)
-    and 4, beside its bound and serial floor."""
+    """K4 against its plain version in f32 (every gradient; gate/bias/
+    softplus on and off; batch 1 and 4; ragged ED) and on a canonical
+    Mamba layer's bf16 operands (views, channel-major x) at batch 1 and 4;
+    a second call on those bitwise equal to the first; then its device
+    time alone (a CUDA graph) and through the wrapper, beside its bound
+    and the serial floor of its walks: on the bf16 views for the kernels
+    line (batch 1, the Stage-2 step's, and 4), and on contiguous f32
+    operands for the log."""
     from gfe_mamba_torch.ops.cuda import selective_scan as ks
+    from gfe_mamba_torch.testing import bf16_ulps
 
     _, L, ED, N = SCAN_SHAPE
-    worst = 0.0
     for bsz, ed in ((TRAIN_BATCH, ED), (BATCH, ED), (TRAIN_BATCH, 1000),
                     (BATCH, 1001)):
         x, d, A, B, C, D, z, bias = scan_inputs(gen, bsz, L, ed, N)
@@ -570,73 +590,79 @@ def check_k4(gen) -> dict:
             if not rel <= 1e-4:
                 raise AssertionError(f"K4 disagrees with its plain version: "
                                      f"{errs}")
-            if (bsz, ed) == (TRAIN_BATCH, ED) and gate and with_bias:
-                worst = err
+    views, worst = {}, {}
     for bsz in (TRAIN_BATCH, BATCH):
-        # bf16 operands as on the bf16 path (A, D, bias stay f32): dx,
-        # ddelta, dz in bf16 against the plain f32 result rounded once;
-        # dA, dB, dC, dD, dbias in f32 at 1e-4
-        f32 = scan_inputs(gen, bsz, L, ED, N)
-        g = torch.randn(bsz, L, ED, generator=gen, device="cuda")
-        x, d, A, B, C, D, z, bias = [
-            t if i in (2, 5, 7) else t.bfloat16() for i, t in enumerate(f32)]
-        got = ks.selective_scan_bwd_cuda(x, d, A, B, C, D, z, bias,
-                                         g.bfloat16(), True)
-        want = ks.selective_scan_bwd_plain(
-            *[t.float() for t in (x, d, A, B, C, D, z, bias)],
-            g.bfloat16().float(), True)
+        # dx, ddelta, dz in bf16 against the plain f32 result on the same
+        # operands, rounded once; dA, dB, dC, dD, dbias in f32 at 1e-4
+        args = mamba_operands(bsz, seed=10 + bsz)
+        g = torch.randn(bsz, L, ED, generator=gen,
+                        device="cuda").bfloat16()
+        views[bsz] = args, g
+        got = ks.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
+        want = ks.selective_scan_bwd_plain(*[t.float() for t in args],
+                                           g.float(), delta_softplus=True)
         torch.cuda.synchronize()
         ulps = max(bf16_ulps(got[i], want[i]) for i in (0, 1, 6))
         rel = max(rel_err(got[i], want[i])[1] for i in (2, 3, 4, 5, 7))
-        log(f"K4 check ({bsz},{L},{ED},N={N}) bf16 operands: dx, ddelta, dz "
-            f"{ulps:.3f} bf16 ulp of the plain f32 result rounded (tol 1 "
-            f"ulp); dA, dB, dC, dD, dbias rel={rel:.3e} (tol 1e-4)")
+        worst[bsz] = (max(rel_err(a, b)[0] for a, b in zip(got, want)),
+                      ulps)
+        log(f"K4 check ({bsz},{L},{ED},N={N}) bf16 Mamba-layer operands "
+            f"(channel-major x, z/B/C views): dx, ddelta, dz {ulps:.3f} "
+            f"bf16 ulp of the plain f32 result rounded (tol 1 ulp); dA, dB, "
+            f"dC, dD, dbias rel={rel:.3e} (tol 1e-4); max_abs_err "
+            f"{worst[bsz][0]:.3e}")
         if not (ulps <= 1.0 and rel <= 1e-4
                 and all(got[i].dtype == torch.bfloat16 for i in (0, 1, 6))):
             raise AssertionError("K4 with bf16 operands disagrees with its "
                                  "plain version")
-    x, d, A, B, C, D, z, bias = scan_inputs(gen, TRAIN_BATCH, L, ED, N)
-    g = torch.randn(TRAIN_BATCH, L, ED, generator=gen, device="cuda")
-    args = (x, d, A, B, C, D, z, bias, g, True)
-    first = ks.selective_scan_bwd_cuda(*args)
-    second = ks.selective_scan_bwd_cuda(*args)
+    args, g = views[TRAIN_BATCH]
+    first = ks.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
+    second = ks.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(first, second)):
         raise AssertionError("K4: two calls on the same inputs differ")
-    log("K4 determinism: a second call is bitwise equal to the first")
+    log("K4 determinism: a second call on the bf16 views is bitwise equal "
+        "to the first")
+    floor = serial_floor_ms(3 * L)
     times = {}
     for bsz in (TRAIN_BATCH, BATCH):
-        x, d, A, B, C, D, z, bias = scan_inputs(gen, bsz, L, ED, N)
-        g = torch.randn(bsz, L, ED, generator=gen, device="cuda")
-        args = (x, d, A, B, C, D, z, bias, g, True)
-        times[bsz] = (graph_ms(lambda: ks.selective_scan_bwd_cuda(*args)),
-                      time_ms(lambda: ks.selective_scan_bwd_cuda(*args),
-                              reps=50),
-                      scan_bwd_bound_ms(bsz, L, ED, N)[0])
-        if bsz == TRAIN_BATCH:
-            plain = time_ms(lambda: ks.selective_scan_bwd_plain(*args))
-    bound, bound_by = scan_bwd_bound_ms(TRAIN_BATCH, L, ED, N)
-    floor = serial_floor_ms(3 * L)
-    for bsz, (dev, call, bnd) in times.items():
-        log(f"K4 time ({bsz},{L},{ED},N={N}): device {dev:.4f} ms per call "
-            f"(CUDA graph of 50), through the wrapper {call:.4f} ms, bound "
-            f"{bnd:.5f} ms, serial floor {floor:.5f} ms")
-    log(f"K4 at ({TRAIN_BATCH},{L},{ED},N={N}): v1 {K4_V1_CALL_MS} ms per "
-        f"call through the wrapper (PERF.md); plain {plain:.4f} ms; "
-        f"{SCAN_CALLS} calls per Stage-2 step")
-    dev1, call1, _ = times[TRAIN_BATCH]
+        f32 = (scan_inputs(gen, bsz, L, ED, N),
+               torch.randn(bsz, L, ED, generator=gen, device="cuda"))
+        for kind, (args, g) in (("bf16 views", views[bsz]), ("f32", f32)):
+            grads = ks.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
+            dev = graph_ms(lambda: ks.selective_scan_bwd_cuda(
+                *args, g, delta_softplus=True))
+            call = time_ms(lambda: ks.selective_scan_bwd_cuda(
+                *args, g, delta_softplus=True), reps=50)
+            bound = scan_bwd_bound_ms(args, g, grads)[0]
+            log(f"K4 time ({bsz},{L},{ED},N={N}) {kind}: device {dev:.4f} "
+                f"ms per call (CUDA graph of 50), through the wrapper "
+                f"{call:.4f} ms, bound {bound:.5f} ms, serial floor "
+                f"{floor:.5f} ms")
+            times[bsz, kind] = dev, call
+    args, g = views[TRAIN_BATCH]
+    plain = time_ms(lambda: ks.selective_scan_bwd_plain(
+        *[t.float() for t in args], g.float(), delta_softplus=True))
+    bound, bound_by = scan_bwd_bound_ms(
+        args, g, ks.selective_scan_bwd_cuda(*args, g, delta_softplus=True))
+    log(f"K4 at ({TRAIN_BATCH},{L},{ED},N={N}) bf16 views: plain "
+        f"{plain:.4f} ms per call (f32 casts and the loops); {SCAN_CALLS} "
+        f"calls per Stage-2 step")
+    dev1, call1 = times[TRAIN_BATCH, "bf16 views"]
+    dev4, call4 = times[BATCH, "bf16 views"]
     return dict(name="K4 selective-scan backward", route="cuda",
                 source="gfe_mamba_torch/csrc/selective_scan_bwd.cu",
                 replaces="gfe_mamba_tpu/ops/pallas/selective_scan.py:126",
-                max_abs_err=worst, ms=SCAN_CALLS * dev1,
-                call_ms=SCAN_CALLS * call1,
+                max_abs_err=worst[TRAIN_BATCH][0],
+                bf16_ulps=worst[TRAIN_BATCH][1],
+                ms=SCAN_CALLS * dev1, call_ms=SCAN_CALLS * call1,
                 plain_ms=SCAN_CALLS * plain, bound_ms=SCAN_CALLS * bound,
-                bound_by=bound_by, serial_floor_ms=SCAN_CALLS * floor,
-                batch4_device_ms_per_call=times[BATCH][0],
-                batch4_call_ms_per_call=times[BATCH][1],
-                library_ms=None,
-                per="Stage-2 step: 6 calls of (1,53,1024,N=16), f32; ms is "
-                    "device time (CUDA graph), call_ms through the wrapper")
+                bound_by=bound_by, batch4_device_ms_per_call=dev4,
+                batch4_call_ms_per_call=call4, library_ms=None,
+                per="Stage-2 step: 6 calls of (1,53,1024,N=16) on a Mamba "
+                    "layer's bf16 operands (channel-major x, z/B/C views); "
+                    "ms is device time (CUDA graph), call_ms through the "
+                    "wrapper")
 
 
 def cudnn_conv_grad(x, w, g, which):

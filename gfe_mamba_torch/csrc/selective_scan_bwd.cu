@@ -251,8 +251,8 @@ int launch(const ScanArgs& a, cudaStream_t stream) {
 // x, delta, z, g (batch, L, ED); B, C (batch, L, N); D, bias (ED,): each
 // f32 or bf16, with any strides.  y (dx), ddelta, dz: outputs shaped like
 // x.  A (ED, N) f32 contiguous.  part: scratch of
-// batch * nblk * 2 * L * N + batch * ED * N + batch * 2 * ED floats with
-// nblk = ceil(ED / 4); grads: 2 * batch * L * N + ED * N + 2 * ED floats.
+// gfe_selective_scan_bwd_scratch(batch, L, ED, N) floats; grads: dB, dC,
+// dA, dD, dbias back to back, 2 * batch * L * N + ED * N + 2 * ED floats.
 // z/dz and bias may be null.  N is one of 4, 8, 16, 32.  Returns a
 // cudaError_t code (0 on success).
 extern "C" int gfe_selective_scan_bwd(const ScanArgs* args, void* stream) {
@@ -264,4 +264,12 @@ extern "C" int gfe_selective_scan_bwd(const ScanArgs* args, void* stream) {
     case 32: return launch<32>(*args, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Floats of the scratch `part`: per-block dB/dC partials, then
+// per-(batch, channel) dA, then dD and dbias.
+extern "C" long long gfe_selective_scan_bwd_scratch(int batch, int L, int ED,
+                                                    int N) {
+  const long long nblk = (ED + SCAN_CH - 1) / SCAN_CH;
+  return (long long)batch * (nblk * 2 * L * N + (long long)ED * N + 2 * ED);
 }

@@ -98,7 +98,12 @@ class MambaBlock(nn.Module):
         self.A_log.copy_(torch.log(a).repeat(cfg.d_inner, 1))
         self.D.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def scan_operands(self, x: torch.Tensor) -> list:
+        """The scan's operands ``[x, delta, A, B, C, D, z, delta_bias]``
+        for the layer input ``x`` (B, L, d_model), as the forward hands
+        them over: x channel-major from the depthwise conv, z a ``chunk``
+        view of in_proj's output, B and C ``split`` views of x_proj's, A
+        in f32, the rest in the layer's dtype."""
         cfg = self.config
         L = x.shape[1]
         x, z = self.in_proj(x).chunk(2, dim=-1)
@@ -108,8 +113,10 @@ class MambaBlock(nn.Module):
         delta, B, C = torch.split(
             self.x_proj(x), [cfg.dt_rank_, cfg.d_state, cfg.d_state], dim=-1)
         delta = F.linear(delta, self.dt_proj.weight)
-        y = selective_scan(x, delta, A, B, C, self.D, z=z,
-                           delta_bias=self.dt_proj.bias, delta_softplus=True)
+        return [x, delta, A, B, C, self.D, z, self.dt_proj.bias]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = selective_scan(*self.scan_operands(x), delta_softplus=True)
         return self.out_proj(y)
 
 

@@ -31,10 +31,6 @@ launches = 0
 bwd_launches = 0
 
 _STATE_SIZES = (4, 8, 16, 32)
-# channels per block of both kernels (SCAN_CH in csrc/scan.cuh); a block
-# has BLOCK_CHANNELS * N threads, one per (channel, state)
-BLOCK_CHANNELS = 4
-_MAX_SMEM = 227 * 1024
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -162,14 +158,6 @@ def _args(operands, A, part, grads, bsz, L, ED, N, softplus) -> bytes:
         A.data_ptr(), part, grads, bsz, L, ED, N, int(bool(softplus)), 0)])
 
 
-def smem_bytes(L: int, N: int, states: int, tiles: int) -> int:
-    """A block's shared memory (``scan_smem_floats`` in ``csrc/scan.cuh``):
-    ``states`` buffers of L (N + 1) BLOCK_CHANNELS floats, ``tiles`` of
-    L BLOCK_CHANNELS, B and C, and D."""
-    ch = BLOCK_CHANNELS
-    return 4 * (L * (states * (N + 1) * ch + 2 * N + tiles * ch) + ch)
-
-
 def _check(name, t, shape, device, dtypes=KERNEL_DTYPES):
     if t is None:
         return
@@ -181,9 +169,9 @@ def _check(name, t, shape, device, dtypes=KERNEL_DTYPES):
         raise ValueError(f"{name}: on {t.device}, x is on {device}")
 
 
-def _check_inputs(x, delta, A, B, C, D, z, delta_bias, states, tiles):
-    """Validate the scan's inputs for a kernel whose blocks hold
-    ``states`` state buffers and ``tiles`` tiles; returns (B, L, ED, N).
+def _check_inputs(x, delta, A, B, C, D, z, delta_bias):
+    """Validate the scan's inputs; returns (B, L, ED, N).  A sequence too
+    long for a block's shared memory is refused by the launch.
 
     x, delta, z, B, C, D and delta_bias may each be f32 or bf16, with any
     strides; A is f32 and contiguous."""
@@ -195,9 +183,6 @@ def _check_inputs(x, delta, A, B, C, D, z, delta_bias, states, tiles):
     N = A.shape[1]
     if N not in _STATE_SIZES:
         raise ValueError(f"state size N={N} not in {_STATE_SIZES}")
-    if smem_bytes(L, N, states, tiles) > _MAX_SMEM:
-        raise ValueError(f"L={L} too long: a block's tiles do not fit "
-                         f"shared memory")
     _check("x", x, (bsz, L, ED), x.device)
     _check("delta", delta, (bsz, L, ED), x.device)
     _check("A", A, (ED, N), x.device, (torch.float32,))
@@ -214,17 +199,24 @@ def _check_inputs(x, delta, A, B, C, D, z, delta_bias, states, tiles):
 _entry: dict[str, object] = {}
 
 
-def _launch(name, args: bytes, device) -> int:
-    """Call ``gfe_<name>`` of ``csrc/<name>.cu`` on ``device``'s current
-    stream with the packed ``ScanArgs``; returns its CUDA error code."""
+def _function(source, name, restype, argtypes):
+    """``name`` of ``csrc/<source>.cu``'s library, typed, looked up once."""
     fn = _entry.get(name)
     if fn is None:
         from gfe_mamba_torch.ops.cuda.build import library
 
-        fn = getattr(library(name), f"gfe_{name}")
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+        fn = getattr(library(source), name)
+        fn.restype = restype
+        fn.argtypes = argtypes
         _entry[name] = fn
+    return fn
+
+
+def _launch(name, args: bytes, device) -> int:
+    """Call ``gfe_<name>`` of ``csrc/<name>.cu`` on ``device``'s current
+    stream with the packed ``ScanArgs``; returns its CUDA error code."""
+    fn = _function(name, f"gfe_{name}", ctypes.c_int,
+                   [ctypes.c_char_p, ctypes.c_void_p])
     if device.index == torch.cuda.current_device():
         return fn(args, torch.cuda.current_stream().cuda_stream)
     with torch.cuda.device(device):
@@ -238,8 +230,7 @@ def selective_scan_cuda(x, delta, A, B, C, D, z=None, delta_bias=None,
     x, delta, z, B, C, D and delta_bias may be f32 or bf16, with any
     strides; y comes back contiguous in x's dtype."""
     global launches
-    bsz, L, ED, N = _check_inputs(x, delta, A, B, C, D, z, delta_bias,
-                                  states=1, tiles=3)
+    bsz, L, ED, N = _check_inputs(x, delta, A, B, C, D, z, delta_bias)
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
@@ -252,16 +243,6 @@ def selective_scan_cuda(x, delta, A, B, C, D, z=None, delta_bias=None,
     return out
 
 
-def bwd_buffers(bsz: int, L: int, ED: int, N: int) -> tuple[int, int]:
-    """Floats of K4's scratch (per-block dB/dC partials, per-(batch,
-    channel) dA, dD and dbias) and of its f32 gradient buffer (dB, dC, dA,
-    dD, dbias back to back), as ``csrc/selective_scan_bwd.cu`` lays them
-    out."""
-    nblk = -(-ED // BLOCK_CHANNELS)
-    return (bsz * nblk * 2 * L * N + bsz * ED * N + bsz * 2 * ED,
-            2 * bsz * L * N + ED * N + 2 * ED)
-
-
 def selective_scan_bwd_cuda(x, delta, A, B, C, D, z, delta_bias, g,
                             delta_softplus=False):
     """Launch K4 on CUDA tensors; raises on anything it cannot take.
@@ -271,8 +252,7 @@ def selective_scan_bwd_cuda(x, delta, A, B, C, D, z, delta_bias, g,
     dA, dB, dC, dD and ddelta_bias in f32, summed over blocks and batch
     in a fixed order by the kernel's second launch."""
     global bwd_launches
-    bsz, L, ED, N = _check_inputs(x, delta, A, B, C, D, z, delta_bias,
-                                  states=2, tiles=6)
+    bsz, L, ED, N = _check_inputs(x, delta, A, B, C, D, z, delta_bias)
     _check("g", g, (bsz, L, ED), x.device)
     if x.numel() == 0:
         raise ValueError("selective_scan_bwd_cuda: empty input")
@@ -280,8 +260,11 @@ def selective_scan_bwd_cuda(x, delta, A, B, C, D, z, delta_bias, g,
     ddelta = torch.empty(x.shape, dtype=delta.dtype, device=x.device)
     dz = None if z is None else torch.empty(x.shape, dtype=z.dtype,
                                             device=x.device)
-    n_part, n_grads = bwd_buffers(bsz, L, ED, N)
-    # one f32 allocation: the gradients first, the scratch after them
+    # the kernel's scratch (its size from the library) and the f32
+    # gradients dB, dC, dA, dD, dbias: one allocation, gradients first
+    n_part = _function("selective_scan_bwd", "gfe_selective_scan_bwd_scratch",
+                       ctypes.c_longlong, [ctypes.c_int] * 4)(bsz, L, ED, N)
+    n_grads = 2 * bsz * L * N + ED * N + 2 * ED
     buf = torch.empty(n_grads + n_part, dtype=torch.float32,
                       device=x.device)
     args = _args((x, delta, z, B, C, D, delta_bias, g, dx, ddelta, dz), A,

@@ -23,6 +23,7 @@ import torch
 from gfe_mamba_torch.ops.cuda import conv3d as k1
 from gfe_mamba_torch.ops.cuda import group_norm as k5
 from gfe_mamba_torch.ops.cuda import selective_scan as k2
+from gfe_mamba_torch.testing import bf16_ulps, mamba_scan_operands
 
 pytestmark = pytest.mark.cuda
 
@@ -114,28 +115,10 @@ def test_scan_kernel_takes_bf16_views(cuda, bsz):
     comes back in bf16 within one bf16 ulp of the plain f32 result rounded
     once (an element below 2^-8 of max |y| takes the ulp of that floor);
     the same call in f32 agrees to 1e-5."""
-    import torch.nn.functional as F
-
-    from gfe_mamba_torch.models.mamba import MambaBlock, MambaConfig
-
     for dtype in (torch.bfloat16, torch.float32):
-        torch.manual_seed(0)
-        cfg = MambaConfig(d_model=128, n_layers=1)
-        block = MambaBlock(cfg)
-        block.reset_ssm_parameters(torch.Generator().manual_seed(0))
-        block = block.to(cuda, dtype)
-        h = _randn(np.random.RandomState(bsz), bsz, 53, 128).to(cuda, dtype)
-        with torch.no_grad():
-            x, z = block.in_proj(h).chunk(2, dim=-1)
-            x = F.silu(block.conv1d(x.transpose(1, 2))[..., :53]
-                       .transpose(1, 2))
-            delta, B, C = torch.split(block.x_proj(x),
-                                      [cfg.dt_rank_, 16, 16], dim=-1)
-            delta = F.linear(delta, block.dt_proj.weight)
-        args = [x, delta, -torch.exp(block.A_log.detach().float()), B, C,
-                block.D.detach(), z, block.dt_proj.bias.detach()]
-        assert not (x.is_contiguous() or z.is_contiguous()
-                    or B.is_contiguous())
+        args = mamba_scan_operands(bsz, 53, 128, dtype, cuda, seed=bsz)
+        assert not (args[0].is_contiguous() or args[6].is_contiguous()
+                    or args[3].is_contiguous())
         got = k2.selective_scan_cuda(*args, delta_softplus=True)
         want = k2.selective_scan_plain(*[t.float() for t in args],
                                        delta_softplus=True)
@@ -143,12 +126,25 @@ def test_scan_kernel_takes_bf16_views(cuda, bsz):
         assert got.dtype == dtype
         if dtype == torch.float32:
             _assert_close(got, want, 1e-5)
-            continue
-        ref = want.bfloat16().float()
-        floor = want.abs().max().item() * 2.0 ** -8
-        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=floor)))
-                         - 7)
-        assert ((got.float() - ref).abs() <= ulp).all()
+        else:
+            assert bf16_ulps(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+def test_scan_kernels_refuse_a_sequence_beyond_shared_memory(cuda, bwd):
+    """L = 2000 needs ~0.9 MB of shared memory per block (227 KB at most):
+    the launch's error comes back as an exception."""
+    args = [torch.zeros(1, 2000, 8, device=cuda),
+            torch.zeros(1, 2000, 8, device=cuda),
+            -torch.ones(8, 16, device=cuda),
+            torch.zeros(1, 2000, 16, device=cuda),
+            torch.zeros(1, 2000, 16, device=cuda),
+            torch.zeros(8, device=cuda), None, None]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        if bwd:
+            k2.selective_scan_bwd_cuda(*args, torch.zeros_like(args[0]))
+        else:
+            k2.selective_scan_cuda(*args)
 
 
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-6),

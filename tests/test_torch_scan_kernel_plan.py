@@ -4,7 +4,8 @@
   strided, bf16) and which the caller casts first, and the dtype and
   stride arguments the kernels get;
 - a plain emulation of K4's decomposition (``csrc/selective_scan_bwd.cu``):
-  blocks of ``BLOCK_CHANNELS`` channels, states kept per step, the
+  blocks of ``SCAN_CH`` channels (read from ``csrc/scan.cuh``), states
+  kept per step, the
   reductions over N and over the block's channels taken after the walks,
   per-block dB/dC partials summed over blocks in a fixed order, held
   against ``jax.vjp`` of the JAX scan;
@@ -18,6 +19,9 @@ the ulp of that floor (both round once from f32 sums taken in different
 orders).
 """
 
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,10 +31,16 @@ import torch
 from gfe_mamba_tpu.ops.scan import selective_scan as jax_selective_scan
 from gfe_mamba_torch.ops.cuda import selective_scan as k2
 from gfe_mamba_torch.ops.scan import selective_scan
+from gfe_mamba_torch.testing import bf16_ulps, mamba_scan_operands
 
 torch.set_num_threads(2)
 
 NAMES = ("dx", "ddelta", "dA", "dB", "dC", "dD", "dz", "dbias")
+# channels per block of both kernels, as the kernels' source defines it
+SCAN_CH = int(re.search(
+    r"constexpr int SCAN_CH = (\d+);",
+    (pathlib.Path(k2.__file__).parents[2] / "csrc" / "scan.cuh").read_text()
+).group(1))
 
 
 def _inputs(seed, bsz=2, L=7, ED=6, N=4, gate=True, bias=True,
@@ -79,34 +89,30 @@ def _assert_close(got, want, name, rel=1e-4):
 
 
 def _assert_bf16_ulp(got, want, name):
-    got = np.asarray(torch.as_tensor(got).float())
-    ref = np.asarray(torch.as_tensor(want).float())
-    floor = max(np.abs(ref).max() * 2.0 ** -8, 1e-30)
-    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), floor))) - 7)
-    assert (np.abs(got - ref) <= ulp).all(), \
-        (name, (np.abs(got - ref) / ulp).max())
+    ulps = bf16_ulps(got, torch.as_tensor(np.asarray(want, np.float32)))
+    assert ulps <= 1.0, (name, ulps)
+
+
+@pytest.mark.parametrize("want,got,ulps", [
+    # 1.0's bf16 ulp is 2^-7; one ulp above rounds to itself
+    ([1.0, -3.0], [1.0 + 2.0 ** -7, -3.0], 1.0),
+    # 2^-13 lies below 2^-8 of the max (4.0): it takes the ulp of that
+    # floor, 2^-6 -> 2^-13, not its own 2^-20, so a 2^-14 miss is half one
+    ([4.0, 2.0 ** -13], [4.0, 1.5 * 2.0 ** -13], 0.5)])
+def test_bf16_ulps(want, got, ulps):
+    got = torch.tensor(got).bfloat16()
+    assert bf16_ulps(got, torch.tensor(want)) == ulps
 
 
 # ---- the operand plan ----------------------------------------------------
 
 
 def _mamba_operands(dtype, bsz=2, L=5):
-    """The scan's operands as ``MambaBlock.forward`` makes them: x from the
-    depthwise conv (channel-major), z a ``chunk`` view of in_proj's
-    output, B and C ``split`` views of x_proj's."""
-    from gfe_mamba_torch.models.mamba import MambaBlock, MambaConfig
-
-    torch.manual_seed(0)
-    cfg = MambaConfig(d_model=8, n_layers=1, d_state=4)
-    block = MambaBlock(cfg).to(dtype)
-    with torch.no_grad():
-        x, z = block.in_proj(torch.randn(bsz, L, 8).to(dtype)).chunk(2, -1)
-        x = torch.nn.functional.silu(
-            block.conv1d(x.transpose(1, 2))[..., :L].transpose(1, 2))
-        delta, B, C = torch.split(block.x_proj(x),
-                                  [cfg.dt_rank_, 4, 4], dim=-1)
-        delta = torch.nn.functional.linear(delta, block.dt_proj.weight)
-    return cfg, x, delta, z, B, C
+    """A small ``MambaBlock``'s scan operands (d_model 8, ED 16, dt_rank
+    1, N 4): x, delta, z, B, C."""
+    x, delta, _, B, C, _, z, _ = mamba_scan_operands(bsz, L, 8, dtype, "cpu",
+                                                     d_state=4)
+    return x, delta, z, B, C
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -114,8 +120,8 @@ def test_mamba_operands_pass_as_they_are(dtype):
     """No operand of a Mamba layer is copied: x channel-major (last
     stride L), z, B, C views with their row strides, delta contiguous;
     the kernels get each one's strides and dtype."""
-    cfg, x, delta, z, B, C = _mamba_operands(dtype)
-    ED, R, bf16 = cfg.d_inner, cfg.dt_rank_, int(dtype == torch.bfloat16)
+    x, delta, z, B, C = _mamba_operands(dtype)
+    ED, R, bf16 = 16, 1, int(dtype == torch.bfloat16)
     for t in (x, delta, z, B, C):
         assert k2.kernel_operand(t) is t
     assert k2.operand_meta(x) == (bf16, 5 * ED, 1, 5)
@@ -160,23 +166,11 @@ def test_what_the_caller_casts():
     assert k2.operand_meta(None) == (0, 0, 0, 0)
 
 
-def test_shared_memory_of_a_block():
-    """``scan_smem_floats`` of csrc/scan.cuh at the Stage-2 shape: K4's
-    block (2 state buffers, 6 tiles) and K2's (1, 3) stay under the 48 KB
-    a block gets without opting in."""
-    assert k2.smem_bytes(53, 16, states=2, tiles=6) == 4 * (
-        53 * (2 * 17 * 4 + 2 * 16 + 6 * 4) + 4) == 40720
-    assert k2.smem_bytes(53, 16, states=1, tiles=3) == 23760
-
-
-def test_bwd_buffers_match_the_kernel_layout():
-    n_part, n_grads = k2.bwd_buffers(1, 53, 1024, 16)
-    nblk = 1024 // k2.BLOCK_CHANNELS
-    assert nblk >= 132          # one block at least per SM of an H100
-    assert n_part == nblk * 2 * 53 * 16 + 1024 * 16 + 2 * 1024
-    assert n_grads == 2 * 53 * 16 + 1024 * 16 + 2 * 1024
-    assert k2.bwd_buffers(4, 53, 1001, 16)[0] == \
-        4 * 251 * 2 * 53 * 16 + 4 * 1001 * 16 + 4 * 2 * 1001
+def test_a_batch_row_fills_the_card():
+    """At the Stage-2 shape (batch 1, ED 1024) the kernels' grid of
+    ceil(ED / SCAN_CH) blocks has one block at least per SM of an H100
+    (132)."""
+    assert -(-1024 // SCAN_CH) >= 132
 
 
 # ---- K4's decomposition, emulated ----------------------------------------
@@ -187,12 +181,12 @@ def _softplus(v):
 
 
 def _k4_emulation(x, delta, A, B, C, D, z, bias, g, softplus):
-    """K4's phases over blocks of BLOCK_CHANNELS channels (padded with
+    """K4's phases over blocks of SCAN_CH channels (padded with
     zeros past ED), vectorised over (batch, block); dB/dC come out per
     block and are summed over blocks in order, dA/dD/dbias summed over
     batch in order, as the kernel's second launch does."""
     bsz, L, ED = x.shape
-    N, CH = A.shape[1], k2.BLOCK_CHANNELS
+    N, CH = A.shape[1], SCAN_CH
     nblk = -(-ED // CH)
     pad = nblk * CH - ED
 

@@ -24,6 +24,7 @@ from gfe_mamba_torch.ops import conv3d as ops_conv
 from gfe_mamba_torch.ops.cuda import conv3d as k1
 from gfe_mamba_torch.ops.cuda import selective_scan as k2
 from gfe_mamba_torch.ops.scan import selective_scan
+from gfe_mamba_torch.testing import bf16_ulps, mamba_scan_operands
 
 pytestmark = pytest.mark.cuda
 
@@ -80,50 +81,14 @@ def test_scan_bwd_kernel_matches_plain(cuda, gate, bias, softplus, ED, N,
             _assert_close(a, b, 1e-4, name)
 
 
-def _mamba_scan_operands(cuda, dtype, bsz):
-    """The scan's operands as a real ``MambaBlock`` forward makes them on
-    the card: x channel-major from the depthwise conv, z a ``chunk`` view,
-    B and C ``split`` views; A f32, D and delta_bias in ``dtype``."""
-    import torch.nn.functional as F
-
-    from gfe_mamba_torch.models.mamba import MambaBlock, MambaConfig
-
-    torch.manual_seed(0)
-    cfg = MambaConfig(d_model=128, n_layers=1)
-    block = MambaBlock(cfg)
-    block.reset_ssm_parameters(torch.Generator().manual_seed(0))
-    block = block.to(cuda, dtype)
-    L = 53
-    h = _randn(np.random.RandomState(bsz), bsz, L, 128).to(cuda, dtype)
-    with torch.no_grad():
-        x, z = block.in_proj(h).chunk(2, dim=-1)
-        x = F.silu(block.conv1d(x.transpose(1, 2))[..., :L].transpose(1, 2))
-        delta, B, C = torch.split(block.x_proj(x), [cfg.dt_rank_, 16, 16],
-                                  dim=-1)
-        delta = F.linear(delta, block.dt_proj.weight)
-    A = -torch.exp(block.A_log.detach().float())
-    return [x, delta, A, B, C, block.D.detach(), z,
-            block.dt_proj.bias.detach()]
-
-
-def _bf16_ulps(got, want):
-    """max |got - bf16(want)| in bf16 ulps of bf16(want); an element below
-    2^-8 of max |want| takes the ulp of that floor (there the f32 sums'
-    rounding differs, not the kernel's one rounding)."""
-    want = want.float()
-    ref = want.bfloat16().float()
-    floor = max(want.abs().max().item() * 2.0 ** -8, 1e-30)
-    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=floor))) - 7)
-    return ((got.float() - ref).abs() / ulp).max().item()
-
-
 @pytest.mark.parametrize("bsz", [1, 4])
 def test_scan_bwd_kernel_takes_bf16_views_and_is_deterministic(cuda, bsz):
     """A Mamba layer's own bf16 operands (views, channel-major x) go in as
     they are: dx, ddelta, dz come back in bf16 within one bf16 ulp of the
     plain f32 result rounded once, the f32 gradients within 1e-4; a second
     call is bitwise equal to the first."""
-    args = _mamba_scan_operands(cuda, torch.bfloat16, bsz)
+    args = mamba_scan_operands(bsz, 53, 128, torch.bfloat16, cuda,
+                               seed=bsz)
     assert not args[0].is_contiguous() and not args[6].is_contiguous()
     g = _randn(np.random.RandomState(9), bsz, 53, 256).to(cuda,
                                                            torch.bfloat16)
@@ -137,7 +102,7 @@ def test_scan_bwd_kernel_takes_bf16_views_and_is_deterministic(cuda, bsz):
         assert torch.equal(got[i], again[i]), name
         if name in ("dx", "ddelta", "dz"):
             assert got[i].dtype == torch.bfloat16, name
-            assert _bf16_ulps(got[i], want[i]) <= 1.0, name
+            assert bf16_ulps(got[i], want[i]) <= 1.0, name
         else:
             assert got[i].dtype == torch.float32, name
             _assert_close(got[i], want[i], 1e-4, name)
@@ -161,7 +126,8 @@ def test_scan_fn_takes_bf16_views_without_casts_or_copies(cuda):
             return func(*args, **kwargs)
 
     leaves = [t.detach().requires_grad_()
-              for t in _mamba_scan_operands(cuda, torch.bfloat16, 1)]
+              for t in mamba_scan_operands(1, 53, 128, torch.bfloat16, cuda,
+                                           seed=1)]
     g = _randn(np.random.RandomState(5), 1, 53, 256).to(cuda,
                                                          torch.bfloat16)
     k2.launches = k2.bwd_launches = 0
