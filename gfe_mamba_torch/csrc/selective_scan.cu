@@ -84,7 +84,10 @@ int launch(const ScanArgs& a, cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(
         scan_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, or the next launch would return it
+      return (int)err;
+    }
   }
   const int nblk = (a.ED + SCAN_CH - 1) / SCAN_CH;
   scan_kernel<N><<<dim3(nblk, a.batch), SCAN_CH * N, smem, stream>>>(a);

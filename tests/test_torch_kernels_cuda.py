@@ -133,18 +133,24 @@ def test_scan_kernel_takes_bf16_views(cuda, bsz):
 @pytest.mark.parametrize("bwd", [False, True])
 def test_scan_kernels_refuse_a_sequence_beyond_shared_memory(cuda, bwd):
     """L = 2000 needs ~0.9 MB of shared memory per block (227 KB at most):
-    the launch's error comes back as an exception."""
-    args = [torch.zeros(1, 2000, 8, device=cuda),
-            torch.zeros(1, 2000, 8, device=cuda),
-            -torch.ones(8, 16, device=cuda),
-            torch.zeros(1, 2000, 16, device=cuda),
-            torch.zeros(1, 2000, 16, device=cuda),
-            torch.zeros(8, device=cuda), None, None]
-    with pytest.raises(RuntimeError, match="CUDA error"):
+    the launch's error comes back as an exception, and leaves nothing
+    behind for the next launch, which succeeds."""
+    def call(L):
+        args = [torch.zeros(1, L, 8, device=cuda),
+                torch.zeros(1, L, 8, device=cuda),
+                -torch.ones(8, 16, device=cuda),
+                torch.zeros(1, L, 16, device=cuda),
+                torch.zeros(1, L, 16, device=cuda),
+                torch.zeros(8, device=cuda), None, None]
         if bwd:
-            k2.selective_scan_bwd_cuda(*args, torch.zeros_like(args[0]))
-        else:
-            k2.selective_scan_cuda(*args)
+            return k2.selective_scan_bwd_cuda(*args,
+                                              torch.zeros_like(args[0]))
+        return k2.selective_scan_cuda(*args)
+
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        call(2000)
+    call(53)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-6),
