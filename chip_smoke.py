@@ -67,7 +67,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    Adam's update at count 2, as in the JAX trainer; then Stage 1, with
    ``d_fresh_recon`` off and on: a finite step, a NaN step that moves no
    parameter and no moment of G or D but advances both Adam counts, and
-   a finite step.
+   a finite step;
+12. the entry points a user runs, through their ``main``, at full width
+   over synthetic trees in a temporary directory (configs from
+   ``configs/*.yaml``, 1 epoch, bf16): ``main_gan_vit`` (batch 1, 2 steps,
+   remat, auto-resume) -> ``classify_mamba`` on its ``model.npz`` (batch
+   2, 2 steps) -> ``test_mamba`` on the saved npz; the weights each hands
+   on must be bitwise the giver's, ``test_mamba``'s printed metrics those
+   of ``ClassifyTrainer.eval_step`` over the same batches, the newest
+   auto-resume snapshot Stage 1's last state (both Adams too), and K1-K4
+   must each launch; each CLI's wall, its step times, the loader's wait
+   per batch and the codec that decoded each volume are logged.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  K1's ``ms``, ``plain_ms``,
@@ -1494,6 +1504,226 @@ def check_skipped_gan_step() -> None:
         torch.cuda.empty_cache()
 
 
+def yaml_text(cf: dict) -> str:
+    """A flat config as YAML the port's reader takes: strings quoted,
+    sequences as flow lists."""
+    def scalar(v):
+        if isinstance(v, str):
+            return "'" + v.replace("'", "''") + "'"
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if v is None:
+            return "null"
+        return repr(v)
+    return "".join(
+        f"{k}: [{', '.join(scalar(x) for x in v)}]\n"
+        if isinstance(v, (list, tuple)) else f"{k}: {scalar(v)}\n"
+        for k, v in cf.items())
+
+
+def cpu_state(module) -> dict:
+    return {k: v.detach().cpu().clone()
+            for k, v in module.state_dict().items()}
+
+
+def states_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+
+def adam_equal(a: dict, b: dict) -> bool:
+    """Two ``torch.optim.Adam`` state dicts, every tensor bitwise."""
+    sa, sb = a["state"], b["state"]
+    return sa.keys() == sb.keys() and all(
+        sa[i].keys() == sb[i].keys()
+        and all(torch.equal(torch.as_tensor(sa[i][k]).cpu(),
+                            torch.as_tensor(sb[i][k]).cpu())
+                for k in sa[i]) for i in sa)
+
+
+def drive_clis(card: str) -> None:
+    """Phase 12: the three entry points a user runs, through their
+    ``main``, on the card at full width (160x160x96, f_maps 64/128/256,
+    dim 512, depth 6, bf16) over synthetic trees written to a temporary
+    directory: 2 MRI/PET subjects; 4 train and 2 eval classify items on
+    one CSV.  Stage 1 (batch 1, 2 steps, remat as ``main_gan_vit``'s
+    default, auto-resume on, then validation and save) -> Stage 2 on its
+    ``model.npz`` (batch 2, 2 steps, validation, save) -> ``test_mamba``
+    over the saved npz.  Checks: Stage 2's generator is Stage 1's last
+    state bitwise; ``test_mamba``'s combiner and classifier are Stage
+    2's bitwise; its printed metrics are those of
+    ``ClassifyTrainer.eval_step`` over the same batches (Stage 2's last
+    validation, same weights); ``AutoResume.restore_latest`` gives Stage
+    1's last snapshot (step, epoch, both players and both Adams bitwise);
+    K1, K2, K3 and K4 each launch in the phase."""
+    import argparse
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from gfe_mamba_torch.cli import classify_mamba, main_gan_vit, test_mamba
+    from gfe_mamba_torch.config import load_config
+    from gfe_mamba_torch.data import datasets
+    from gfe_mamba_torch.data.synthetic import (make_classify_tree,
+                                                make_mri2pet_tree)
+    from gfe_mamba_torch.ops.cuda import conv3d as k1
+    from gfe_mamba_torch.ops.cuda import selective_scan as k2
+
+    with tempfile.TemporaryDirectory(prefix="gfe_cli_") as root:
+        t = time.perf_counter()
+        pairs = make_mri2pet_tree(os.path.join(root, "pairs"), 2, IMG)
+        vol_dir, csv_path = make_classify_tree(os.path.join(root, "cls"), 6,
+                                               IMG)
+        eval_dir = os.path.join(root, "cls", "eval")
+        os.makedirs(eval_dir)
+        for name in sorted(os.listdir(vol_dir))[4:]:
+            shutil.move(os.path.join(vol_dir, name), eval_dir)
+        log(f"CLI phase: synthetic trees {IMG} written in "
+            f"{time.perf_counter() - t:.1f} s")
+        run = dict(num_epochs=1, val_inter=1, save_inter=1, is_debug=False,
+                   autoresume=True, log_every=1,
+                   f_maps=list(CANONICAL["f_maps"]), mixed_precision="bf16",
+                   img_sz=list(IMG))
+        configs = {}
+        for name, source, extra in (
+                ("gan", "main_gan_vit_config.yaml", dict(
+                    train_path=pairs, eval_path=pairs, train_bc=1,
+                    eval_bc=1, project_dir=os.path.join(root, "w"))),
+                ("cls", "classify_mamba_config.yaml", dict(
+                    train_path=vol_dir, eval_path=eval_dir,
+                    table_path=csv_path, train_bc=2, eval_bc=2,
+                    dim=CANONICAL["dim"], depth=CANONICAL["depth"],
+                    project_dir=os.path.join(root, "w", "classifier"))),
+                ("test", "classify_mamba_config_test.yaml", dict(
+                    train_path=vol_dir, eval_path=eval_dir,
+                    table_path=csv_path, eval_bc=2, dim=CANONICAL["dim"],
+                    depth=CANONICAL["depth"], use_best=False,
+                    project_dir=os.path.join(root, "w", "test")))):
+            cf = dict(load_config(os.path.join(REPO, "configs", source)))
+            cf.update(run, **extra)
+            configs[name] = cf
+        paths = {}
+
+        def write(name):
+            paths[name] = os.path.join(root, f"{name}.yaml")
+            with open(paths[name], "w") as f:
+                f.write(yaml_text(configs[name]))
+            return argparse.Namespace(config_path=paths[name], device="cuda")
+
+        torch.cuda.synchronize()
+        k1.launches = k1.dw_launches = 0
+        k2.launches = k2.bwd_launches = 0
+        datasets.CODEC_RUNS.clear()
+        walls = {}
+
+        t = time.perf_counter()
+        s1 = main_gan_vit.main(write("gan"))
+        torch.cuda.synchronize()
+        walls["main_gan_vit"] = time.perf_counter() - t
+        trainer = s1["trainer"]
+        g_end = cpu_state(trainer.generator)
+        d_end = cpu_state(trainer.discriminator)
+        g_opt_end = copy.deepcopy(trainer.g_opt.state_dict())
+        d_opt_end = copy.deepcopy(trainer.d_opt.state_dict())
+        loader = s1["train_loader"]
+        stage1 = dict(step_ms=s1["step_ms"],
+                      wait_ms=loader.wait_s / max(loader.batches, 1) * 1e3,
+                      launches=(k1.launches, k1.dw_launches))
+        step, payload = s1["auto"].restore_latest(map_location="cpu")
+        gan = payload["gan"]
+        if step != len(s1["step_ms"]) or payload["epoch"] != 1 \
+                or not states_equal(gan["generator"], g_end) \
+                or not states_equal(gan["discriminator"], d_end) \
+                or not adam_equal(gan["g_opt"], g_opt_end) \
+                or not adam_equal(gan["d_opt"], d_opt_end):
+            raise AssertionError(f"AutoResume.restore_latest: step {step}, "
+                                 f"epoch {payload['epoch']}, or weights / "
+                                 f"Adam state differ from Stage 1's end")
+        # what a restarted run does with it: load, then a finite step
+        trainer.load_state_dict(gan)
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        logs = trainer.train_step(
+            *(torch.randn(1, *IMG, 1, generator=gen, device="cuda")
+              for _ in range(2)), 0.0)
+        if logs["skipped"] or not all(math.isfinite(v)
+                                      for v in logs.values()):
+            raise AssertionError(f"a step after loading the snapshot: {logs}")
+        log(f"CLI phase: AutoResume.restore_latest -> step {step}, epoch "
+            f"{payload['epoch']}, both players and both Adams bitwise "
+            f"Stage 1's last state; loaded into the trainer, it takes a "
+            f"finite step ({logs['g_loss']:.4f})")
+        del s1, trainer, payload, gan, g_opt_end, d_opt_end
+        torch.cuda.empty_cache()
+
+        runs = [r for r in os.listdir(os.path.join(root, "w"))
+                if r.startswith("exp_")]
+        npz = os.path.join(root, "w", runs[0], "model_save", "model.npz")
+        configs["cls"]["gan_ckpt"] = configs["test"]["gan_ckpt"] = npz
+        t = time.perf_counter()
+        s2 = classify_mamba.main(write("cls"))
+        torch.cuda.synchronize()
+        walls["classify_mamba"] = time.perf_counter() - t
+        model2 = s2["trainer"].model
+        if not states_equal(cpu_state(model2.generator), g_end):
+            raise AssertionError("Stage 2's generator is not Stage 1's "
+                                 "last state")
+        loader = s2["train_loader"]
+        stage2 = dict(step_ms=s2["step_ms"],
+                      wait_ms=loader.wait_s / max(loader.batches, 1) * 1e3)
+        parts = {p: cpu_state(getattr(model2, p))
+                 for p in ("combiner", "classifier")}
+        val = s2["validation"]
+        del s2, model2
+        torch.cuda.empty_cache()
+
+        configs["test"]["pth_dir"] = os.path.join(
+            root, "w", "classifier",
+            [r for r in os.listdir(os.path.join(root, "w", "classifier"))
+             if r.startswith("exp_")][0], "model_current")
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            s3 = test_mamba.main(write("test"))
+        torch.cuda.synchronize()
+        walls["test_mamba"] = time.perf_counter() - t
+        printed = out.getvalue()
+        for line in printed.strip().splitlines():
+            log(f"  test_mamba: {line}")
+        for p, state in parts.items():
+            if not states_equal(cpu_state(getattr(s3["model"], p)), state):
+                raise AssertionError(f"test_mamba's {p} is not what Stage 2 "
+                                     f"saved")
+        m = val["metrics"]
+        want = [f"Acc: {m['accuracy'] * 100: .4f}",
+                f"Recall: {m['recall']: .4f}", f"F1: {m['f1']:.4f}",
+                f"Pre: {m['precision']:.4f}", f"MCC: {m['mcc']:.4f}",
+                f"Val_loss: {val['val_loss']: .4f}"]
+        if printed.strip().splitlines() != want:
+            raise AssertionError(f"test_mamba printed {printed!r}; "
+                                 f"eval_step gives {want}")
+        log(f"CLI phase: test_mamba's metrics equal eval_step's over the "
+            f"same batches (raw: {s3['metrics']} loss {s3['val_loss']} "
+            f"against {m} loss {val['val_loss']})")
+        del s3
+        torch.cuda.empty_cache()
+
+    counts = dict(K1=k1.launches, K2=k2.launches, K3=k1.dw_launches,
+                  K4=k2.bwd_launches)
+    for name, wall in walls.items():
+        log(f"CLI phase: {name} {wall:.1f} s wall [{card}]")
+    log(f"CLI phase: Stage-1 steps {['%.1f' % v for v in stage1['step_ms']]}"
+        f" ms, loader wait {stage1['wait_ms']:.1f} ms per batch; Stage-2 "
+        f"steps {['%.1f' % v for v in stage2['step_ms']]} ms, loader wait "
+        f"{stage2['wait_ms']:.1f} ms per batch [{card}]")
+    log(f"CLI phase: volumes decoded by codec {dict(datasets.CODEC_RUNS)}; "
+        f"launches in the phase {counts} (Stage 1 alone: K1 "
+        f"{stage1['launches'][0]}, K3 {stage1['launches'][1]})")
+    missing = [name for name, n in counts.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"{missing} never launched in the CLI phase")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -1534,6 +1764,7 @@ def main() -> int:
     kernels += k5
     check_skipped_step()
     check_skipped_gan_step()
+    drive_clis(card)
     log(f"Stage-2 ms/step {stage2['step_ms']}, Stage-1 ms/step "
         f"{stage1['step_ms']} [{card}]")
     for k in kernels:

@@ -16,9 +16,8 @@ from torch import nn
 from gfe_mamba_torch import resolve_device
 from gfe_mamba_torch.models.combiners import CombineClassifierVitMid
 from gfe_mamba_torch.models.fusion import CrossMambaBoth
-from gfe_mamba_torch.models.mamba import MambaBlock, RMSNorm
 from gfe_mamba_torch.models.unet3d import ResidualMidUNet3DViT
-from gfe_mamba_torch.ops.blocks import GroupNorm
+from gfe_mamba_torch.utils.initializers import init_weights
 
 
 class GFEMamba(nn.Module):
@@ -51,30 +50,6 @@ class GFEMamba(nn.Module):
         if return_pet:
             return logits, pet
         return logits
-
-
-@torch.no_grad()
-def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Fill every parameter from ``generator``: norms 1/0; embeddings,
-    CLS, positional and numerical tables N(0, 1); other weights and biases
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) as torch's defaults draw them; then
-    the Mamba init laws for the SSM parameters."""
-    norms = (nn.LayerNorm, GroupNorm, RMSNorm)
-    for mod in model.modules():
-        for name, p in mod.named_parameters(recurse=False):
-            if isinstance(mod, norms):
-                p.fill_(1.0 if name == "weight" else 0.0)
-            elif isinstance(mod, nn.Embedding) or name in (
-                    "cls_token", "pos_embedding", "weights", "biases"):
-                p.copy_(torch.randn(p.shape, generator=generator))
-            elif name in ("weight", "bias"):
-                fan_in = mod.weight[0].numel()
-                bound = fan_in ** -0.5
-                p.copy_(torch.rand(p.shape, generator=generator)
-                        * (2 * bound) - bound)
-    for mod in model.modules():
-        if isinstance(mod, MambaBlock):
-            mod.reset_ssm_parameters(generator)
 
 
 def _materialize(module: nn.Module, seed: int, device,

@@ -5,6 +5,14 @@ input (B,160,160,96,1) -> enc1 (no pool, 64ch) -> enc2 (pool, 128ch)
 -> enc3 (pool, 256ch) = (B,40,40,24,256) -> depth-fold to (B,320,120,256)
 -> image-to-image ViT -> unfold -> two decoders (2n deconv + sum join)
 -> final 1x1x1 conv with bias, no sigmoid -> PET (B,160,160,96,1).
+
+``remat=True`` recomputes each encoder and decoder block in the backward
+pass instead of keeping its activations (``torch.utils.checkpoint``, as
+``nn.remat`` in the JAX model).  ``remat_call`` hands the recomputation
+the parameter tensors the forward saw (``functional_call`` swaps the
+trainers' compute-dtype copies in only for the forward).  The blocks it
+wraps draw no dropout; a block that holds a ``Dropout`` is refused,
+since its recomputation would draw new masks from the generator.
 """
 
 from __future__ import annotations
@@ -13,7 +21,10 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
+from gfe_mamba_torch.models.dropout import Dropout
 from gfe_mamba_torch.models.vit import ImageToImageViT
 from gfe_mamba_torch.ops.blocks import Decoder, DotConv1x1, Encoder
 
@@ -35,12 +46,32 @@ def unfold_2d_to_3d(x: torch.Tensor, fold: int, w: int) -> torch.Tensor:
     return x.reshape(b, fold * m2, h, w, c)
 
 
+def remat_call(block: nn.Module, *args: torch.Tensor) -> torch.Tensor:
+    """``block(*args)``, its activations recomputed in the backward pass
+    (see the module docstring); a plain call when no gradient is taken."""
+    if not torch.is_grad_enabled():
+        return block(*args)
+    if any(isinstance(mod, Dropout) for mod in block.modules()):
+        raise ValueError("remat_call: a block that draws dropout would "
+                         "draw new masks when it is recomputed")
+    names, tensors = zip(*block.named_parameters())
+
+    def run(n_args: int, *inputs):
+        params = dict(zip(names, inputs[n_args:]))
+        return functional_call(block, params, inputs[:n_args])
+
+    return checkpoint(run, len(args), *args, *tensors, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 class ResidualMidUNet3DViT(nn.Module):
     """Residual UNet with a depth-fold ViT bottleneck; ``forward(x,
     output_vit_mid=True)`` returns ``(mid_input, mid_output, pet)``.
 
     Unlike flax, torch sizes its layers at construction, so the volume
-    size ``img_size`` is an argument: it fixes the ViT's patch count."""
+    size ``img_size`` is an argument: it fixes the ViT's patch count.
+    ``remat`` recomputes the encoder and decoder blocks in the backward
+    pass (:func:`remat_call`)."""
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  f_maps: Sequence[int] = (64, 128, 256),
@@ -49,8 +80,9 @@ class ResidualMidUNet3DViT(nn.Module):
                  fold_factor: int = 8, vit_patch_size: int = 40,
                  vit_dim: int = 512, vit_depth: int = 4, vit_heads: int = 6,
                  vit_mlp_dim: int = 2048, vit_dropout: float = 0.1,
-                 vit_emb_dropout: float = 0.1):
+                 vit_emb_dropout: float = 0.1, remat: bool = False):
         super().__init__()
+        self.remat = remat
         if len(f_maps) < 2:
             raise ValueError("Required at least 2 levels in the U-Net")
         down = 2 ** (len(f_maps) - 1)
@@ -81,15 +113,16 @@ class ResidualMidUNet3DViT(nn.Module):
         self.final_conv = DotConv1x1(f_maps[0], out_channels)
 
     def forward(self, x: torch.Tensor, output_vit_mid: bool = False):
+        call = remat_call if self.remat else (lambda block, *a: block(*a))
         features = []
         for encoder in self.encoders:
-            x = encoder(x)
+            x = call(encoder, x)
             features.insert(0, x)
         mid_input = fold_3d_to_2d(x, self.fold_factor)
         mid_output = self.mid(mid_input)
         x = unfold_2d_to_3d(mid_output, self.fold_factor, w=x.shape[3])
         for decoder, skip in zip(self.decoders, features[1:]):
-            x = decoder(skip, x)
+            x = call(decoder, skip, x)
         x = self.final_conv(x)
         if output_vit_mid:
             return mid_input, mid_output, x

@@ -25,17 +25,24 @@ from gfe_mamba_torch.training.optim import (advance_adam_count_, all_finite,
                                             cast_for_compute,
                                             clip_by_param_norm_,
                                             compute_dtype)
+from gfe_mamba_torch.utils.initializers import check_law, init_weights
 
 
 class ClassifyTrainer:
     """Trains ``model`` (a :class:`GFEMamba`, f32 master weights) in
     place.  ``mixed_precision="bf16"`` runs the loss on a bf16 copy of
     every parameter and of the MRI; ``"none"`` runs it in f32.  Dropout
-    masks come from a generator seeded with ``seed``."""
+    masks come from a generator seeded with ``seed``.  ``init`` is the
+    init law of step 0 (``utils/initializers.py``): ``"torch"`` keeps the
+    weights ``build_gfe_mamba`` drew under that law, ``"flax"`` draws the whole
+    model again from ``seed`` under flax's, as the JAX trainer's
+    ``init_state`` does; weights loaded afterwards win."""
 
     def __init__(self, model: GFEMamba, lr: float = 1e-4,
                  grad_clip: float = 1.0, mixed_precision: str = "bf16",
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, init: str = "torch"):
+        if check_law(init) == "flax":
+            init_weights(model, torch.Generator().manual_seed(seed), "flax")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         model.generator.requires_grad_(False)

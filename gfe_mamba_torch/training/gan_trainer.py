@@ -38,22 +38,31 @@ from gfe_mamba_torch.training.optim import (advance_adam_count_, all_finite,
                                             cast_for_compute,
                                             clip_by_global_norm_,
                                             compute_dtype)
+from gfe_mamba_torch.utils.initializers import check_law, init_weights
 
 
 class GanTrainer:
     """Trains ``generator`` and ``discriminator`` (f32 master weights) in
     place against ``perceptual_loss`` (frozen).  Dropout masks come from
-    a generator seeded with ``seed``."""
+    a generator seeded with ``seed``.  ``g_init`` is the generator's init
+    law (``utils/initializers.py``): ``"torch"`` keeps the weights
+    ``build_generator`` drew under that law, ``"flax"`` draws them again from
+    ``seed`` under flax's; the discriminator keeps its own (DCGAN) law
+    under both, as in the JAX trainer."""
 
     def __init__(self, generator: nn.Module, discriminator: nn.Module,
                  perceptual_loss: nn.Module, lr_g: float = 1e-4,
                  lr_d: float = 5e-4, adv_weight: float = 0.01,
                  perceptual_weight: float = 0.001, grad_clip: float = 1.0,
                  mixed_precision: str = "bf16", accum_steps: int = 1,
-                 d_fresh_recon: bool = False, device=None, seed: int = 0):
+                 d_fresh_recon: bool = False, device=None, seed: int = 0,
+                 g_init: str = "torch"):
         self.accum = max(1, accum_steps)
         if d_fresh_recon and self.accum > 1:
             raise ValueError("d_fresh_recon requires accum_steps == 1")
+        if check_law(g_init) == "flax":
+            init_weights(generator, torch.Generator().manual_seed(seed),
+                         "flax")
         self.device = resolve_device(device)
         self.generator = generator.to(self.device)
         self.discriminator = discriminator.to(self.device)
@@ -178,6 +187,23 @@ class GanTrainer:
         self.step += 1
         logs["skipped"] = 0.0 if ok else 1.0
         return logs
+
+    def state_dict(self) -> dict:
+        """What a resumed run needs: both players' and both Adams' state
+        dicts, the dropout generator's state and the step count."""
+        return {"generator": self.generator.state_dict(),
+                "discriminator": self.discriminator.state_dict(),
+                "g_opt": self.g_opt.state_dict(),
+                "d_opt": self.d_opt.state_dict(),
+                "rng": self.rng.get_state(), "step": self.step}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.generator.load_state_dict(state["generator"])
+        self.discriminator.load_state_dict(state["discriminator"])
+        self.g_opt.load_state_dict(state["g_opt"])
+        self.d_opt.load_state_dict(state["d_opt"])
+        self.rng.set_state(state["rng"])
+        self.step = int(state["step"])
 
     @torch.no_grad()
     def generate(self, mri: torch.Tensor) -> torch.Tensor:
