@@ -77,7 +77,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    of ``ClassifyTrainer.eval_step`` over the same batches, the newest
    auto-resume snapshot Stage 1's last state (both Adams too), and K1-K4
    must each launch; each CLI's wall, its step times, the loader's wait
-   per batch and the codec that decoded each volume are logged.
+   per batch and the codec that decoded each volume are logged;
+13. the other Stage-2 mixers: (a) ``CrossJambaBoth`` and
+   ``CrossTransformerBoth`` at the canonical width (dim 512, depth 6, 8
+   heads, 16 experts top-2, L = 53) in f32, card against CPU within rel
+   1e-3, K2 11 times for Jamba's 11 Mamba layers and never for the
+   transformer; (d) the Jamba stack of (a) and a 6-layer Mamba stepped
+   token by token over the 53 tokens equal their forward within rel 1e-4
+   on the card, and ``generate(top_k=1)`` of a ``JambaLM`` of that width
+   is the greedy argmax of its forward; (b) ``build_gfe_mamba`` with
+   ``mixer="jamba"`` and ``"transformer"`` serves 3 canonical requests
+   each (bf16, batch 4): K1 10 and K2 11 / 0 launches per request; (c)
+   ``ClassifyTrainer`` over the Jamba pipeline, bf16, batch 1, dropout on,
+   1 warm-up then 3 steps: K1 10, K2 11 and K4 11 per step; (e)
+   ``classify_mamba`` with ``mixer: 'jamba'`` on phase 12's tree and
+   Stage-1 npz, ``test_mamba`` on its checkpoint (phase 12's checks), and
+   ``ft_table`` for 2 epochs on the synthetic CSV, whose lines must have
+   the JAX script's form.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  K1's ``ms``, ``plain_ms``,
@@ -92,7 +108,8 @@ Stage-1 step (10 calls); K5a's and K5b's per pass over the three widths
 (one call each).  ``launches`` counts each kernel over the run of the
 path it serves: K1 and K2 the 3 requests of phase 5, K4 the 3 steps of
 phase 8, K3 (and K1's ``dz_launches``) the 3 steps of phase 9, K5a and
-K5b the 3 calls of phase 10.
+K5b the 3 calls of phase 10; K2's ``jamba_launches`` the 3 Jamba
+requests of phase 13(b), K4's the 3 Jamba Stage-2 steps of 13(c).
 """
 
 from __future__ import annotations
@@ -104,6 +121,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -148,6 +166,11 @@ K1_VERSION = ("v6: bf16 mma.sync m16n8k16 on an 8x8x8 brick over a 2-stage "
               "GN affine applied in shared memory")
 K1_V5_REQUEST_MS = 60.6
 K1_V5_DZ_STEP_MS = 13.97
+# phase 13: CrossJambaBoth at depth 6 has 12 layers, layer 4 attention,
+# so 11 Mamba layers (K2 per forward, K4 per Stage-2 step); its parity
+# against the CPU runs on the slice tokens of volumes this size
+JAMBA_SCANS = 11
+MIXER_PARITY_IMG = (64, 64, 32)
 # group_norm_act (K5) runs at the generator's GroupNorm widths (the conv
 # levels above), 8 groups
 GN_GROUPS = 8
@@ -502,17 +525,21 @@ def check_pipeline_parity():
     torch.cuda.empty_cache()
 
 
-def serve_canonical(card: str) -> tuple[int, int]:
-    """The main path: 3 requests of batch 4 at the canonical size, bf16."""
+def serve_canonical(card: str, mixer: str = "mamba",
+                    scans: int = SCAN_CALLS) -> tuple[int, int, list]:
+    """The main path: 3 requests of batch 4 at the canonical size, bf16,
+    with the ``mixer`` head, whose forward runs K2 ``scans`` times.
+    Returns the K1 and K2 launches and each request's ms."""
     from gfe_mamba_torch.models.pipeline import build_gfe_mamba
     from gfe_mamba_torch.ops.cuda import conv3d as k1
     from gfe_mamba_torch.ops.cuda import selective_scan as k2
 
     t0 = time.perf_counter()
     model = build_gfe_mamba(img_size=IMG, device="cuda",
-                            dtype=torch.bfloat16, seed=0, **CANONICAL)
-    log(f"canonical model built in {time.perf_counter() - t0:.1f} s "
-        f"({sum(p.numel() for p in model.parameters())} parameters)")
+                            dtype=torch.bfloat16, seed=0, mixer=mixer,
+                            **CANONICAL)
+    log(f"canonical {mixer} model built in {time.perf_counter() - t0:.1f} "
+        f"s ({sum(p.numel() for p in model.parameters())} parameters)")
     gen = torch.Generator(device="cuda")
 
     def request(seed):
@@ -529,25 +556,29 @@ def serve_canonical(card: str) -> tuple[int, int]:
     torch.cuda.synchronize()
     k1.launches = 0
     k2.launches = 0
+    times = []
     for i in range(3):
         before = (k1.launches, k2.launches)
         t = time.perf_counter()
         logits, pet = request(i)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
+        times.append(dt * 1e3)
         per = (k1.launches - before[0], k2.launches - before[1])
         ok = (logits.shape == (BATCH, 1) and pet.shape == (BATCH, *IMG, 1)
               and bool(torch.isfinite(logits).all())
               and bool(torch.isfinite(pet).all()))
-        log(f"request {i}: {dt * 1e3:.1f} ms, {BATCH / dt:.2f} volumes/s "
-            f"[{card}]; K1 launches {per[0]}, K2 launches {per[1]}; "
-            f"logits {logits.float().flatten().tolist()}")
+        log(f"{mixer} request {i}: {dt * 1e3:.1f} ms, {BATCH / dt:.2f} "
+            f"volumes/s [{card}]; K1 launches {per[0]}, K2 launches "
+            f"{per[1]}; logits {logits.float().flatten().tolist()}")
         if not ok:
             raise AssertionError("canonical forward: bad or non-finite output")
-        if per != (10, 6):
-            raise AssertionError(f"expected 10 K1 and 6 K2 launches per "
-                                 f"forward, got {per}")
-    return k1.launches, k2.launches
+        if per != (10, scans):
+            raise AssertionError(f"expected 10 K1 and {scans} K2 launches "
+                                 f"per {mixer} forward, got {per}")
+    del model
+    torch.cuda.empty_cache()
+    return k1.launches, k2.launches, times
 
 
 def scan_bwd_bound_ms(args, g, grads) -> tuple[float, str]:
@@ -1046,17 +1077,21 @@ def check_training_parity():
         torch.cuda.empty_cache()
 
 
-def train_stage2_canonical(card: str) -> dict:
-    """Stage 2 at the canonical size: 3 bf16 steps of batch 1."""
+def train_stage2_canonical(card: str, mixer: str = "mamba",
+                           scans: int = SCAN_CALLS) -> dict:
+    """Stage 2 at the canonical size: 3 bf16 steps of batch 1 with the
+    ``mixer`` head (dropout on at the build's rates), whose forward and
+    backward run K2 and K4 ``scans`` times each."""
     from gfe_mamba_torch.models.pipeline import build_gfe_mamba
     from gfe_mamba_torch.ops.cuda import conv3d as k1
     from gfe_mamba_torch.ops.cuda import selective_scan as k2
     from gfe_mamba_torch.training.classify_trainer import ClassifyTrainer
 
     t0 = time.perf_counter()
-    model = build_gfe_mamba(img_size=IMG, device="cuda", seed=0, **CANONICAL)
+    model = build_gfe_mamba(img_size=IMG, device="cuda", seed=0, mixer=mixer,
+                            **CANONICAL)
     trainer = ClassifyTrainer(model, device="cuda")
-    log(f"Stage-2 trainer built in {time.perf_counter() - t0:.1f} s")
+    log(f"Stage-2 {mixer} trainer built in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda")
 
     def step(seed):
@@ -1082,14 +1117,15 @@ def train_stage2_canonical(card: str) -> dict:
         times.append(dt * 1e3)
         per = (k1.launches - before[0], k2.launches - before[1],
                k2.bwd_launches - before[2])
-        log(f"Stage-2 step {i}: {dt * 1e3:.1f} ms, {TRAIN_BATCH / dt:.2f} "
-            f"volumes/s [{card}]; K1 {per[0]}, K2 {per[1]}, K4 {per[2]} "
-            f"launches; {logs}")
+        log(f"Stage-2 {mixer} step {i}: {dt * 1e3:.1f} ms, "
+            f"{TRAIN_BATCH / dt:.2f} volumes/s [{card}]; K1 {per[0]}, K2 "
+            f"{per[1]}, K4 {per[2]} launches; {logs}")
         if not math.isfinite(logs["cla_loss"]) or logs["skipped"]:
             raise AssertionError("Stage-2 step: non-finite or skipped")
-        if per != (10, 6, 6):
-            raise AssertionError(f"expected 10 K1, 6 K2 and 6 K4 launches "
-                                 f"per Stage-2 step, got {per}")
+        if per != (10, scans, scans):
+            raise AssertionError(f"expected 10 K1, {scans} K2 and {scans} "
+                                 f"K4 launches per Stage-2 {mixer} step, "
+                                 f"got {per}")
     out = dict(k4=k2.bwd_launches, step_ms=times)
     del trainer, model
     torch.cuda.empty_cache()
@@ -1541,28 +1577,106 @@ def adam_equal(a: dict, b: dict) -> bool:
                 for k in sa[i]) for i in sa)
 
 
-def drive_clis(card: str) -> None:
-    """Phase 12: the three entry points a user runs, through their
-    ``main``, on the card at full width (160x160x96, f_maps 64/128/256,
-    dim 512, depth 6, bf16) over synthetic trees written to a temporary
-    directory: 2 MRI/PET subjects; 4 train and 2 eval classify items on
-    one CSV.  Stage 1 (batch 1, 2 steps, remat as ``main_gan_vit``'s
-    default, auto-resume on, then validation and save) -> Stage 2 on its
-    ``model.npz`` (batch 2, 2 steps, validation, save) -> ``test_mamba``
-    over the saved npz.  Checks: Stage 2's generator is Stage 1's last
-    state bitwise; ``test_mamba``'s combiner and classifier are Stage
-    2's bitwise; its printed metrics are those of
-    ``ClassifyTrainer.eval_step`` over the same batches (Stage 2's last
-    validation, same weights); ``AutoResume.restore_latest`` gives Stage
-    1's last snapshot (step, epoch, both players and both Adams bitwise);
-    K1, K2, K3 and K4 each launch in the phase."""
+def write_config(root: str, name: str, cf: dict):
+    """``cf`` as ``<root>/<name>.yaml``; the CLIs' argument namespace."""
     import argparse
+
+    path = os.path.join(root, f"{name}.yaml")
+    with open(path, "w") as f:
+        f.write(yaml_text(cf))
+    return argparse.Namespace(config_path=path, device="cuda")
+
+
+def only_run(project_dir: str) -> str:
+    """The one ``exp_*`` run directory a CLI wrote under ``project_dir``."""
+    runs = [r for r in os.listdir(project_dir) if r.startswith("exp_")]
+    if len(runs) != 1:
+        raise AssertionError(f"{project_dir}: runs {runs}, expected one")
+    return os.path.join(project_dir, runs[0])
+
+
+def stage2_then_evaluation(root: str, configs: dict, tag: str,
+                           g_end: dict, walls: dict) -> dict:
+    """``classify_mamba`` on ``configs['cls']``, then ``test_mamba`` on its
+    ``model_current`` npz with ``configs['test']``.  Checks: Stage 2's
+    generator is ``g_end`` bitwise; ``test_mamba``'s combiner and
+    classifier are Stage 2's bitwise and its printed metrics are those of
+    ``ClassifyTrainer.eval_step`` over the same batches (Stage 2's last
+    validation, same weights).  Returns Stage 2's step times, loader wait
+    and the classifier's parameter count."""
     import contextlib
     import io
-    import shutil
-    import tempfile
 
-    from gfe_mamba_torch.cli import classify_mamba, main_gan_vit, test_mamba
+    from gfe_mamba_torch.cli import classify_mamba, test_mamba
+
+    t = time.perf_counter()
+    s2 = classify_mamba.main(write_config(root, f"{tag}_cls",
+                                          configs["cls"]))
+    torch.cuda.synchronize()
+    walls["classify_mamba"] = time.perf_counter() - t
+    model2 = s2["trainer"].model
+    if not states_equal(cpu_state(model2.generator), g_end):
+        raise AssertionError(f"{tag}: Stage 2's generator is not Stage 1's "
+                             f"last state")
+    loader = s2["train_loader"]
+    stage2 = dict(step_ms=s2["step_ms"],
+                  wait_ms=loader.wait_s / max(loader.batches, 1) * 1e3,
+                  classifier_params=sum(p.numel() for p in
+                                        model2.classifier.parameters()))
+    parts = {p: cpu_state(getattr(model2, p))
+             for p in ("combiner", "classifier")}
+    val = s2["validation"]
+    del s2, model2
+    torch.cuda.empty_cache()
+
+    configs["test"]["pth_dir"] = os.path.join(
+        only_run(configs["cls"]["project_dir"]), "model_current")
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        s3 = test_mamba.main(write_config(root, f"{tag}_test",
+                                          configs["test"]))
+    torch.cuda.synchronize()
+    walls["test_mamba"] = time.perf_counter() - t
+    printed = out.getvalue()
+    for line in printed.strip().splitlines():
+        log(f"  {tag} test_mamba: {line}")
+    for p, state in parts.items():
+        if not states_equal(cpu_state(getattr(s3["model"], p)), state):
+            raise AssertionError(f"{tag}: test_mamba's {p} is not what "
+                                 f"Stage 2 saved")
+    m = val["metrics"]
+    want = [f"Acc: {m['accuracy'] * 100: .4f}",
+            f"Recall: {m['recall']: .4f}", f"F1: {m['f1']:.4f}",
+            f"Pre: {m['precision']:.4f}", f"MCC: {m['mcc']:.4f}",
+            f"Val_loss: {val['val_loss']: .4f}"]
+    if printed.strip().splitlines() != want:
+        raise AssertionError(f"{tag}: test_mamba printed {printed!r}; "
+                             f"eval_step gives {want}")
+    log(f"{tag}: test_mamba's metrics equal eval_step's over the same "
+        f"batches (raw: {s3['metrics']} loss {s3['val_loss']} against {m} "
+        f"loss {val['val_loss']})")
+    del s3
+    torch.cuda.empty_cache()
+    return stage2
+
+
+def drive_clis(card: str, root: str) -> dict:
+    """Phase 12: the three entry points a user runs, through their
+    ``main``, on the card at full width (160x160x96, f_maps 64/128/256,
+    dim 512, depth 6, bf16) over synthetic trees written to ``root``: 2
+    MRI/PET subjects; 4 train and 2 eval classify items on one CSV.
+    Stage 1 (batch 1, 2 steps, remat as ``main_gan_vit``'s default,
+    auto-resume on, then validation and save) -> Stage 2 on its
+    ``model.npz`` (batch 2, 2 steps, validation, save) -> ``test_mamba``
+    over the saved npz.  Checks: those of :func:`stage2_then_evaluation`;
+    ``AutoResume.restore_latest`` gives Stage 1's last snapshot (step,
+    epoch, both players and both Adams bitwise); K1, K2, K3 and K4 each
+    launch in the phase.  Returns what phase 13 reuses: the configs, the
+    Stage-1 npz and its generator state, the CSV."""
+    import shutil
+
+    from gfe_mamba_torch.cli import main_gan_vit
     from gfe_mamba_torch.config import load_config
     from gfe_mamba_torch.data import datasets
     from gfe_mamba_torch.data.synthetic import (make_classify_tree,
@@ -1570,143 +1684,88 @@ def drive_clis(card: str) -> None:
     from gfe_mamba_torch.ops.cuda import conv3d as k1
     from gfe_mamba_torch.ops.cuda import selective_scan as k2
 
-    with tempfile.TemporaryDirectory(prefix="gfe_cli_") as root:
-        t = time.perf_counter()
-        pairs = make_mri2pet_tree(os.path.join(root, "pairs"), 2, IMG)
-        vol_dir, csv_path = make_classify_tree(os.path.join(root, "cls"), 6,
-                                               IMG)
-        eval_dir = os.path.join(root, "cls", "eval")
-        os.makedirs(eval_dir)
-        for name in sorted(os.listdir(vol_dir))[4:]:
-            shutil.move(os.path.join(vol_dir, name), eval_dir)
-        log(f"CLI phase: synthetic trees {IMG} written in "
-            f"{time.perf_counter() - t:.1f} s")
-        run = dict(num_epochs=1, val_inter=1, save_inter=1, is_debug=False,
-                   autoresume=True, log_every=1,
-                   f_maps=list(CANONICAL["f_maps"]), mixed_precision="bf16",
-                   img_sz=list(IMG))
-        configs = {}
-        for name, source, extra in (
-                ("gan", "main_gan_vit_config.yaml", dict(
-                    train_path=pairs, eval_path=pairs, train_bc=1,
-                    eval_bc=1, project_dir=os.path.join(root, "w"))),
-                ("cls", "classify_mamba_config.yaml", dict(
-                    train_path=vol_dir, eval_path=eval_dir,
-                    table_path=csv_path, train_bc=2, eval_bc=2,
-                    dim=CANONICAL["dim"], depth=CANONICAL["depth"],
-                    project_dir=os.path.join(root, "w", "classifier"))),
-                ("test", "classify_mamba_config_test.yaml", dict(
-                    train_path=vol_dir, eval_path=eval_dir,
-                    table_path=csv_path, eval_bc=2, dim=CANONICAL["dim"],
-                    depth=CANONICAL["depth"], use_best=False,
-                    project_dir=os.path.join(root, "w", "test")))):
-            cf = dict(load_config(os.path.join(REPO, "configs", source)))
-            cf.update(run, **extra)
-            configs[name] = cf
-        paths = {}
+    t = time.perf_counter()
+    pairs = make_mri2pet_tree(os.path.join(root, "pairs"), 2, IMG)
+    vol_dir, csv_path = make_classify_tree(os.path.join(root, "cls"), 6,
+                                           IMG)
+    eval_dir = os.path.join(root, "cls", "eval")
+    os.makedirs(eval_dir)
+    for name in sorted(os.listdir(vol_dir))[4:]:
+        shutil.move(os.path.join(vol_dir, name), eval_dir)
+    log(f"CLI phase: synthetic trees {IMG} written in "
+        f"{time.perf_counter() - t:.1f} s")
+    run = dict(num_epochs=1, val_inter=1, save_inter=1, is_debug=False,
+               autoresume=True, log_every=1,
+               f_maps=list(CANONICAL["f_maps"]), mixed_precision="bf16",
+               img_sz=list(IMG))
+    configs = {}
+    for name, source, extra in (
+            ("gan", "main_gan_vit_config.yaml", dict(
+                train_path=pairs, eval_path=pairs, train_bc=1,
+                eval_bc=1, project_dir=os.path.join(root, "w"))),
+            ("cls", "classify_mamba_config.yaml", dict(
+                train_path=vol_dir, eval_path=eval_dir,
+                table_path=csv_path, train_bc=2, eval_bc=2,
+                dim=CANONICAL["dim"], depth=CANONICAL["depth"],
+                project_dir=os.path.join(root, "w", "classifier"))),
+            ("test", "classify_mamba_config_test.yaml", dict(
+                train_path=vol_dir, eval_path=eval_dir,
+                table_path=csv_path, eval_bc=2, dim=CANONICAL["dim"],
+                depth=CANONICAL["depth"], use_best=False,
+                project_dir=os.path.join(root, "w", "test")))):
+        cf = dict(load_config(os.path.join(REPO, "configs", source)))
+        cf.update(run, **extra)
+        configs[name] = cf
 
-        def write(name):
-            paths[name] = os.path.join(root, f"{name}.yaml")
-            with open(paths[name], "w") as f:
-                f.write(yaml_text(configs[name]))
-            return argparse.Namespace(config_path=paths[name], device="cuda")
+    torch.cuda.synchronize()
+    k1.launches = k1.dw_launches = 0
+    k2.launches = k2.bwd_launches = 0
+    datasets.CODEC_RUNS.clear()
+    walls = {}
 
-        torch.cuda.synchronize()
-        k1.launches = k1.dw_launches = 0
-        k2.launches = k2.bwd_launches = 0
-        datasets.CODEC_RUNS.clear()
-        walls = {}
+    t = time.perf_counter()
+    s1 = main_gan_vit.main(write_config(root, "gan", configs["gan"]))
+    torch.cuda.synchronize()
+    walls["main_gan_vit"] = time.perf_counter() - t
+    trainer = s1["trainer"]
+    g_end = cpu_state(trainer.generator)
+    d_end = cpu_state(trainer.discriminator)
+    g_opt_end = copy.deepcopy(trainer.g_opt.state_dict())
+    d_opt_end = copy.deepcopy(trainer.d_opt.state_dict())
+    loader = s1["train_loader"]
+    stage1 = dict(step_ms=s1["step_ms"],
+                  wait_ms=loader.wait_s / max(loader.batches, 1) * 1e3,
+                  launches=(k1.launches, k1.dw_launches))
+    step, payload = s1["auto"].restore_latest(map_location="cpu")
+    gan = payload["gan"]
+    if step != len(s1["step_ms"]) or payload["epoch"] != 1 \
+            or not states_equal(gan["generator"], g_end) \
+            or not states_equal(gan["discriminator"], d_end) \
+            or not adam_equal(gan["g_opt"], g_opt_end) \
+            or not adam_equal(gan["d_opt"], d_opt_end):
+        raise AssertionError(f"AutoResume.restore_latest: step {step}, "
+                             f"epoch {payload['epoch']}, or weights / "
+                             f"Adam state differ from Stage 1's end")
+    # what a restarted run does with it: load, then a finite step
+    trainer.load_state_dict(gan)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    logs = trainer.train_step(
+        *(torch.randn(1, *IMG, 1, generator=gen, device="cuda")
+          for _ in range(2)), 0.0)
+    if logs["skipped"] or not all(math.isfinite(v) for v in logs.values()):
+        raise AssertionError(f"a step after loading the snapshot: {logs}")
+    log(f"CLI phase: AutoResume.restore_latest -> step {step}, epoch "
+        f"{payload['epoch']}, both players and both Adams bitwise "
+        f"Stage 1's last state; loaded into the trainer, it takes a "
+        f"finite step ({logs['g_loss']:.4f})")
+    del s1, trainer, payload, gan, g_opt_end, d_opt_end
+    torch.cuda.empty_cache()
 
-        t = time.perf_counter()
-        s1 = main_gan_vit.main(write("gan"))
-        torch.cuda.synchronize()
-        walls["main_gan_vit"] = time.perf_counter() - t
-        trainer = s1["trainer"]
-        g_end = cpu_state(trainer.generator)
-        d_end = cpu_state(trainer.discriminator)
-        g_opt_end = copy.deepcopy(trainer.g_opt.state_dict())
-        d_opt_end = copy.deepcopy(trainer.d_opt.state_dict())
-        loader = s1["train_loader"]
-        stage1 = dict(step_ms=s1["step_ms"],
-                      wait_ms=loader.wait_s / max(loader.batches, 1) * 1e3,
-                      launches=(k1.launches, k1.dw_launches))
-        step, payload = s1["auto"].restore_latest(map_location="cpu")
-        gan = payload["gan"]
-        if step != len(s1["step_ms"]) or payload["epoch"] != 1 \
-                or not states_equal(gan["generator"], g_end) \
-                or not states_equal(gan["discriminator"], d_end) \
-                or not adam_equal(gan["g_opt"], g_opt_end) \
-                or not adam_equal(gan["d_opt"], d_opt_end):
-            raise AssertionError(f"AutoResume.restore_latest: step {step}, "
-                                 f"epoch {payload['epoch']}, or weights / "
-                                 f"Adam state differ from Stage 1's end")
-        # what a restarted run does with it: load, then a finite step
-        trainer.load_state_dict(gan)
-        gen = torch.Generator(device="cuda").manual_seed(12)
-        logs = trainer.train_step(
-            *(torch.randn(1, *IMG, 1, generator=gen, device="cuda")
-              for _ in range(2)), 0.0)
-        if logs["skipped"] or not all(math.isfinite(v)
-                                      for v in logs.values()):
-            raise AssertionError(f"a step after loading the snapshot: {logs}")
-        log(f"CLI phase: AutoResume.restore_latest -> step {step}, epoch "
-            f"{payload['epoch']}, both players and both Adams bitwise "
-            f"Stage 1's last state; loaded into the trainer, it takes a "
-            f"finite step ({logs['g_loss']:.4f})")
-        del s1, trainer, payload, gan, g_opt_end, d_opt_end
-        torch.cuda.empty_cache()
-
-        runs = [r for r in os.listdir(os.path.join(root, "w"))
-                if r.startswith("exp_")]
-        npz = os.path.join(root, "w", runs[0], "model_save", "model.npz")
-        configs["cls"]["gan_ckpt"] = configs["test"]["gan_ckpt"] = npz
-        t = time.perf_counter()
-        s2 = classify_mamba.main(write("cls"))
-        torch.cuda.synchronize()
-        walls["classify_mamba"] = time.perf_counter() - t
-        model2 = s2["trainer"].model
-        if not states_equal(cpu_state(model2.generator), g_end):
-            raise AssertionError("Stage 2's generator is not Stage 1's "
-                                 "last state")
-        loader = s2["train_loader"]
-        stage2 = dict(step_ms=s2["step_ms"],
-                      wait_ms=loader.wait_s / max(loader.batches, 1) * 1e3)
-        parts = {p: cpu_state(getattr(model2, p))
-                 for p in ("combiner", "classifier")}
-        val = s2["validation"]
-        del s2, model2
-        torch.cuda.empty_cache()
-
-        configs["test"]["pth_dir"] = os.path.join(
-            root, "w", "classifier",
-            [r for r in os.listdir(os.path.join(root, "w", "classifier"))
-             if r.startswith("exp_")][0], "model_current")
-        out = io.StringIO()
-        t = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            s3 = test_mamba.main(write("test"))
-        torch.cuda.synchronize()
-        walls["test_mamba"] = time.perf_counter() - t
-        printed = out.getvalue()
-        for line in printed.strip().splitlines():
-            log(f"  test_mamba: {line}")
-        for p, state in parts.items():
-            if not states_equal(cpu_state(getattr(s3["model"], p)), state):
-                raise AssertionError(f"test_mamba's {p} is not what Stage 2 "
-                                     f"saved")
-        m = val["metrics"]
-        want = [f"Acc: {m['accuracy'] * 100: .4f}",
-                f"Recall: {m['recall']: .4f}", f"F1: {m['f1']:.4f}",
-                f"Pre: {m['precision']:.4f}", f"MCC: {m['mcc']:.4f}",
-                f"Val_loss: {val['val_loss']: .4f}"]
-        if printed.strip().splitlines() != want:
-            raise AssertionError(f"test_mamba printed {printed!r}; "
-                                 f"eval_step gives {want}")
-        log(f"CLI phase: test_mamba's metrics equal eval_step's over the "
-            f"same batches (raw: {s3['metrics']} loss {s3['val_loss']} "
-            f"against {m} loss {val['val_loss']})")
-        del s3
-        torch.cuda.empty_cache()
+    npz = os.path.join(only_run(os.path.join(root, "w")), "model_save",
+                       "model.npz")
+    configs["cls"]["gan_ckpt"] = configs["test"]["gan_ckpt"] = npz
+    stage2 = stage2_then_evaluation(root, configs, "CLI phase", g_end,
+                                    walls)
 
     counts = dict(K1=k1.launches, K2=k2.launches, K3=k1.dw_launches,
                   K4=k2.bwd_launches)
@@ -1722,6 +1781,213 @@ def drive_clis(card: str) -> None:
     missing = [name for name, n in counts.items() if n <= 0]
     if missing:
         raise AssertionError(f"{missing} never launched in the CLI phase")
+    return dict(configs=configs, g_end=g_end, csv=csv_path)
+
+
+def materialized(make, seed: int):
+    """``make()`` built on the meta device and filled on the CPU from
+    ``seed`` under the torch law, as ``build_gfe_mamba`` fills a model."""
+    from gfe_mamba_torch.utils.initializers import init_weights
+
+    with torch.device("meta"):
+        module = make()
+    module.to_empty(device="cpu")
+    init_weights(module, torch.Generator().manual_seed(seed))
+    return module
+
+
+def check_other_heads_parity():
+    """Phase 13(a): ``CrossJambaBoth`` and ``CrossTransformerBoth`` at the
+    canonical width (dim 512, depth 6, 8 heads; Jamba's 16 experts top-2)
+    on classifier inputs of the canonical table (L = 53 tokens), f32, the
+    slice tokens of two (64,64,32) volumes: CPU (plain versions) against
+    the card (kernels: K2 for Jamba's 11 Mamba layers) from the same
+    weights.  Returns the Jamba head on the card and the inputs."""
+    from gfe_mamba_torch.models.ft_transformer import CrossTransformerBoth
+    from gfe_mamba_torch.models.fusion import CrossJambaBoth
+    from gfe_mamba_torch.ops.cuda import selective_scan as k2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cats, ncont = CANONICAL["categories"], CANONICAL["num_continuous"]
+    dim, heads = CANONICAL["dim"], CANONICAL["heads"]
+    img = MIXER_PARITY_IMG
+    gen = torch.Generator().manual_seed(13)
+    inputs = (torch.randint(0, 6, (2, len(cats)), generator=gen),
+              torch.randn(2, ncont, generator=gen),
+              torch.randn(2, CANONICAL["seq_length"], dim, generator=gen),
+              [torch.randn(2, *img, 1, generator=gen) for _ in range(2)])
+    common = dict(dim=dim, depth=CANONICAL["depth"], heads=heads,
+                  d_cross=img[0] * img[1])
+    seq_len = 1 + len(cats) + ncont + CANONICAL["seq_length"]
+    jamba = None
+    for name, make, scans in (
+            ("jamba", lambda: CrossJambaBoth(cats, ncont, **common),
+             JAMBA_SCANS),
+            ("transformer", lambda: CrossTransformerBoth(
+                cats, ncont, dim_head=dim // heads, **common), 0)):
+        cpu = materialized(make, seed=3).eval()
+        gpu = copy.deepcopy(cpu).cuda()
+        with torch.inference_mode():
+            want = cpu(*inputs)
+            k2.launches = 0
+            got = gpu(*(t.cuda() for t in inputs[:3]),
+                      [v.cuda() for v in inputs[3]])
+            torch.cuda.synchronize()
+        launched = k2.launches
+        err, rel = rel_err(got.cpu(), want)
+        log(f"mixer parity {name} head (L {seq_len}, dim {dim}, depth "
+            f"{CANONICAL['depth']}) f32: "
+            f"max_abs_err={err:.3e} rel={rel:.3e} (tol 1e-3); K2 launches "
+            f"{launched}; {sum(p.numel() for p in cpu.parameters())} "
+            f"parameters")
+        if not (torch.isfinite(got).all() and rel <= 1e-3):
+            raise AssertionError(f"{name} head: card and CPU disagree")
+        if launched != scans:
+            raise AssertionError(f"{name} head: {launched} K2 launches, "
+                                 f"expected {scans}")
+        if name == "jamba":
+            jamba = gpu
+        else:
+            del gpu
+        del cpu
+    return jamba, inputs
+
+
+def check_recurrent_step(jamba_head, inputs) -> None:
+    """Phase 13(d): the canonical Jamba stack (the head of 13(a)) and a
+    6-layer Mamba of width 512, stepped token by token over the 53 tokens
+    of the head's input on the card in f32, equal their sequence forward
+    within rel 1e-4; ``generate`` of a ``JambaLM`` at that width (vocab
+    64) with ``top_k=1`` gives the tokens of a greedy argmax over the
+    forward's logits."""
+    from gfe_mamba_torch.models.jamba import JambaConfig, JambaLM, generate
+    from gfe_mamba_torch.models.mamba import Mamba, MambaConfig
+
+    dim, depth = CANONICAL["dim"], CANONICAL["depth"]
+    x_cat, x_num, feature, _ = inputs
+    with torch.inference_mode():
+        seq = torch.cat([jamba_head.embed(x_cat.cuda(), x_num.cuda()),
+                         feature.cuda()], dim=1)
+    mamba = materialized(lambda: Mamba(MambaConfig(d_model=dim,
+                                                   n_layers=depth)),
+                         seed=4).cuda()
+    stacks = (("Jamba (12 layers)", jamba_head.transformer,
+               lambda x: jamba_head.transformer(x)[0], lambda t: t[:, None],
+               lambda y: y[:, 0]),
+              ("Mamba (6 layers)", mamba, mamba, lambda t: t,
+               lambda y: y))
+    for name, stack, forward, token, out in stacks:
+        with torch.inference_mode():
+            full = forward(seq)
+            caches, steps = stack.init_cache(seq.shape[0]), []
+            t = time.perf_counter()
+            for i in range(seq.shape[1]):
+                y, caches = stack.step(token(seq[:, i]), caches)
+                steps.append(out(y))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+        err, rel = rel_err(torch.stack(steps, dim=1), full)
+        log(f"recurrent step {name}: {seq.shape[1]} steps in "
+            f"{dt * 1e3:.1f} ms against the forward over {tuple(seq.shape)} "
+            f"f32: max_abs_err={err:.3e} rel={rel:.3e} (tol 1e-4)")
+        if not rel <= 1e-4:
+            raise AssertionError(f"{name}: steps disagree with the forward")
+    del mamba
+    cfg = JambaConfig(d_model=dim, n_layers=2 * depth, mlp_size=2 * dim,
+                      num_attention_heads=CANONICAL["heads"], vocab_size=64)
+    lm = materialized(lambda: JambaLM(cfg), seed=5).cuda()
+    prompt = torch.randint(0, 64, (2, 8),
+                           generator=torch.Generator().manual_seed(6)).cuda()
+    t = time.perf_counter()
+    tokens = generate(lm, prompt, 8,
+                      torch.Generator(device="cuda").manual_seed(7), top_k=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    with torch.inference_mode():
+        greedy = lm(tokens)[0][:, prompt.shape[1] - 1:-1].argmax(-1)
+    log(f"JambaLM.generate top_k=1 (d_model {dim}, 12 layers, vocab 64): "
+        f"8 prompt + 8 new tokens in {dt * 1e3:.1f} ms; tokens "
+        f"{tokens[:, 8:].tolist()}, greedy argmax of the forward "
+        f"{greedy.tolist()}")
+    if not torch.equal(greedy, tokens[:, prompt.shape[1]:]):
+        raise AssertionError("generate(top_k=1) is not greedy")
+    del lm
+    torch.cuda.empty_cache()
+
+
+def drive_other_mixer_clis(card: str, root: str, phase12: dict) -> None:
+    """Phase 13(e): ``classify_mamba`` with ``mixer: 'jamba'`` on phase 12's
+    tree and Stage-1 npz (1 epoch, batch 2, bf16), ``test_mamba`` on its
+    checkpoint (the checks of :func:`stage2_then_evaluation`), then
+    ``ft_table`` for 2 epochs on the synthetic CSV (batch 2), whose
+    printed lines must have the JAX script's form; K2 and K4 each
+    launch."""
+    import contextlib
+    import io
+    import re
+
+    from gfe_mamba_torch.cli import ft_table
+    from gfe_mamba_torch.ops.cuda import selective_scan as k2
+
+    configs = {name: dict(phase12["configs"][name], mixer="jamba",
+                          project_dir=os.path.join(root, "w",
+                                                   f"jamba_{name}"))
+               for name in ("cls", "test")}
+    torch.cuda.synchronize()
+    k2.launches = k2.bwd_launches = 0
+    walls = {}
+    stage2 = stage2_then_evaluation(root, configs, "jamba CLI",
+                                    phase12["g_end"], walls)
+    counts = dict(K2=k2.launches, K4=k2.bwd_launches)
+
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        run = ft_table.main(ft_table.parse_args(
+            ["--table_path", phase12["csv"], "--epochs", "2", "--batch",
+             "2", "--log_every", "1", "--device", "cuda"]))
+    torch.cuda.synchronize()
+    walls["ft_table"] = time.perf_counter() - t
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  ft_table: {line}")
+    form = re.compile(r"^epoch (\d+): loss=\d+\.\d{4} acc=\d\.\d{4} "
+                      r"f1=\d\.\d{4} mcc=-?\d\.\d{4}$")
+    if [getattr(form.match(l), "group", lambda _: None)(1)
+            for l in lines] != ["1", "2"] \
+            or next(run["model"].parameters()).device.type != "cuda":
+        raise AssertionError(f"ft_table printed {lines!r}")
+    for name, wall in walls.items():
+        log(f"jamba CLI phase: {name} {wall:.1f} s wall [{card}]")
+    log(f"jamba CLI phase: Stage-2 steps "
+        f"{['%.1f' % v for v in stage2['step_ms']]} ms, loader wait "
+        f"{stage2['wait_ms']:.1f} ms per batch; classifier "
+        f"{stage2['classifier_params']} parameters; ft_table "
+        f"{len(run['train_rows'])} train / {len(run['test_rows'])} test "
+        f"rows; launches {counts} [{card}]")
+    missing = [name for name, n in counts.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"{missing} never launched in the jamba CLI "
+                             f"phase")
+
+
+def drive_other_mixers(card: str, root: str, phase12: dict) -> dict:
+    """Phase 13: the Jamba and transformer heads.  Returns the K2
+    launches of the 3 Jamba requests and the K4 launches of the 3 Jamba
+    Stage-2 steps."""
+    t0 = time.perf_counter()
+    jamba_head, inputs = check_other_heads_parity()
+    check_recurrent_step(jamba_head, inputs)
+    del jamba_head
+    torch.cuda.empty_cache()
+    _, k2_jamba, jamba_ms = serve_canonical(card, "jamba", JAMBA_SCANS)
+    _, k2_none, transformer_ms = serve_canonical(card, "transformer", 0)
+    stage2 = train_stage2_canonical(card, "jamba", JAMBA_SCANS)
+    drive_other_mixer_clis(card, root, phase12)
+    log(f"phase 13: jamba ms/request {jamba_ms}, transformer ms/request "
+        f"{transformer_ms}, jamba Stage-2 ms/step {stage2['step_ms']}; "
+        f"{time.perf_counter() - t0:.1f} s of wall [{card}]")
+    return dict(k2=k2_jamba, k4=stage2["k4"])
 
 
 def main() -> int:
@@ -1745,7 +2011,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_k1(gen), check_k2(gen)]
     check_pipeline_parity()
-    k1_launches, k2_launches = serve_canonical(card)
+    k1_launches, k2_launches, _ = serve_canonical(card)
     kernels[0]["launches"] = k1_launches
     kernels[1]["launches"] = k2_launches
     k4, k3 = check_k4(gen), check_k3(gen)
@@ -1764,7 +2030,11 @@ def main() -> int:
     kernels += k5
     check_skipped_step()
     check_skipped_gan_step()
-    drive_clis(card)
+    with tempfile.TemporaryDirectory(prefix="gfe_cli_") as root:
+        phase12 = drive_clis(card, root)
+        other = drive_other_mixers(card, root, phase12)
+    kernels[1]["jamba_launches"] = other["k2"]
+    k4["jamba_launches"] = other["k4"]
     log(f"Stage-2 ms/step {stage2['step_ms']}, Stage-1 ms/step "
         f"{stage1['step_ms']} [{card}]")
     for k in kernels:

@@ -4,7 +4,9 @@ of ``classify_mamba.py``:
     python -m gfe_mamba_torch.cli.classify_mamba \\
         --config_path configs/classify_mamba_config.yaml [--device cpu]
 
-The same YAML keys and the same files.  ``gan_ckpt`` is the Stage-1
+The same YAML keys and the same files; ``mixer`` picks the classifier
+(``mamba``, ``jamba`` or ``transformer``), ``attn_dropout`` and
+``ff_dropout`` its dropout rates.  ``gan_ckpt`` is the Stage-1
 generator: a ``model.npz`` of either package or a reference ``.pt/.pth``
 state_dict (the port's parameter names are the reference's); ``cls_init``
 is the init law of step 0 (``torch`` or ``flax``).  Each validation

@@ -49,13 +49,17 @@ def generator_kwargs(cf: dict, remat_default: bool) -> dict:
 
 
 def build_pipeline(cf: dict, dataset, device):
-    """``build_gfe_mamba`` from the classify config keys, f32 weights
-    drawn from ``seed`` under the torch law."""
+    """``build_gfe_mamba`` from the classify config keys (``mixer``,
+    ``attn_dropout`` and ``ff_dropout`` among them), f32 weights drawn
+    from ``seed`` under the torch law."""
     from gfe_mamba_torch.models.pipeline import build_gfe_mamba
     return build_gfe_mamba(
         categories=dataset.num_cat, num_continuous=dataset.num_cont,
         dim=cf["dim"], depth=cf["depth"], heads=cf["heads"],
-        dim_out=cf.get("dim_out", 1), seq_length=cf.get("seq_length", 4),
+        dim_out=cf.get("dim_out", 1),
+        attn_dropout=cf.get("attn_dropout", 0.1),
+        ff_dropout=cf.get("ff_dropout", 0.1),
+        seq_length=cf.get("seq_length", 4),
         mixer=cf.get("mixer", "mamba"), seed=cf.get("seed", 0),
         device=device, **generator_kwargs(cf, remat_default=False))
 

@@ -4,6 +4,7 @@ counterpart of ``test_mamba.py``:
     python -m gfe_mamba_torch.cli.test_mamba \\
         --config_path configs/classify_mamba_config_test.yaml [--device cpu]
 
+The classifier is the config's ``mixer``, as in Stage 2.
 ``gan_ckpt`` is the Stage-1 generator, ``pth_dir`` the Stage-2 directory
 (``model_best`` or ``model_current``) and ``use_best`` picks
 ``best_model``/``best_ft_model`` or ``model_current``/

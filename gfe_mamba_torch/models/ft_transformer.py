@@ -1,6 +1,14 @@
-"""FT-Transformer pieces the fusion head uses (counterpart of part of
-``gfe_mamba_tpu/models/ft_transformer.py``).  flax defaults hold:
-LayerNorm eps 1e-6, tanh-approximated GELU."""
+"""FT-Transformer components and the tabular transformer models
+(counterpart of ``gfe_mamba_tpu/models/ft_transformer.py``).  flax
+defaults hold: LayerNorm eps 1e-6, tanh-approximated GELU.
+
+The encoders keep the ViT's module layout (``layers.<i>.0`` the
+attention with its projection at ``to_out.0``, ``layers.<i>.1.net`` the
+feed-forward): the flax names of both are ``attn_<i>`` / ``ff_<i>``, so
+one set of conversion rules (``utils/convert.py``) serves both.  A
+model built with ``d_cross=None`` has no final cross-attention or
+feed-forward, the tree flax builds when it is initialised without an
+image condition."""
 
 from __future__ import annotations
 
@@ -11,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gfe_mamba_torch.models.attention import CrossAttention, _heads, _merge
 from gfe_mamba_torch.models.dropout import Dropout
 
 LN_EPS = 1e-6   # flax nn.LayerNorm default
@@ -33,6 +42,86 @@ class FeedForward(nn.Sequential):
         super().__init__(nn.LayerNorm(dim, eps=LN_EPS),
                          nn.Linear(dim, dim * mult * 2), GEGLU(),
                          Dropout(dropout), nn.Linear(dim * mult, dim))
+
+
+class FTAttention(nn.Module):
+    """Pre-norm multi-head self-attention without biases; returns the
+    output and the post-softmax map (dropout applies to the map the
+    values see, not to the one returned)."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        inner = heads * dim_head
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
+        self.attn_drop = Dropout(dropout)
+        self.to_out = nn.Sequential(nn.Linear(inner, dim, bias=False))
+
+    def forward(self, x: torch.Tensor):
+        q, k, v = (_heads(t, self.heads)
+                   for t in self.to_qkv(self.norm(x)).chunk(3, dim=-1))
+        attn = torch.softmax(torch.einsum(
+            "bhid,bhjd->bhij", q * self.dim_head ** -0.5, k), dim=-1)
+        out = torch.einsum("bhij,bhjd->bhid", self.attn_drop(attn), v)
+        return self.to_out(_merge(out)), attn
+
+
+class FTFeedForward(nn.Module):
+    """:class:`FeedForward` under ``net``, the ViT feed-forward's place."""
+
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
+        super().__init__()
+        self.net = FeedForward(dim, mult, dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net(x)
+
+
+class FTTransformerEncoder(nn.Module):
+    """Residual FTAttention / FeedForward stack."""
+
+    def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0):
+        super().__init__()
+        self.layers = nn.ModuleList(nn.ModuleList([
+            FTAttention(dim, heads, dim_head, attn_dropout),
+            FTFeedForward(dim, dropout=ff_dropout)]) for _ in range(depth))
+
+    def _block(self, i: int, x: torch.Tensor, attns: list) -> torch.Tensor:
+        attn, ff = self.layers[i]
+        out, a = attn(x)
+        attns.append(a)
+        x = out + x
+        return ff(x) + x
+
+    def forward(self, x: torch.Tensor, return_attn: bool = False):
+        attns = []
+        for i in range(len(self.layers)):
+            x = self._block(i, x, attns)
+        return (x, torch.stack(attns)) if return_attn else x
+
+
+class TransformerCross(FTTransformerEncoder):
+    """The encoder with a cross-attention over ``condition (B, m,
+    d_cross)`` ahead of each layer (``cross.<i>``, flax ``cross_<i>``)."""
+
+    def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
+                 d_cross: int, attn_dropout: float = 0.0,
+                 ff_dropout: float = 0.0):
+        super().__init__(dim, depth, heads, dim_head, attn_dropout,
+                         ff_dropout)
+        self.cross = nn.ModuleList(CrossAttention(heads, dim, d_cross)
+                                   for _ in range(depth))
+
+    def forward(self, x: torch.Tensor, condition: torch.Tensor,
+                return_attn: bool = False):
+        attns = []
+        for i, cross in enumerate(self.cross):
+            x = cross(x, condition) + x
+            x = self._block(i, x, attns)
+        return (x, torch.stack(attns)) if return_attn else x
 
 
 class NumericalEmbedder(nn.Module):
@@ -109,8 +198,142 @@ def flatten_volume_condition(volumes: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 class LogitsHead(nn.Sequential):
-    """LayerNorm -> Linear(dim_out), at the reference indices 0, 1."""
+    """LayerNorm -> (ReLU when ``relu``) -> Linear(dim_out), the weights
+    at indices 0, 1 either way (flax ``LayerNorm_0``, ``Dense_0``)."""
 
-    def __init__(self, dim: int, dim_out: int = 1):
+    def __init__(self, dim: int, dim_out: int = 1, relu: bool = False):
         super().__init__(nn.LayerNorm(dim, eps=LN_EPS),
                          nn.Linear(dim, dim_out))
+        self.relu = relu
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self[0](x)
+        return self[1](F.relu(x) if self.relu else x)
+
+
+class TabularHead(TabularEmbedder):
+    """The tabular embedding and the head a tabular model ends in: with
+    ``d_cross`` (the slice-token width H*W of the conditioning volumes), a
+    residual cross-attention of the pooled token over the slice tokens
+    and a residual GEGLU feed-forward of twice the width
+    (``cross_ff_dropout``); then :class:`LogitsHead`."""
+
+    def __init__(self, categories: Sequence[int], num_continuous: int,
+                 dim: int, heads: int, d_cross: int | None = None,
+                 dim_out: int = 1, cross_ff_dropout: float = 0.1,
+                 relu: bool = False):
+        super().__init__(categories, num_continuous, dim)
+        if d_cross is not None:
+            self.final_cross = CrossAttention(heads, dim, d_cross)
+            self.final_feed = FeedForward(dim, 2, cross_ff_dropout)
+        self.to_logits = LogitsHead(dim, dim_out, relu)
+
+    def head(self, x: torch.Tensor, image_condition=None) -> torch.Tensor:
+        """``x (B, 1, dim)`` -> logits ``(B, dim_out)``; the cross-attention
+        runs when ``image_condition`` (a list of channels-last volumes) is
+        given."""
+        if image_condition is not None:
+            cond = flatten_volume_condition(image_condition).to(x.dtype)
+            x = self.final_cross(x, cond) + x
+            x = self.final_feed(x) + x
+        return self.to_logits(x[:, 0])
+
+
+class CrossTransformerBoth(TabularHead):
+    """Table tokens + CLS + image feature tokens through an
+    FT-Transformer encoder; the CLS token cross-attends over [MRI, PET]."""
+
+    def __init__(self, categories: Sequence[int], num_continuous: int,
+                 dim: int, depth: int, heads: int, d_cross: int | None,
+                 dim_head: int = 16, dim_out: int = 1,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0,
+                 cross_ff_dropout: float = 0.1):
+        super().__init__(categories, num_continuous, dim, heads, d_cross,
+                         dim_out, cross_ff_dropout=cross_ff_dropout)
+        self.transformer = FTTransformerEncoder(
+            dim, depth, heads, dim_head, attn_dropout, ff_dropout)
+
+    def forward(self, x_categ, x_numer, feature_img, image_condition=None):
+        x = self.embed(x_categ, x_numer)
+        x = torch.cat([x, feature_img.to(x.dtype)], dim=1)
+        return self.head(self.transformer(x)[:, :1], image_condition)
+
+
+class CrossTransformer(CrossTransformerBoth):
+    """One conditioning volume; its final feed-forward takes
+    ``ff_dropout``, not ``cross_ff_dropout``, as the JAX model's does."""
+
+    def __init__(self, categories: Sequence[int], num_continuous: int,
+                 dim: int, depth: int, heads: int, d_cross: int | None,
+                 dim_head: int = 16, dim_out: int = 1,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0):
+        super().__init__(categories, num_continuous, dim, depth, heads,
+                         d_cross, dim_head, dim_out, attn_dropout,
+                         ff_dropout, cross_ff_dropout=ff_dropout)
+
+    def forward(self, x_categ, x_numer, feature_img, image_condition=None):
+        return super().forward(
+            x_categ, x_numer, feature_img,
+            None if image_condition is None else [image_condition])
+
+
+class FTTransformerCrossImg(TabularHead):
+    """The CLS token cross-attends the one volume once (no residual, no
+    feed-forward); ReLU head."""
+
+    def __init__(self, categories: Sequence[int], num_continuous: int,
+                 dim: int, depth: int, heads: int, d_cross: int,
+                 dim_head: int = 16, dim_out: int = 1,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0):
+        super().__init__(categories, num_continuous, dim, heads, None,
+                         dim_out, relu=True)
+        self.transformer = FTTransformerEncoder(
+            dim, depth, heads, dim_head, attn_dropout, ff_dropout)
+        self.final_cross = CrossAttention(heads, dim, d_cross)
+
+    def forward(self, x_categ, x_numer, feature_img, image_condition):
+        x = self.embed(x_categ, x_numer)
+        x = torch.cat([x, feature_img.to(x.dtype)], dim=1)
+        x = self.transformer(x)[:, :1]
+        cond = flatten_volume_condition([image_condition]).to(x.dtype)
+        return self.to_logits(self.final_cross(x, cond)[:, 0])
+
+
+class FTTransformer(TabularHead):
+    """The table-only FT-Transformer classifier: embed -> encoder -> CLS
+    -> LayerNorm + ReLU + Linear."""
+
+    def __init__(self, categories: Sequence[int], num_continuous: int,
+                 dim: int, depth: int, heads: int, dim_head: int = 16,
+                 dim_out: int = 1, attn_dropout: float = 0.0,
+                 ff_dropout: float = 0.0):
+        super().__init__(categories, num_continuous, dim, heads, None,
+                         dim_out, relu=True)
+        self.transformer = FTTransformerEncoder(
+            dim, depth, heads, dim_head, attn_dropout, ff_dropout)
+
+    def forward(self, x_categ, x_numer):
+        x = self.transformer(self.embed(x_categ, x_numer))
+        return self.to_logits(x[:, 0])
+
+
+class FTTransformerCross(TabularHead):
+    """Table tokens only, a cross-attention over ``condition (B, m,
+    d_cross)`` ahead of every encoder layer; ReLU head."""
+
+    def __init__(self, categories: Sequence[int], num_continuous: int,
+                 dim: int, depth: int, heads: int, d_cross: int,
+                 dim_head: int = 16, dim_out: int = 1,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0):
+        super().__init__(categories, num_continuous, dim, heads, None,
+                         dim_out, relu=True)
+        self.transformer = TransformerCross(
+            dim, depth, heads, dim_head, d_cross, attn_dropout, ff_dropout)
+
+    def forward(self, x_categ, x_numer, condition, return_attn=False):
+        out = self.transformer(self.embed(x_categ, x_numer),
+                               condition.to(self.cls_token.dtype),
+                               return_attn)
+        x, attns = out if return_attn else (out, None)
+        logits = self.to_logits(x[:, 0])
+        return (logits, attns) if return_attn else logits

@@ -1,7 +1,12 @@
-"""The GFE-Mamba classifier head (counterpart of ``CrossMambaBoth`` in
+"""The GFE-Mamba classifier heads (counterpart of
 ``gfe_mamba_tpu/models/fusion.py``): tabular tokens + CLS + generator
-feature tokens -> Mamba -> mean-pool -> cross-attention over the slice
-tokens of [MRI, PET] -> GEGLU feed-forward -> LayerNorm + Linear logit."""
+feature tokens -> sequence mixer (Mamba or Jamba) -> mean-pool ->
+cross-attention over the slice tokens of [MRI, PET] -> GEGLU
+feed-forward -> LayerNorm + Linear logit.
+
+``d_cross`` is the slice-token width H*W of the conditioning volumes
+(25600 at 160x160); with ``d_cross=None`` a head has no cross-attention
+and feed-forward and runs without the image condition."""
 
 from __future__ import annotations
 
@@ -9,48 +14,81 @@ from typing import Sequence
 
 import torch
 
-from gfe_mamba_torch.models.attention import CrossAttention
-from gfe_mamba_torch.models.ft_transformer import (FeedForward, LogitsHead,
-                                                   TabularEmbedder,
-                                                   flatten_volume_condition)
+from gfe_mamba_torch.models.ft_transformer import TabularHead
+from gfe_mamba_torch.models.jamba import Jamba, JambaConfig
 from gfe_mamba_torch.models.mamba import Mamba, MambaConfig
 
 
-class _FusionBase(TabularEmbedder):
-    """Embedding plus the shared cross-attention head.  ``d_cross`` is the
-    slice-token width H*W of the conditioning volumes (25600 at
-    160x160); ``cross_ff_dropout`` is the head feed-forward's dropout."""
+class _FusionBase(TabularHead):
+    """The mixed sequence is mean-pooled into the head."""
 
-    def __init__(self, categories: Sequence[int], num_continuous: int,
-                 dim: int, heads: int, d_cross: int, dim_out: int = 1,
-                 cross_ff_dropout: float = 0.1):
-        super().__init__(categories, num_continuous, dim)
-        self.final_cross = CrossAttention(heads, dim, d_cross)
-        self.final_feed = FeedForward(dim, mult=2, dropout=cross_ff_dropout)
-        self.to_logits = LogitsHead(dim, dim_out)
-
-    def _fuse_head(self, x: torch.Tensor,
-                   image_condition: Sequence[torch.Tensor]) -> torch.Tensor:
-        x = x.mean(dim=1, keepdim=True)
-        cond = flatten_volume_condition(image_condition).to(x.dtype)
-        x = self.final_cross(x, cond) + x
-        x = self.final_feed(x) + x
-        return self.to_logits(x[:, 0])
+    def _fuse_head(self, x: torch.Tensor, image_condition) -> torch.Tensor:
+        return self.head(x.mean(dim=1, keepdim=True), image_condition)
 
 
 class CrossMambaBoth(_FusionBase):
     """The GFE-Mamba classifier head with a ``depth``-layer Mamba mixer."""
 
     def __init__(self, categories: Sequence[int], num_continuous: int,
-                 dim: int, depth: int, heads: int, d_cross: int,
+                 dim: int, depth: int, heads: int, d_cross: int | None,
                  dim_out: int = 1, cross_ff_dropout: float = 0.1):
         super().__init__(categories, num_continuous, dim, heads, d_cross,
-                         dim_out, cross_ff_dropout)
+                         dim_out, cross_ff_dropout=cross_ff_dropout)
         self.transformer = Mamba(MambaConfig(d_model=dim, n_layers=depth))
 
     def forward(self, x_categ: torch.Tensor, x_numer: torch.Tensor,
                 feature_img: torch.Tensor,
-                image_condition: Sequence[torch.Tensor]) -> torch.Tensor:
+                image_condition: Sequence[torch.Tensor] | None = None
+                ) -> torch.Tensor:
         x = self.embed(x_categ, x_numer)
         x = torch.cat([x, feature_img.to(x.dtype)], dim=1)
+        return self._fuse_head(self.transformer(x), image_condition)
+
+
+class CrossJambaBoth(_FusionBase):
+    """The Jamba-mixer head: ``2 * depth`` layers of width ``dim``, MLPs
+    of ``2 * dim``, ``heads`` attention heads (layer 4 is the first
+    attention layer), ``num_experts`` experts top-``num_experts_per_tok``
+    on the odd layers.  The router logits are dropped: no load-balancing
+    term enters the Stage-2 loss."""
+
+    def __init__(self, categories: Sequence[int], num_continuous: int,
+                 dim: int, depth: int, heads: int, d_cross: int | None,
+                 dim_out: int = 1, attn_dropout: float = 0.0,
+                 cross_ff_dropout: float = 0.1, num_experts: int = 16,
+                 num_experts_per_tok: int = 2):
+        super().__init__(categories, num_continuous, dim, heads, d_cross,
+                         dim_out, cross_ff_dropout=cross_ff_dropout)
+        self.transformer = Jamba(JambaConfig(
+            d_model=dim, n_layers=2 * depth, mlp_size=2 * dim,
+            num_attention_heads=heads, attention_dropout=attn_dropout,
+            num_experts=num_experts,
+            num_experts_per_tok=num_experts_per_tok))
+
+    def forward(self, x_categ: torch.Tensor, x_numer: torch.Tensor,
+                feature_img: torch.Tensor,
+                image_condition: Sequence[torch.Tensor] | None = None
+                ) -> torch.Tensor:
+        x = self.embed(x_categ, x_numer)
+        x = torch.cat([x, feature_img.to(x.dtype)], dim=1)
+        return self._fuse_head(self.transformer(x)[0], image_condition)
+
+
+class CrossMambaAblation(CrossMambaBoth):
+    """The ablation harness: the Mamba head with optional paths.
+    ``no_table`` keeps the CLS token and drops the table tokens (it needs
+    ``feature_img``); ``feature_img=None`` runs without the generator's
+    tokens; ``image_condition=None`` without the cross-attention."""
+
+    def forward(self, x_categ: torch.Tensor, x_numer: torch.Tensor,
+                feature_img: torch.Tensor | None = None,
+                image_condition: Sequence[torch.Tensor] | None = None,
+                no_table: bool = False) -> torch.Tensor:
+        x = self.embed(x_categ, x_numer)
+        if no_table:
+            if feature_img is None:
+                raise ValueError("no_table needs the image feature tokens")
+            x = x[:, :1]
+        if feature_img is not None:
+            x = torch.cat([x, feature_img.to(x.dtype)], dim=1)
         return self._fuse_head(self.transformer(x), image_condition)

@@ -1,6 +1,8 @@
-"""Mamba selective state-space model, forward only (counterpart of
-``gfe_mamba_tpu/models/mamba.py``).  The scan runs through
-``ops.scan.selective_scan`` (K2 on the card)."""
+"""Mamba selective state-space model (counterpart of
+``gfe_mamba_tpu/models/mamba.py``).  The sequence forward's scan runs
+through ``ops.scan.selective_scan`` (K2 on the card); ``Mamba.step`` is
+the one-token recurrence with a ``(h, conv window)`` cache per layer, in
+JAX's layout: h ``(B, ED, N)``, the window ``(B, d_conv - 1, ED)``."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gfe_mamba_torch.ops.scan import selective_scan
+from gfe_mamba_torch.ops.scan import selective_scan, selective_scan_step
 
 
 @dataclass(frozen=True)
@@ -30,6 +32,7 @@ class MambaConfig:
     rms_norm_eps: float = 1e-5
     bias: bool = False
     conv_bias: bool = True
+    inner_layernorms: bool = False   # RMSNorm on dt, B and C (Jamba)
 
     @property
     def d_inner(self) -> int:        # ED
@@ -74,6 +77,10 @@ class MambaBlock(nn.Module):
         self.A_log = nn.Parameter(torch.empty(ed, cfg.d_state))
         self.D = nn.Parameter(torch.empty(ed))
         self.out_proj = nn.Linear(ed, cfg.d_model, bias=cfg.bias)
+        if cfg.inner_layernorms:
+            self.dt_layernorm = RMSNorm(cfg.dt_rank_, cfg.rms_norm_eps)
+            self.B_layernorm = RMSNorm(cfg.d_state, cfg.rms_norm_eps)
+            self.C_layernorm = RMSNorm(cfg.d_state, cfg.rms_norm_eps)
 
     @torch.no_grad()
     def reset_ssm_parameters(self, generator: torch.Generator) -> None:
@@ -98,26 +105,56 @@ class MambaBlock(nn.Module):
         self.A_log.copy_(torch.log(a).repeat(cfg.d_inner, 1))
         self.D.fill_(1.0)
 
+    def _delta_bc(self, x: torch.Tensor):
+        """x_proj's output split into (dt before its projection, B, C),
+        each through its RMSNorm when ``inner_layernorms``."""
+        cfg = self.config
+        delta, B, C = torch.split(
+            self.x_proj(x), [cfg.dt_rank_, cfg.d_state, cfg.d_state], dim=-1)
+        if cfg.inner_layernorms:
+            delta = self.dt_layernorm(delta)
+            B, C = self.B_layernorm(B), self.C_layernorm(C)
+        return delta, B, C
+
     def scan_operands(self, x: torch.Tensor) -> list:
         """The scan's operands ``[x, delta, A, B, C, D, z, delta_bias]``
         for the layer input ``x`` (B, L, d_model), as the forward hands
         them over: x channel-major from the depthwise conv, z a ``chunk``
-        view of in_proj's output, B and C ``split`` views of x_proj's, A
-        in f32, the rest in the layer's dtype."""
-        cfg = self.config
+        view of in_proj's output, B and C ``split`` views of x_proj's (or
+        their RMSNorms' outputs), A in f32, the rest in the layer's
+        dtype."""
         L = x.shape[1]
         x, z = self.in_proj(x).chunk(2, dim=-1)
         x = self.conv1d(x.transpose(1, 2))[..., :L].transpose(1, 2)
         x = F.silu(x)
         A = -torch.exp(self.A_log.float())
-        delta, B, C = torch.split(
-            self.x_proj(x), [cfg.dt_rank_, cfg.d_state, cfg.d_state], dim=-1)
+        delta, B, C = self._delta_bc(x)
         delta = F.linear(delta, self.dt_proj.weight)
         return [x, delta, A, B, C, self.D, z, self.dt_proj.bias]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = selective_scan(*self.scan_operands(x), delta_softplus=True)
         return self.out_proj(y)
+
+    def step(self, x: torch.Tensor, cache):
+        """One token ``x (B, d_model)`` with ``cache = (h, conv window)``
+        -> ``(out (B, d_model), new cache)``.  The conv is the valid conv
+        of the window and this token; the state stays in the cache's
+        dtype, the output takes the layer's."""
+        h, conv_in = cache
+        x, z = self.in_proj(x).chunk(2, dim=-1)
+        window = torch.cat([conv_in.to(x.dtype), x[:, None]], dim=1)
+        x = torch.einsum("bke,ek->be", window, self.conv1d.weight[:, 0])
+        if self.conv1d.bias is not None:
+            x = x + self.conv1d.bias
+        x = F.silu(x)
+        A = -torch.exp(self.A_log.float())
+        delta, B, C = self._delta_bc(x)
+        delta = F.softplus(F.linear(delta, self.dt_proj.weight,
+                                    self.dt_proj.bias))
+        y, h = selective_scan_step(h, x, delta, A, B, C, self.D)
+        y = y.to(z.dtype) * F.silu(z)
+        return self.out_proj(y), (h, window[:, 1:].to(conv_in.dtype))
 
 
 class ResidualBlock(nn.Module):
@@ -130,6 +167,10 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.mixer(self.norm(x)) + x
+
+    def step(self, x: torch.Tensor, cache):
+        out, cache = self.mixer.step(self.norm(x), cache)
+        return out + x, cache
 
 
 class Mamba(nn.Module):
@@ -145,3 +186,23 @@ class Mamba(nn.Module):
         for layer in self.layers:
             x = layer(x)
         return x
+
+    def step(self, x: torch.Tensor, caches: list):
+        """One token ``x (B, d_model)`` through every layer; ``caches`` is
+        :meth:`init_cache`'s list, one ``(h, conv window)`` per layer."""
+        new_caches = []
+        for layer, cache in zip(self.layers, caches):
+            x, cache = layer.step(x, cache)
+            new_caches.append(cache)
+        return x, new_caches
+
+    def init_cache(self, batch: int, dtype=torch.float32,
+                   device=None) -> list:
+        """Zero caches on ``device`` (the model's when omitted)."""
+        cfg = self.config
+        device = device or self.layers[0].mixer.D.device
+        return [(torch.zeros(batch, cfg.d_inner, cfg.d_state, dtype=dtype,
+                             device=device),
+                 torch.zeros(batch, cfg.d_conv - 1, cfg.d_inner,
+                             dtype=dtype, device=device))
+                for _ in range(cfg.n_layers)]

@@ -15,7 +15,8 @@ from torch import nn
 
 from gfe_mamba_torch import resolve_device
 from gfe_mamba_torch.models.combiners import CombineClassifierVitMid
-from gfe_mamba_torch.models.fusion import CrossMambaBoth
+from gfe_mamba_torch.models.ft_transformer import CrossTransformerBoth
+from gfe_mamba_torch.models.fusion import CrossJambaBoth, CrossMambaBoth
 from gfe_mamba_torch.models.unet3d import ResidualMidUNet3DViT
 from gfe_mamba_torch.utils.initializers import init_weights
 
@@ -29,7 +30,7 @@ class GFEMamba(nn.Module):
 
     def __init__(self, generator: ResidualMidUNet3DViT,
                  combiner: CombineClassifierVitMid,
-                 classifier: CrossMambaBoth):
+                 classifier: nn.Module):
         super().__init__()
         self.generator = generator
         self.combiner = combiner
@@ -63,7 +64,8 @@ def _materialize(module: nn.Module, seed: int, device,
 
 def build_gfe_mamba(*, categories: Sequence[int], num_continuous: int,
                     dim: int = 512, depth: int = 6, heads: int = 8,
-                    dim_out: int = 1, seq_length: int = 4,
+                    dim_out: int = 1, attn_dropout: float = 0.1,
+                    ff_dropout: float = 0.1, seq_length: int = 4,
                     mixer: str = "mamba", cross_ff_dropout: float = 0.1,
                     seed: int = 0, device=None,
                     dtype: torch.dtype = torch.float32,
@@ -71,22 +73,35 @@ def build_gfe_mamba(*, categories: Sequence[int], num_continuous: int,
     """Build the canonical pipeline in eval mode with weights drawn from
     ``seed``, on ``device`` (CUDA unless ``device="cpu"``) in ``dtype``.
 
-    ``generator_kwargs`` are :class:`ResidualMidUNet3DViT`'s (``img_size``,
-    ``f_maps``, ``layer_order``, ``fold_factor``, ``vit_*``), with its
-    defaults.  ``img_size`` is the MRI volume's (X, Y, Z): torch sizes the
-    ViT, the combiner and the cross-attention from it at construction."""
+    ``mixer`` picks the classifier: ``"mamba"`` (:class:`CrossMambaBoth`),
+    ``"jamba"`` (:class:`CrossJambaBoth`, GQA attention dropout
+    ``attn_dropout``) or ``"transformer"`` (:class:`CrossTransformerBoth`,
+    ``dim // heads`` per head, ``attn_dropout`` and ``ff_dropout``); the
+    Mamba head has no dropout but its final feed-forward's
+    (``cross_ff_dropout``, every head).  ``generator_kwargs`` are
+    :class:`ResidualMidUNet3DViT`'s (``img_size``, ``f_maps``,
+    ``layer_order``, ``fold_factor``, ``vit_*``), with its defaults.
+    ``img_size`` is the MRI volume's (X, Y, Z): torch sizes the ViT, the
+    combiner and the cross-attention from it at construction."""
     device = resolve_device(device)
-    if mixer != "mamba":
-        raise NotImplementedError(f"mixer {mixer!r} is not ported yet")
+    if mixer not in ("mamba", "jamba", "transformer"):
+        raise ValueError(f"unknown mixer {mixer!r}")
     with torch.device("meta"):
         generator = ResidualMidUNet3DViT(1, 1, **generator_kwargs)
         mid_h, mid_w = generator.mid_size
         combiner = CombineClassifierVitMid(mid_h * mid_w, seq_length)
         img_x, img_y, _ = generator.img_size
-        classifier = CrossMambaBoth(
-            categories, num_continuous, dim=dim, depth=depth, heads=heads,
-            d_cross=img_x * img_y, dim_out=dim_out,
-            cross_ff_dropout=cross_ff_dropout)
+        head = dict(dim=dim, depth=depth, heads=heads, d_cross=img_x * img_y,
+                    dim_out=dim_out, cross_ff_dropout=cross_ff_dropout)
+        if mixer == "mamba":
+            classifier = CrossMambaBoth(categories, num_continuous, **head)
+        elif mixer == "jamba":
+            classifier = CrossJambaBoth(categories, num_continuous,
+                                        attn_dropout=attn_dropout, **head)
+        else:
+            classifier = CrossTransformerBoth(
+                categories, num_continuous, dim_head=dim // heads,
+                attn_dropout=attn_dropout, ff_dropout=ff_dropout, **head)
         model = GFEMamba(generator, combiner, classifier)
     return _materialize(model, seed, device, dtype).eval()
 

@@ -1,6 +1,6 @@
 """Selective scan for the Mamba layers (counterpart of
 ``gfe_mamba_tpu/ops/scan.py`` and the custom VJP of
-``ops/pallas/selective_scan.py``)."""
+``ops/pallas/selective_scan.py``), and its one-token step."""
 
 from __future__ import annotations
 
@@ -74,3 +74,14 @@ def selective_scan(x, delta, A, B, C, D, z=None, delta_bias=None,
     plain loops."""
     return SelectiveScanFn.apply(x, delta, A, B, C, D, z, delta_bias,
                                  delta_softplus)
+
+
+def selective_scan_step(h, x, delta, A, B, C, D):
+    """One recurrent step of the scan, plain PyTorch on any device: h
+    ``(B, ED, N)`` the carried state, x and the post-softplus delta
+    ``(B, ED)``, A ``(ED, N)``, B and C ``(B, N)``, D ``(ED,)``.  Returns
+    ``(y (B, ED), new h)``, y without the gate."""
+    h = torch.exp(delta[..., None] * A) * h \
+        + (delta * x)[..., None] * B[:, None, :]
+    y = torch.einsum("ben,bn->be", h, C) + D * x
+    return y, h

@@ -40,6 +40,8 @@ _RENAMES = [
     (r"(^|/)ff_(\d+)/LayerNorm_0/", r"\1layers/\2/1/net/0/"),
     (r"(^|/)ff_(\d+)/Dense_0/", r"\1layers/\2/1/net/1/"),
     (r"(^|/)ff_(\d+)/Dense_1/", r"\1layers/\2/1/net/4/"),
+    # TransformerCross's per-layer cross-attention
+    (r"(^|/)cross_(\d+)/", r"\1cross/\2/"),
     # classifier
     (r"(^|/)embed/", r"\1"),
     (r"(^|/)layer_(\d+)/", r"\1layers/\2/"),
@@ -83,9 +85,11 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     under a ``'params'`` key) into the port's state_dict, as float32.
 
     Works on the whole ``GFEMamba`` tree (keys under ``generator.``,
-    ``combiner.`` and ``classifier.``), on the tree of any ported
-    submodule (the generator, a ResNetBlock, the ViT, a MambaBlock, the
-    classifier), and on the Stage-1 trees whose flax names the port keeps:
+    ``combiner.`` and ``classifier.``, any mixer), on the tree of any
+    ported submodule (the generator, a ResNetBlock, the ViT, a
+    MambaBlock, a classifier head, the FT-Transformer models, Jamba and
+    ``JambaLM``, whose stacked ``experts_*`` pass as they are), and on
+    the Stage-1 trees whose flax names the port keeps:
     ``PatchDiscriminator`` (``conv_i``, ``norm_i``, ``conv_pre``,
     ``norm_pre``, ``conv_out``) and the perceptual loss's
     ``SqueezeFeatures`` (``conv1``, ``fire1..8``).  ``group_norm_act``
@@ -105,8 +109,9 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 
 # The inverse: port state_dict keys ('/'-joined) -> flax paths, applied in
-# order.  ViT rules come before the Mamba ones: both live under a
-# ``transformer/layers/<i>/`` prefix, the ViT's with a /0/ or /1/ after it.
+# order.  ViT rules (which the FT-Transformer encoders share) come before
+# the Mamba and Jamba ones: all live under a ``transformer/layers/<i>/``
+# prefix, the ViT's with a /0/ or /1/ after it.
 _INVERSE_RENAMES = [
     (r"(^|/)encoders/(\d+)/", r"\1encoder_\2/"),
     (r"(^|/)decoders/(\d+)/", r"\1decoder_\2/"),
@@ -125,10 +130,12 @@ _INVERSE_RENAMES = [
     (r"(^|/)layers/(\d+)/1/net/0/", r"\1ff_\2/LayerNorm_0/"),
     (r"(^|/)layers/(\d+)/1/net/1/", r"\1ff_\2/Dense_0/"),
     (r"(^|/)layers/(\d+)/1/net/4/", r"\1ff_\2/Dense_1/"),
+    (r"(^|/)cross/(\d+)/", r"\1cross_\2/"),
     # classifier: the tabular embedder is the flax submodule ``embed``
     (r"^(classifier/)?(categorical_embeds/|numerical_embedder/|cls_token$)",
      r"\1embed/\2"),
-    (r"(^|/)layers/(\d+)/(mixer|norm)/", r"\1layer_\2/\3/"),
+    (r"(^|/)layers/(\d+)/(mixer|norm|self_attn|mamba|moe|input_layernorm|"
+     r"pre_moe_layernorm)/", r"\1layer_\2/\3/"),
     (r"(^|/)(final_feed|to_logits)/0/", r"\1\2/LayerNorm_0/"),
     (r"(^|/)(final_feed|to_logits)/1/", r"\1\2/Dense_0/"),
     (r"(^|/)final_feed/4/", r"\1final_feed/Dense_1/"),
@@ -146,12 +153,13 @@ def _flax_leaf(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
     if leaf != "weight":
         return path, value
     join = (lambda name: f"{head}/{name}") if head else (lambda name: name)
-    if head.endswith("categorical_embeds"):
+    if re.search(r"(^|/)(categorical_embeds|embedding)$", head):
         return join("embedding"), value
     if value.ndim == 1:
-        # RMSNorm (a Mamba layer's ``norm``) keeps ``weight``; LayerNorm,
-        # GroupNorm and InstanceNorm call it ``scale``
-        if re.search(r"(^|/)layer_\d+/norm$", head):
+        # RMSNorm (a Mamba layer's ``norm``, Jamba's ``*_layernorm``)
+        # keeps ``weight``; LayerNorm, GroupNorm and InstanceNorm call it
+        # ``scale``
+        if re.search(r"(^|/)(layer_\d+/norm|\w+_layernorm)$", head):
             return path, value
         return join("scale"), value
     if value.ndim == 2:

@@ -9,8 +9,12 @@
 
 Under both laws norms are 1/0; embeddings, the CLS and positional tokens
 and the numerical embedder's tables are N(0, 1) (the JAX models' own
-``normal(1.0)`` initializers, which neither law re-draws); the Mamba SSM
-parameters follow their own laws (``MambaBlock.reset_ssm_parameters``).
+``normal(1.0)`` initializers, which neither law re-draws), an embedding
+with an ``init_std`` attribute N(0, init_std) (``JambaLM``'s); the
+stacked MoE experts (``experts_gate/up/down``, ``(E, in, out)``) are
+lecun_normal over their in axis, the law flax draws them with and the
+torch law leaves alone (it re-draws ``kernel`` leaves only); the Mamba
+SSM parameters follow their own laws (``MambaBlock.reset_ssm_parameters``).
 
 fan_in is JAX's for every kernel: the product of the flax kernel's shape
 but its last axis, i.e. in-features x window.  For a ``ConvTranspose3d``
@@ -29,6 +33,7 @@ LAWS = ("torch", "flax")
 # divides by it so the truncated draw keeps the intended variance)
 _TRUNC_STD = 0.87962566103423978
 _TOKENS = ("cls_token", "pos_embedding", "weights", "biases")
+_STACKED = ("experts_gate", "experts_up", "experts_down")
 
 
 def check_law(law: str) -> str:
@@ -43,6 +48,17 @@ def kernel_fan_in(module: nn.Module) -> int:
     if isinstance(module, nn.ConvTranspose3d):
         return w.shape[0] * w[0, 0].numel()
     return w[0].numel()
+
+
+def _lecun_normal(shape, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """flax's lecun_normal: a normal truncated at two deviations, scaled
+    so that its std is 1/sqrt(fan_in)."""
+    std = fan_in ** -0.5 / _TRUNC_STD
+    draw = torch.empty(shape)
+    nn.init.trunc_normal_(draw, 0.0, std, -2 * std, 2 * std,
+                          generator=generator)
+    return draw
 
 
 @torch.no_grad()
@@ -61,18 +77,18 @@ def init_weights(model: nn.Module, generator: torch.Generator,
             if isinstance(mod, norms):
                 p.fill_(1.0 if name == "weight" else 0.0)
             elif isinstance(mod, nn.Embedding) or name in _TOKENS:
-                p.copy_(torch.randn(p.shape, generator=generator))
+                p.copy_(torch.randn(p.shape, generator=generator)
+                        * getattr(mod, "init_std", 1.0))
+            elif name in _STACKED:
+                p.copy_(_lecun_normal(p.shape, p.shape[1], generator))
             elif name in ("weight", "bias"):
                 std = kernel_fan_in(mod) ** -0.5
                 if law == "torch":
                     p.copy_(torch.rand(p.shape, generator=generator)
                             * (2 * std) - std)
                 elif name == "weight":
-                    std /= _TRUNC_STD
-                    draw = torch.empty(p.shape)
-                    nn.init.trunc_normal_(draw, 0.0, std, -2 * std, 2 * std,
-                                          generator=generator)
-                    p.copy_(draw)
+                    p.copy_(_lecun_normal(p.shape, kernel_fan_in(mod),
+                                          generator))
                 else:
                     p.zero_()
     for mod in model.modules():

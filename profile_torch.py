@@ -1,12 +1,14 @@
 #!/usr/bin/env python
 """Where the time of one of the port's canonical paths goes, on one GPU.
 
-    python3 profile_torch.py [--path serve|stage2|stage1] [TRACE.json]
+    python3 profile_torch.py [--path serve|stage2|stage1]
+        [--mixer mamba|jamba|transformer] [TRACE.json]
 
 ``serve`` (the default) builds the canonical pipeline (``bench.py``'s
 configuration: 160x160x96, bf16, batch 4, random weights from seed 0)
-and runs requests; ``stage2`` runs ``ClassifyTrainer`` steps on it (bf16,
-batch 1); ``stage1`` runs ``GanTrainer`` steps over the canonical
+with the ``--mixer`` classifier head (Mamba by default) and runs
+requests; ``stage2`` runs ``ClassifyTrainer`` steps on it (bf16, batch
+1); ``stage1`` runs ``GanTrainer`` steps over the canonical
 generator, ``PatchDiscriminator(3, 32)`` and ``PerceptualLoss(0.25)``
 (bf16, batch 1, adversary on).  After two warm-up iterations it traces
 two more with ``torch.profiler`` (CPU and CUDA activities) and prints the
@@ -42,7 +44,7 @@ PORT_KERNELS = re.compile(
     r"_kernel[<(]")
 
 
-def _work(path: str, gen: torch.Generator):
+def _work(path: str, mixer: str, gen: torch.Generator):
     """One iteration of ``path`` as a closure over freshly built models."""
     from gfe_mamba_torch.models.pipeline import (build_generator,
                                                  build_gfe_mamba)
@@ -52,7 +54,7 @@ def _work(path: str, gen: torch.Generator):
 
     if path == "serve":
         model = build_gfe_mamba(img_size=IMG, dtype=torch.bfloat16, seed=0,
-                                **CATEGORIES)
+                                mixer=mixer, **CATEGORIES)
 
         def request():
             x_cat = torch.randint(0, 6, (BATCH, 8), generator=gen,
@@ -64,7 +66,7 @@ def _work(path: str, gen: torch.Generator):
     if path == "stage2":
         from gfe_mamba_torch.training.classify_trainer import ClassifyTrainer
         trainer = ClassifyTrainer(build_gfe_mamba(img_size=IMG, seed=0,
-                                                  **CATEGORIES))
+                                                  mixer=mixer, **CATEGORIES))
 
         def step():
             x_cat = torch.randint(0, 6, (1, 8), generator=gen, device="cuda")
@@ -86,6 +88,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path", choices=("serve", "stage2", "stage1"),
                         default="serve")
+    parser.add_argument("--mixer", choices=("mamba", "jamba", "transformer"),
+                        default="mamba", help="the classifier head of the "
+                        "serve and stage2 paths")
     parser.add_argument("trace", nargs="?", help="chrome trace to write")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -99,7 +104,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    work = _work(args.path, torch.Generator(device="cuda").manual_seed(0))
+    work = _work(args.path, args.mixer,
+                 torch.Generator(device="cuda").manual_seed(0))
     for _ in range(2):
         work()
     torch.cuda.synchronize()
@@ -124,7 +130,8 @@ def main() -> int:
                          evt.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"{card}: {args.path} {wall_ms:.2f} ms per iteration (host "
+    print(f"{card}: {args.path} ({args.mixer}) {wall_ms:.2f} ms per "
+          f"iteration (host "
           f"clock), device busy {busy_ms:.2f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}, {sum(r[1] for r in rows)} kernel "
           f"launches")

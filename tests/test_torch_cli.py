@@ -1,12 +1,15 @@
-"""The port's three entry points on the CPU at tiny widths
-(``--device cpu``): Stage 1 -> Stage 2 -> evaluation end to end with the
-files each writes, the tableless Stage 2, a kill-and-restart of the
-Stage-1 CLI that resumes at the right epoch, and the options a single
-process refuses.
+"""The port's entry points on the CPU at tiny widths (``--device cpu``):
+Stage 1 -> Stage 2 -> evaluation end to end with the files each writes,
+Stage 2 and evaluation with the Jamba and transformer mixers, the
+tableless Stage 2, a kill-and-restart of the Stage-1 CLI that resumes at
+the right epoch, the options a single process refuses, and the
+table-only ``ft_table`` against the JAX script on the same CSV.
 """
 
 import argparse
+import importlib.util
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -17,11 +20,15 @@ import numpy as np
 import pytest
 import torch
 
-from gfe_mamba_torch.cli import classify_mamba, main_gan_vit, test_mamba
+from gfe_mamba_torch.cli import (classify_mamba, ft_table, main_gan_vit,
+                                 test_mamba)
 from gfe_mamba_torch.data.synthetic import (make_classify_tree,
                                             make_mri2pet_tree)
+from gfe_mamba_torch.data.table import prepare_table, read_csv
+from gfe_mamba_torch.models.dropout import Dropout
 from gfe_mamba_torch.models.pipeline import build_generator
-from gfe_mamba_torch.training.checkpoint import load_params_npz
+from gfe_mamba_torch.training.checkpoint import (load_params_npz,
+                                                 save_params_npz)
 
 # one thread: the evaluation CLI's metrics are held bitwise against the
 # Stage-2 validation's (with two, the CPU's f32 reductions differ in the
@@ -214,3 +221,128 @@ def test_stage1_cli_kill_and_restart_resumes_at_right_epoch(tmp_path):
     assert np.load(os.path.join(tmp_path, "weights", [
         r for r in runs if r.startswith("exp_")][-1], "model_save",
         "model.npz")).files
+
+
+@pytest.mark.parametrize("mixer", ["jamba", "transformer"])
+def test_stage2_and_evaluation_other_mixers(tmp_path, monkeypatch, mixer):
+    """``mixer`` from the YAML, with the config's ``attn_dropout`` and
+    ``ff_dropout`` in the classifier (drawn in Stage 2's steps); the
+    evaluation CLI on the saved npz gives Stage 2's last validation.
+    Jamba at depth 3 has its attention layer (8 heads)."""
+    monkeypatch.chdir(tmp_path)
+    npz = str(tmp_path / "generator.npz")
+    save_params_npz(npz, build_generator(
+        device="cpu", img_size=SHAPE, f_maps=(4, 8), fold_factor=2,
+        vit_patch_size=4, vit_dim=16, vit_depth=1, vit_heads=2,
+        vit_mlp_dim=32))
+    extra = dict(mixer=f"'{mixer}'", attn_dropout=0.2, ff_dropout=0.3)
+    if mixer == "jamba":
+        extra.update(depth=3, heads=8)
+    s2 = classify_mamba.main(_args(_classify_config(tmp_path, "cls.yaml",
+                                                    npz, **extra)))
+    model = s2["trainer"].model
+    rates = sorted({m.p for m in model.classifier.modules()
+                    if isinstance(m, Dropout)})
+    if mixer == "jamba":
+        attn = model.classifier.transformer.layers[4].self_attn
+        assert attn.attn_drop.p == 0.2
+        assert rates == [0.1, 0.2]      # 0.1: the final feed-forward
+    else:
+        assert rates == [0.1, 0.2, 0.3]
+    cfg = _classify_config(tmp_path, "test.yaml", npz,
+                           pth_dir=os.path.join(s2["exp_dir"],
+                                                "model_current"),
+                           use_best="false", **extra)
+    s3 = test_mamba.main(_args(cfg))
+    for part in ("combiner", "classifier"):
+        for key, value in getattr(s3["model"], part).state_dict().items():
+            assert torch.equal(value, getattr(model, part).state_dict()[key])
+    assert s3["metrics"] == s2["validation"]["metrics"]
+    assert s3["val_loss"] == s2["validation"]["val_loss"]
+
+
+def _ft_csv(path) -> str:
+    """40 rows, 3 without a label; ROWNUM (a numeric column) names each
+    row in the standardized inputs."""
+    rng = np.random.RandomState(7)
+    lines = ["PTID,EXAMDATE,LABEL,ROWNUM,AGE,MMSE,PTGENDER,PTMARRY"]
+    for i in range(40):
+        label = "" if i in (5, 17, 30) else str(rng.randint(0, 2))
+        lines.append(f"{i:03d}_S_{i},2006-03-01,{label},{i},"
+                     f"{rng.uniform(60, 90):.3f},{rng.randint(20, 31)},"
+                     f"{rng.choice(['Male', 'Female'])},"
+                     f"{rng.choice(['Married', 'Widowed'])}")
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def test_ft_table_matches_the_jax_script(tmp_path, monkeypatch, capsys):
+    """The same CSV through ``ft_table.py`` and the port's
+    ``cli/ft_table.py``: the same test rows, the same training batches in
+    every epoch, and printed lines of the same form at the same
+    epochs."""
+    csv = _ft_csv(tmp_path / "table.csv")
+    argv = ["--table_path", csv, "--epochs", "3", "--dim", "8", "--depth",
+            "1", "--heads", "2", "--batch", "4", "--log_every", "2",
+            "--seed", "3"]
+    spec = importlib.util.spec_from_file_location(
+        "jax_ft_table", os.path.join(REPO, "ft_table.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    seen, jnp = [], script.jnp
+
+    class RecordingJnp:
+        """``jnp`` with every ``asarray`` argument recorded."""
+
+        def __getattr__(self, name):
+            return getattr(jnp, name)
+
+        def asarray(self, a, *args, **kw):
+            seen.append(np.array(a))
+            return jnp.asarray(a, *args, **kw)
+
+    monkeypatch.setattr(script, "jnp", RecordingJnp())
+    parser = argparse.ArgumentParser()
+    for name, kind in (("table_path", str), ("epochs", int), ("dim", int),
+                       ("depth", int), ("heads", int), ("batch", int),
+                       ("split", float), ("lr", float), ("seed", int),
+                       ("log_every", int)):
+        parser.add_argument(f"--{name}", type=kind,
+                            default=dict(split=0.8, lr=1e-4).get(name))
+    capsys.readouterr()
+    script.main(parser.parse_args(argv))
+    jax_lines = capsys.readouterr().out.strip().splitlines()
+
+    port = ft_table.main(ft_table.parse_args(argv + ["--device", "cpu"]))
+    port_lines = capsys.readouterr().out.strip().splitlines()
+    assert port_lines == port["lines"]
+
+    # rows back from the recorded numeric inputs through ROWNUM
+    prep = prepare_table(ft_table.labelled_rows(read_csv(csv)))
+    pre = prep["preprocessor"]
+    col = pre.num_columns.index("ROWNUM")
+    ncont = prep["num_cont"]
+
+    def rows(conti):
+        return np.rint(conti[:, col] * pre.num_std["ROWNUM"]
+                       + pre.num_mean["ROWNUM"]).astype(int)
+
+    conti = [a for a in seen if a.ndim == 2 and a.shape[1] == ncont
+             and a.dtype == np.float32][1:]           # [0]: the init's
+    row_id = np.asarray(ft_table.labelled_rows(read_csv(csv))
+                        .data["ROWNUM"])
+    n_batches = len(port["batches"][0])
+    assert n_batches == int(37 * 0.8) // 4
+    want = iter(conti)
+    for epoch, batches in enumerate(port["batches"]):
+        for idx in batches:
+            np.testing.assert_array_equal(rows(next(want)), row_id[idx])
+        if (epoch + 1) % 2 == 0 or epoch == 2:
+            np.testing.assert_array_equal(rows(next(want)),
+                                          row_id[port["test_rows"]])
+    assert next(want, None) is None
+
+    form = re.compile(r"^epoch (\d+): loss=\d+\.\d{4} acc=\d\.\d{4} "
+                      r"f1=\d\.\d{4} mcc=-?\d\.\d{4}$")
+    assert [form.match(l).group(1) for l in jax_lines] == ["2", "3"]
+    assert [form.match(l).group(1) for l in port_lines] == ["2", "3"]

@@ -8,7 +8,10 @@ std within 10% of its JAX twin's (the draws differ, the laws must not;
 at 1000 samples a std's relative spread is about 2%, so 10% is some five
 spreads), and every tensor that JAX initialises to all zeros is all
 zeros in the port.  The two deconvs' fan_in (27 x in-channels in JAX) is
-the case that moved: torch's own law would draw them sqrt(2) wider.
+the case that moved: torch's own law would draw them sqrt(2) wider.  The
+Jamba and transformer pipelines are held the same way (the stacked MoE
+experts are lecun_normal under both laws), and so is ``JambaLM`` under
+flax's law (its embedding is N(0, 0.02)).
 """
 
 import jax
@@ -19,6 +22,8 @@ import torch
 from gfe_mamba_tpu.losses.perceptual import PerceptualLoss as JaxPerceptual
 from gfe_mamba_tpu.models.discriminator import \
     PatchDiscriminator as JaxPatchDiscriminator
+from gfe_mamba_tpu.models.jamba import JambaConfig as JaxJambaConfig
+from gfe_mamba_tpu.models.jamba import JambaLM as JaxJambaLM
 from gfe_mamba_tpu.models.pipeline import build_gfe_mamba as jax_build
 from gfe_mamba_tpu.models.unet3d import ResidualMidUNet3DViT as JaxGen
 from gfe_mamba_tpu.training.classify_trainer import \
@@ -26,10 +31,12 @@ from gfe_mamba_tpu.training.classify_trainer import \
 from gfe_mamba_tpu.training.gan_trainer import GanTrainer as JaxGanTrainer
 from gfe_mamba_torch.losses.perceptual import PerceptualLoss
 from gfe_mamba_torch.models.discriminator import PatchDiscriminator
+from gfe_mamba_torch.models.jamba import JambaConfig, JambaLM
 from gfe_mamba_torch.models.pipeline import build_gfe_mamba, build_generator
 from gfe_mamba_torch.training.classify_trainer import ClassifyTrainer
 from gfe_mamba_torch.training.gan_trainer import GanTrainer
 from gfe_mamba_torch.utils.convert import state_dict_from_jax
+from gfe_mamba_torch.utils.initializers import init_weights
 
 torch.set_num_threads(2)
 
@@ -73,6 +80,39 @@ def test_pipeline_init_law_matches_jax(law):
     ClassifyTrainer(model, device="cpu", init=law)
     _compare(model.state_dict(), state_dict_from_jax(state.params),
              f"pipeline {law}")
+
+
+# Jamba at depth 3: an attention layer and three 16-expert MoE layers
+MIXERS = {"jamba": dict(CLS, depth=3, heads=8, mixer="jamba"),
+          "transformer": dict(CLS, depth=2, mixer="transformer")}
+
+
+@pytest.mark.parametrize("mixer", list(MIXERS))
+@pytest.mark.parametrize("law", ["torch", "flax"])
+def test_other_mixers_init_law_matches_jax(law, mixer):
+    kw = MIXERS[mixer]
+    trainer = JaxClassifyTrainer(jax_build(**kw, **GEN), init=law)
+    state = jax.jit(lambda key: trainer.init_state(
+        key, jnp.zeros((1, *IMG, 1)), jnp.zeros((1, 3), jnp.int32),
+        jnp.zeros((1, 4))))(jax.random.key(0))
+    model = build_gfe_mamba(img_size=IMG, device="cpu", seed=0, **kw, **GEN)
+    ClassifyTrainer(model, device="cpu", init=law)
+    ref = state_dict_from_jax(state.params)
+    if mixer == "jamba":
+        assert any(k.endswith("moe.experts_down") for k in ref)
+    _compare(model.state_dict(), ref, f"{mixer} pipeline {law}")
+
+
+def test_jamba_lm_init_matches_jax():
+    cfg = dict(d_model=32, n_layers=2, mlp_size=64, vocab_size=64,
+               num_attention_heads=4, num_key_value_heads=2, num_experts=4,
+               attn_layer_offset=0, attn_layer_period=2)
+    model = JaxJambaLM(JaxJambaConfig(**cfg))
+    params = jax.jit(model.init)(jax.random.key(0),
+                                 jnp.zeros((1, 4), jnp.int32))
+    port = JambaLM(JambaConfig(**cfg))
+    init_weights(port, torch.Generator().manual_seed(0), "flax")
+    _compare(port.state_dict(), state_dict_from_jax(params), "JambaLM")
 
 
 @pytest.mark.parametrize("law", ["torch", "flax"])

@@ -33,6 +33,13 @@ CONFIGS = {
     "quick_cge": dict(TINY, dim=32, f_maps=(4, 8, 16), layer_order="cge"),
     # the canonical order at narrow widths: GN and relu fused into K1
     "gcr": dict(TINY, dim=64, f_maps=(8, 16, 32), layer_order="gcr"),
+    # the other mixers: Jamba at depth 3 has an attention layer (layer 4;
+    # 8 query heads over its 8 key/value heads) and 16 experts on layers
+    # 1, 3 and 5; the FT-Transformer encoder
+    "jamba": dict(TINY, dim=64, depth=3, heads=8, f_maps=(8, 16, 32),
+                  layer_order="cge", mixer="jamba"),
+    "transformer": dict(TINY, dim=32, depth=2, f_maps=(4, 8, 16),
+                        layer_order="cge", mixer="transformer"),
 }
 
 
@@ -73,13 +80,16 @@ def test_pipeline_matches_jax(reference):
 
 def test_state_dict_round_trips_through_torch_import(reference):
     """JAX params -> state_dict_from_jax -> torch_import gives back the
-    original trees exactly."""
-    _, params, *_ = reference
+    original trees exactly (the classifier where JAX's importer knows its
+    head: the Mamba one)."""
+    kw, params, *_ = reference
     sd = {k: v.numpy() for k, v in state_dict_from_jax(params).items()}
     tree = params["params"]
-    for part, importer in (("generator", import_generator),
-                           ("combiner", import_combiner),
-                           ("classifier", import_classifier)):
+    importers = [("generator", import_generator),
+                 ("combiner", import_combiner)]
+    if kw.get("mixer", "mamba") == "mamba":
+        importers.append(("classifier", import_classifier))
+    for part, importer in importers:
         sub = {k[len(part) + 1:]: v for k, v in sd.items()
                if k.startswith(part + ".")}
         back = importer(sub, tree[part])
