@@ -69,6 +69,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    parameter and no moment of G or D but advances both Adam counts, and
    a finite step;
 12. the entry points a user runs, through their ``main``, at full width
+   (under the process's own TF32 settings, as a user's run has them)
    over synthetic trees in a temporary directory (configs from
    ``configs/*.yaml``, 1 epoch, bf16): ``main_gan_vit`` (batch 1, 2 steps,
    remat, auto-resume) -> ``classify_mamba`` on its ``model.npz`` (batch
@@ -93,7 +94,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``classify_mamba`` with ``mixer: 'jamba'`` on phase 12's tree and
    Stage-1 npz, ``test_mamba`` on its checkpoint (phase 12's checks), and
    ``ft_table`` for 2 epochs on the synthetic CSV, whose lines must have
-   the JAX script's form.
+   the JAX script's form;
+14. the parallel layer: (a) two gloo ranks on the one card at the
+   canonical width, each at batch 1, dropout off: one Stage-2 step (Mamba
+   head) and one Stage-1 step, against this process stepping the global
+   batch of 2 from the same weights (``compare_dp`` states the bf16
+   tolerances), both ranks' parameters bitwise equal, each rank launching
+   K1, K2, K4 (Stage 2) and K1, K3 (Stage 1), each rank's step time and
+   peak memory logged (gloo through the host on one card, not NCCL data
+   parallelism); (b) the dry run ``python -m
+   gfe_mamba_torch.parallel.dryrun`` at 2 processes on the card (gloo,
+   model axis 2: tensor- and expert-parallel projections on CUDA
+   tensors); (c) ``torchrun --nproc_per_node 1`` (NCCL at world 1) runs
+   the Stage-1 and Stage-2 CLIs on phase 12's tree with ``async_ckpt:
+   true``: their npz files bitwise phase 12's, and ``AutoResume`` over
+   the async manager restores Stage 1's last state; (a)'s one-process
+   references, (b) and (c)'s two runs go at once, each in its own
+   processes.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  K1's ``ms``, ``plain_ms``,
@@ -109,7 +126,9 @@ Stage-1 step (10 calls); K5a's and K5b's per pass over the three widths
 path it serves: K1 and K2 the 3 requests of phase 5, K4 the 3 steps of
 phase 8, K3 (and K1's ``dz_launches``) the 3 steps of phase 9, K5a and
 K5b the 3 calls of phase 10; K2's ``jamba_launches`` the 3 Jamba
-requests of phase 13(b), K4's the 3 Jamba Stage-2 steps of 13(c).
+requests of phase 13(b), K4's the 3 Jamba Stage-2 steps of 13(c);
+``dp_launches`` (K1-K4) rank 0's launches in phase 14(a), K1's summed
+over its Stage-2 and Stage-1 steps.
 """
 
 from __future__ import annotations
@@ -1990,6 +2009,311 @@ def drive_other_mixers(card: str, root: str, phase12: dict) -> dict:
     return dict(k2=k2_jamba, k4=stage2["k4"])
 
 
+def compare_dp(tag: str, dp: dict, one: dict, lrs: dict) -> None:
+    """Phase 14(a)'s check of rank 0's step against one process stepping
+    the global batch from the same weights, both bf16 on the card.  The
+    per-sample forwards are the same work; what differs is the batch the
+    card's GEMMs and K3 sum over and the order of the f32 gradient sums,
+    so: the logged losses within 1e-2 relative (bf16 rounding); Adam's
+    first moments (0.1 x the clipped gradient) within 5e-2 of their norm
+    over each player's whole set of tensors (a missing gradient average,
+    each rank on its own volume, reads 0.5 or more); every parameter
+    within 2 lr of the reference's (Adam's first step moves an entry by
+    about lr x sign(g), and a gradient near 0 may take either sign)."""
+    for key, want in one["logs"][0].items():
+        got = dp["logs"][0][key]
+        rel = abs(got - want) / max(abs(want), 1e-6)
+        log(f"{tag} {key}: two ranks {got:.7g}, one process {want:.7g}, "
+            f"rel {rel:.3e}")
+        if key == "skipped" and got != want or not rel <= 1e-2:
+            raise AssertionError(f"{tag}: {key} differs")
+    for player, moments in one["moments"].items():
+        got = dp["moments"][player]
+        diff = sum(float((got[k].float() - v.float()).square().sum())
+                   for k, v in moments.items())
+        norm = sum(float(v.float().square().sum()) for v in moments.values())
+        worst = max(((got[k].float() - v.float()).norm().item()
+                     / max(v.float().norm().item(), 1e-12), k)
+                    for k, v in moments.items())
+        rel = math.sqrt(diff / max(norm, 1e-30))
+        log(f"{tag} {player}: Adam first moments rel-to-norm {rel:.3e} over "
+            f"{len(moments)} tensors (worst tensor {worst[0]:.3e}, "
+            f"{worst[1]})")
+        if not rel <= 5e-2:
+            raise AssertionError(f"{tag}: {player}'s gradients differ")
+    for player, state in one["params"].items():
+        lr = lrs[player]
+        err = max(float((dp["params"][player][k].float() - v.float())
+                        .abs().max()) for k, v in state.items()
+                  if v.is_floating_point())
+        log(f"{tag} {player}: parameters max |two ranks - one process| "
+            f"{err:.3e} (bound 2 lr = {2 * lr:.1e})")
+        if not err <= 2.0001 * lr:
+            raise AssertionError(f"{tag}: {player}'s parameters differ")
+
+
+def dp_ranks(card: str) -> tuple:
+    """Phase 14(a): two gloo ranks on the one card at the canonical width
+    (160x160x96, bf16, f_maps 64/128/256, dim 512, depth 6), each at batch
+    1 (``parallel/dryrun.py::launch``, ``testing.dp_steps``): one Stage-2
+    step (Mamba head) and one Stage-1 step (adv_on 1), dropout off (each
+    rank draws its own masks).  Returns the jobs and each rank's
+    report."""
+    import numpy as np
+
+    from gfe_mamba_torch import testing
+    from gfe_mamba_torch.parallel.dryrun import launch
+
+    rs = np.random.RandomState(14)
+    jobs = [
+        dict(name="stage2", stage=2, build=dict(img_size=IMG, seed=0,
+                                                cross_ff_dropout=0.0,
+                                                **CANONICAL),
+             trainer={}, keys=("mri", "x_cat", "x_num", "labels"),
+             keep_rank=0, time_allreduce=True, batches=[dict(
+                 mri=rs.randn(2, *IMG, 1).astype(np.float32),
+                 x_cat=rs.randint(0, 6, (2, 8)),
+                 x_num=rs.randn(2, 40).astype(np.float32),
+                 labels=np.asarray([1.0, 0.0], np.float32))]),
+        dict(name="stage1", stage=1, build=dict(
+            img_size=IMG, seed=0, vit_dropout=0.0, vit_emb_dropout=0.0),
+             disc=(3, 32), fake_3d_ratio=0.25, trainer={},
+             keys=("mri", "pet"), extra=(1.0,), keep_rank=0,
+             time_allreduce=True,
+             batches=[dict(mri=rs.randn(2, *IMG, 1).astype(np.float32),
+                           pet=rs.randn(2, *IMG, 1).astype(np.float32))])]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="gfe_dp_") as out:
+        t = time.perf_counter()
+        launch(testing.dp_steps, 2, (out, dict(device="cuda:0", jobs=jobs)),
+               device="cuda:0", backend="gloo", timeout_s=600)
+        wall = time.perf_counter() - t
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    log(f"phase 14(a): two gloo ranks on one card took {wall:.1f} s of wall")
+    return jobs, ranks
+
+
+def check_dp(card: str, jobs: list, ranks: list) -> dict:
+    """Phase 14(a)'s checks: this process steps each job's global batch of
+    2 from the same weights (``testing.run_job``) and :func:`compare_dp`
+    holds rank 0 to it; both ranks' parameters bitwise equal (digests of
+    every tensor); each rank launches K1, K2 and K4 (Stage 2) and K1 and
+    K3 (Stage 1).  Gloo stages its all-reduces through the host, so the
+    step times and peak memory logged describe that, not NCCL data
+    parallelism.  Returns rank 0's launches."""
+    from gfe_mamba_torch import testing
+
+    want = {"stage2": ("K1", "K2", "K4"), "stage1": ("K1", "K3")}
+    for job in jobs:
+        name = job["name"]
+        for r, rank in enumerate(ranks):
+            run = rank[name]
+            log(f"phase 14(a) {name} rank {r}: step {run['step_ms'][0]:.1f} "
+                f"ms (first step, gloo through the host on one card, not "
+                f"NCCL data parallelism), peak "
+                f"{run['peak_bytes'] / 2**30:.2f} GiB, launches "
+                f"{run['launches']}, logs {run['logs'][0]} [{card}]")
+            ar = run["allreduce"]
+            log(f"phase 14(a) {name} rank {r}: the gradient average alone "
+                f"(gloo through the host) {ar['bytes']} bytes, "
+                f"{['%.1f' % v for v in ar['ms']]} ms, "
+                f"{ar['bytes'] / (min(ar['ms']) * 1e6):.2f} GB/s [{card}]")
+            missing = [k for k in want[name] if run["launches"][k] <= 0]
+            if missing:
+                raise AssertionError(f"phase 14(a) {name}: rank {r} never "
+                                     f"launched {missing}")
+        if ranks[0][name]["digests"] != ranks[1][name]["digests"]:
+            raise AssertionError(f"phase 14(a) {name}: the ranks' "
+                                 f"parameters differ")
+        log(f"phase 14(a) {name}: both ranks' {len(ranks[0][name]['digests'])}"
+            f" tensors bitwise equal")
+        t = time.perf_counter()
+        one = testing.run_job({k: v for k, v in job.items()
+                               if k != "keep_rank"}, None,
+                              torch.device("cuda"))
+        torch.cuda.synchronize()
+        log(f"phase 14(a) {name}: one process, global batch 2, "
+            f"{time.perf_counter() - t:.1f} s of wall (build included)")
+        lrs = {"model": 1e-4, "generator": 1e-4, "discriminator": 5e-4}
+        compare_dp(f"phase 14(a) {name}", ranks[0][name], one, lrs)
+        del one
+        torch.cuda.empty_cache()
+    l2, l1 = ranks[0]["stage2"]["launches"], ranks[0]["stage1"]["launches"]
+    return dict(K1=l2["K1"] + l1["K1"], K2=l2["K2"], K3=l1["K3"],
+                K4=l2["K4"])
+
+
+def start(args: list, cwd: str) -> tuple:
+    """``python <args>`` started in ``cwd`` with the repository on the
+    path, its output to a file; ``(process, start time, output file)``."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = tempfile.TemporaryFile(mode="w+")
+    return (subprocess.Popen([sys.executable, *args], cwd=cwd, env=env,
+                             stdout=out, stderr=subprocess.STDOUT,
+                             text=True), time.perf_counter(), out)
+
+
+def finish_all(started: dict, card: str, timeout: float = 600) -> dict:
+    """Wait for every process :func:`start` began; log each one's wall
+    and return each one's output.  One that exits non-zero or outlives
+    ``timeout`` fails the phase (the others are killed)."""
+    walls, t0 = {}, time.perf_counter()
+    try:
+        while len(walls) < len(started):
+            for name, (proc, t, _) in started.items():
+                if name not in walls and proc.poll() is not None:
+                    walls[name] = time.perf_counter() - t
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"phase 14: {sorted(set(started) - set(walls))}"
+                                     f" ran past {timeout} s")
+            time.sleep(0.2)
+    finally:
+        for proc, _, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    outs = {}
+    for name, (proc, _, f) in started.items():
+        f.seek(0)
+        outs[name] = f.read()
+        f.close()
+        log(f"phase 14: {name} {walls[name]:.1f} s of wall, run beside "
+            f"the others [{card}]")
+        if proc.returncode != 0:
+            log(outs[name][-6000:])
+            raise AssertionError(f"phase 14: {name} exited "
+                                 f"{proc.returncode}")
+    return outs
+
+
+def start_dryrun() -> tuple:
+    """Phase 14(b): the dry run (``python -m gfe_mamba_torch.parallel.
+    dryrun``) at 2 processes on the card over gloo with a model axis of
+    2, so its tensor- and expert-parallel projections run on CUDA
+    tensors; widths 8/16/32 (K1 takes multiples of 8)."""
+    return start(["-m", "gfe_mamba_torch.parallel.dryrun", "--procs", "2",
+                  "--model", "2", "--device", "cuda:0", "--backend", "gloo",
+                  "--f_maps", "8,16,32", "--timeout", "300"], REPO)
+
+
+def check_dryrun(out: str) -> None:
+    for line in out.strip().splitlines():
+        log(f"  {line}")
+    if "dryrun(2): ok" not in out or out.count(" ok\n") < 2:
+        raise AssertionError("phase 14(b): the dry run did not pass")
+
+
+def torchrun_configs(root: str, phase12: dict) -> dict:
+    """Phase 12's Stage-1 and Stage-2 configs with ``async_ckpt: true``
+    and a project directory of their own."""
+    w14 = os.path.join(root, "w14")
+    return dict(
+        gan=dict(phase12["configs"]["gan"], async_ckpt=True,
+                 project_dir=w14),
+        cls=dict(phase12["configs"]["cls"], async_ckpt=True,
+                 project_dir=os.path.join(w14, "classifier")))
+
+
+def start_torchrun_clis(root: str, configs: dict) -> dict:
+    """Phase 14(c): ``torchrun --nproc_per_node 1`` (NCCL at world 1) of
+    the Stage-1 and Stage-2 CLIs, both started (Stage 2 loads phase 12's
+    Stage-1 npz, so neither waits for the other)."""
+    out = {}
+    for name, module in (("gan", "main_gan_vit"), ("cls", "classify_mamba")):
+        path = os.path.join(root, f"p14_{name}.yaml")
+        with open(path, "w") as f:
+            f.write(yaml_text(configs[name]))
+        out[f"torchrun {module}"] = start(
+            ["-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", f"gfe_mamba_torch.cli.{module}",
+             "--config_path", path], root)
+    return out
+
+
+def check_torchrun_clis(root: str, configs: dict, phase12: dict) -> None:
+    """Phase 14(c)'s checks: the npz files the torchrun runs wrote are
+    bitwise phase 12's, and ``AutoResume`` over the async manager's
+    snapshots restores Stage 1's last state (phase 12's generator,
+    bitwise)."""
+    import numpy as np
+
+    from gfe_mamba_torch.training.resilience import AutoResume
+
+    w14 = configs["gan"]["project_dir"]
+    cls_dir = configs["cls"]["project_dir"]
+    pairs = [("model_save/model.npz", os.path.join(root, "w"), w14)] + [
+        (f"model_current/{f}", phase12["configs"]["cls"]["project_dir"],
+         cls_dir) for f in ("model_current.npz", "ft_model_current.npz")]
+    unequal = []
+    for rel, plain, ranked in pairs:
+        a = np.load(os.path.join(only_run(plain), rel))
+        b = np.load(os.path.join(only_run(ranked), rel))
+        differ = sorted(k for k in a.files
+                        if k not in b.files or not np.array_equal(a[k], b[k]))
+        log(f"phase 14(c): {rel}: {len(a.files) - len(differ)} of "
+            f"{len(a.files)} arrays bitwise phase 12's" + "".join(
+                f"; {k} max |diff| "
+                f"{float(np.abs(a[k] - b[k]).max()) if k in b.files else 'missing'}"
+                for k in differ[:5]))
+        if differ or sorted(a.files) != sorted(b.files):
+            unequal.append(rel)
+    if unequal:
+        raise AssertionError(f"phase 14(c): {unequal} under torchrun are "
+                             f"not phase 12's, bitwise")
+    steps = sorted(os.listdir(os.path.join(only_run(w14), "model_save")))
+    auto = AutoResume(os.path.join(w14, "autoresume_main_gan_vit"),
+                      async_save=True)
+    step, payload = auto.restore_latest()
+    if payload is None or payload["epoch"] != 1 or not states_equal(
+            payload["gan"]["generator"], phase12["g_end"]):
+        raise AssertionError(f"phase 14(c): AutoResume over the async "
+                             f"manager restored step {step}, not Stage 1's "
+                             f"last state")
+    log(f"phase 14(c): model_save holds {steps}; AutoResume over the async "
+        f"manager restores step {step}, epoch {payload['epoch']}, the "
+        f"generator bitwise phase 12's last state")
+
+
+@contextlib.contextmanager
+def tf32_settings(cudnn: bool, matmul: bool):
+    """cuDNN's and cuBLAS's TF32 switches set for the block, then put
+    back."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def drive_parallel(card: str, root: str, phase12: dict) -> dict:
+    """Phase 14: the parallel layer on the card; returns rank 0's launches
+    in 14(a)."""
+    t0 = time.perf_counter()
+    jobs, ranks = dp_ranks(card)
+    # (b), the two runs of (c) and (a)'s one-process references are
+    # independent: all at once on the card (their walls overlap)
+    configs = torchrun_configs(root, phase12)
+    procs = {"dry run": start_dryrun(),
+             **start_torchrun_clis(root, configs)}
+    try:
+        launches = check_dp(card, jobs, ranks)
+    except BaseException:
+        for proc, _, _ in procs.values():
+            proc.kill()
+            proc.wait()
+        raise
+    outs = finish_all(procs, card)
+    check_dryrun(outs["dry run"])
+    check_torchrun_clis(root, configs, phase12)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s of wall [{card}]")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -2007,6 +2331,11 @@ def main() -> int:
             if any(k in line for k in ("entry function", "registers",
                                        "spill")):
                 log(f"  {name}: {line.strip()}")
+
+    # the process's own TF32 settings, before the parity checks turn
+    # TF32 off: the CLIs of phase 12 run under them, as a user's do
+    defaults = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_k1(gen), check_k2(gen)]
@@ -2031,10 +2360,14 @@ def main() -> int:
     check_skipped_step()
     check_skipped_gan_step()
     with tempfile.TemporaryDirectory(prefix="gfe_cli_") as root:
-        phase12 = drive_clis(card, root)
+        with tf32_settings(*defaults):
+            phase12 = drive_clis(card, root)
         other = drive_other_mixers(card, root, phase12)
+        dp = drive_parallel(card, root, phase12)
     kernels[1]["jamba_launches"] = other["k2"]
     k4["jamba_launches"] = other["k4"]
+    for k, name in zip(kernels[:2] + [k4, k3], ("K1", "K2", "K4", "K3")):
+        k["dp_launches"] = dp[name]
     log(f"Stage-2 ms/step {stage2['step_ms']}, Stage-1 ms/step "
         f"{stage1['step_ms']} [{card}]")
     for k in kernels:

@@ -3,6 +3,7 @@ of ``classify_mamba.py``:
 
     python -m gfe_mamba_torch.cli.classify_mamba \\
         --config_path configs/classify_mamba_config.yaml [--device cpu]
+    torchrun --nproc_per_node N -m gfe_mamba_torch.cli.classify_mamba ...
 
 The same YAML keys and the same files; ``mixer`` picks the classifier
 (``mamba``, ``jamba`` or ``transformer``), ``attn_dropout`` and
@@ -16,8 +17,14 @@ then lower loss), writes ``model_best/best_model.npz`` (combiner) and
 ``model_current/model_current.npz`` and ``ft_model_current.npz``; all in
 the JAX package's npz keys.  ``table_preprocessor.json`` holds the
 fitted table transform.  ``table_path: ''`` trains without the table
-(zero-width categorical and numerical inputs).  One process:
-``WORLD_SIZE > 1`` and ``async_ckpt: true`` raise.
+(zero-width categorical and numerical inputs).  ``async_ckpt: true``
+also keeps the combiner, the classifier (JAX keys) and the epoch at each
+save in ``model_save/step_<epoch>`` through an ``AsyncCheckpointManager``
+(``ckpt_keep`` newest, ``ckpt_keep_best`` by validation accuracy).
+
+Under ``torchrun`` (``cli/common.py``) every rank trains on its rows of
+each global batch of ``train_bc``; rank 0 alone validates and writes
+(npz, logs, the table transform) while the others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -27,27 +34,34 @@ import time
 import numpy as np
 import torch
 
-from gfe_mamba_torch import resolve_device
-from gfe_mamba_torch.cli.common import (build_pipeline, check_single_process,
-                                        evaluate, load_weights,
-                                        parse_args, table_inputs)
+from gfe_mamba_torch.cli.common import (build_pipeline, evaluate,
+                                        experiment_dir, load_weights,
+                                        parse_args, start_processes,
+                                        table_inputs, wait_for_main)
 from gfe_mamba_torch.config import load_config
 from gfe_mamba_torch.data.datasets import classi_dataloader
-from gfe_mamba_torch.training.checkpoint import BestTracker, save_params_npz
+from gfe_mamba_torch.parallel import multihost
+from gfe_mamba_torch.parallel.mesh import replicate
+from gfe_mamba_torch.training.checkpoint import (AsyncCheckpointManager,
+                                                 BestTracker,
+                                                 save_params_npz)
 from gfe_mamba_torch.training.classify_trainer import ClassifyTrainer
 from gfe_mamba_torch.training.resilience import StrikeCounter
-from gfe_mamba_torch.utils.experiment import (ExperimentDir,
-                                              count_parameters,
-                                              save_plot_data)
+from gfe_mamba_torch.utils.convert import jax_tree_from_state_dict
+from gfe_mamba_torch.utils.experiment import count_parameters, save_plot_data
 
 
-def build_loaders(cf: dict):
+def build_loaders(cf: dict, train_bc: int | None = None,
+                  process_shard=None):
+    """The train loader (``train_bc`` rows per process, default the
+    config's, and its ``process_shard``) and the validation loader."""
     img_sz = tuple(cf["img_sz"])
     common = dict(days_threshold=cf.get("days_threshold", -1),
                   num_workers=cf.get("num_workers", 2))
     train_loader = classi_dataloader(
-        cf["train_path"], img_sz, cf["train_bc"], cf["table_path"],
-        shuffle=True, seed=cf.get("seed", 0), **common)
+        cf["train_path"], img_sz, train_bc or cf["train_bc"],
+        cf["table_path"], shuffle=True, seed=cf.get("seed", 0),
+        process_shard=process_shard, **common)
     val_loader = classi_dataloader(
         cf["eval_path"], img_sz, cf["eval_bc"], cf["table_path"],
         shuffle=False, **common)
@@ -58,28 +72,32 @@ def main(args) -> dict:
     """Train; returns the trainer, the run directory, each step's wall
     milliseconds, the loaders and the last validation."""
     cf = load_config(args.config_path)
-    check_single_process(cf)
-    device = resolve_device(args.device)
-    exp = ExperimentDir(args.config_path,
-                        cf.get("project_dir", "weights/classifier"),
-                        is_debug=cf.get("is_debug", False),
-                        log_with=cf.get("log_with", ""),
-                        program_name="classify_mamba")
-    train_loader, val_loader = build_loaders(cf)
+    device, mesh, local_bc, shard = start_processes(args, cf)
+    main_rank = multihost.is_main_process()
+    exp = experiment_dir(args.config_path, cf, "weights/classifier",
+                         "classify_mamba")
+    train_loader, val_loader = build_loaders(cf, local_bc, shard)
     dataset = train_loader.dataset
     model = build_pipeline(cf, dataset, device)
     trainer = ClassifyTrainer(
         model, lr=cf.get("lr", 1e-4), grad_clip=cf.get("grad_clip", 1.0),
         mixed_precision=cf.get("mixed_precision", "bf16"), device=device,
-        seed=cf.get("seed", 0), init=cf.get("cls_init", "torch"))
+        seed=cf.get("seed", 0), init=cf.get("cls_init", "torch"), mesh=mesh)
     if cf.get("gan_ckpt"):
         load_weights(cf["gan_ckpt"], model.generator)
-        print(f"loaded Stage-1 generator from {cf['gan_ckpt']}", flush=True)
+        if main_rank:
+            print(f"loaded Stage-1 generator from {cf['gan_ckpt']}",
+                  flush=True)
+    replicate(model)
 
     exp.write(f"The size of model: {count_parameters(model)} \n")
-    if not exp.is_debug and dataset.table is not None:
+    if main_rank and not exp.is_debug and dataset.table is not None:
         with open(exp.path("table_preprocessor.json"), "w") as f:
             f.write(dataset.preprocessor.to_json())
+    ckpt = AsyncCheckpointManager(
+        exp.path("model_save"), max_to_keep=cf.get("ckpt_keep", 3),
+        keep_best=cf.get("ckpt_keep_best", 1)) \
+        if cf.get("async_ckpt", False) else None
 
     best = BestTracker()
     global_step = 0
@@ -95,7 +113,7 @@ def main(args) -> dict:
                 torch.from_numpy(np.asarray(batch["label"])))
             step_ms.append((time.perf_counter() - t) * 1e3)
             strikes.update(logs.pop("skipped"))
-            if global_step % cf.get("log_every", 10) == 0:
+            if global_step % cf.get("log_every", 10) == 0 and main_rank:
                 exp.log_scalars(logs, global_step)
                 print(f"epoch {epoch + 1}: " +
                       " ".join(f"{k}={v:.4f}" for k, v in logs.items()),
@@ -103,7 +121,11 @@ def main(args) -> dict:
             global_step += 1
 
         last = epoch == num_epochs - 1
-        if (epoch + 1) % cf["val_inter"] == 0 or last:
+        do_val = (epoch + 1) % cf["val_inter"] == 0 or last
+        do_save = not exp.is_debug and ((epoch + 1) % cf["save_inter"] == 0
+                                        or last)
+        accuracy = None
+        if do_val and main_rank:
             last_val = evaluate(trainer, val_loader)
             m, val_loss = last_val["metrics"], last_val["val_loss"]
             if not exp.is_debug:
@@ -124,14 +146,27 @@ def main(args) -> dict:
                 save_params_npz(exp.path("model_best", "best_ft_model.npz"),
                                 model.classifier)
                 print("Saved best model", flush=True)
-        if not exp.is_debug and ((epoch + 1) % cf["save_inter"] == 0
-                                 or last):
-            save_params_npz(exp.path("model_current", "model_current.npz"),
-                            model.combiner)
-            save_params_npz(exp.path("model_current",
-                                     "ft_model_current.npz"),
-                            model.classifier)
-            print("Saved model", flush=True)
+        if do_save:
+            # collective: every rank gathers, rank 0 writes
+            parts = {p: multihost.host_local(getattr(model, p))
+                     for p in ("combiner", "classifier")}
+            if main_rank:
+                save_params_npz(exp.path("model_current",
+                                         "model_current.npz"),
+                                parts["combiner"])
+                save_params_npz(exp.path("model_current",
+                                         "ft_model_current.npz"),
+                                parts["classifier"])
+                print("Saved model", flush=True)
+            if ckpt is not None:
+                ckpt.save(epoch + 1, {
+                    **{p: jax_tree_from_state_dict(state)
+                       for p, state in parts.items()}, "epoch": epoch},
+                    metric=accuracy)
+        if do_val or do_save:
+            wait_for_main(cf)
+    if ckpt is not None:
+        ckpt.close()
     exp.close()
     return dict(trainer=trainer, exp_dir=exp.root, step_ms=step_ms,
                 train_loader=train_loader, val_loader=val_loader,
@@ -141,3 +176,4 @@ def main(args) -> dict:
 if __name__ == "__main__":
     main(parse_args("Stage-2 classifier training (PyTorch port)",
                     "configs/classify_mamba_config.yaml"))
+    multihost.shutdown()

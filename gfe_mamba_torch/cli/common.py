@@ -1,20 +1,40 @@
-"""What the three entry points share: the device argument, the config
-keys that size the generator, the pipeline built from a dataset, the
-table inputs of a batch and the checkpoint formats a generator loads
-from."""
+"""What the entry points share: the device argument, the process group
+of a multi-process run and the per-process batch, the run directory
+(written by rank 0 only), the config keys that size the generator, the
+pipeline built from a dataset, the table inputs of a batch and the
+checkpoint formats a generator loads from.
+
+The two training CLIs run under a launcher as they run alone:
+
+    torchrun --nproc_per_node 4 -m gfe_mamba_torch.cli.main_gan_vit \
+        --config_path <yaml>
+
+Each process takes ``cuda:LOCAL_RANK`` (NCCL; ``--device cpu``: gloo),
+``train_bc / WORLD_SIZE`` rows of every global batch (``train_bc`` must
+divide) and averages its gradients with the others'.  A process group
+that fails to form raises; nothing falls back to one process.
+``barrier_timeout`` (seconds, default 3600) bounds how long the other
+ranks wait while rank 0 validates and writes."""
 
 from __future__ import annotations
 
 import argparse
-import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from gfe_mamba_torch.parallel import multihost
+from gfe_mamba_torch.parallel.mesh import make_mesh
 from gfe_mamba_torch.training.checkpoint import load_params_npz
+from gfe_mamba_torch.utils.experiment import ExperimentDir
 
+# the JAX CLIs' generator keys, and the ViT's dropout rates (a port-only
+# pair: JAX draws one mask over the global batch, the port one per rank,
+# so a multi-process run equals a one-process run only with them at 0)
 GENERATOR_KEYS = ("fold_factor", "vit_patch_size", "vit_dim", "vit_depth",
-                  "vit_heads", "vit_mlp_dim")
+                  "vit_heads", "vit_mlp_dim", "vit_dropout",
+                  "vit_emb_dropout")
 
 
 def parse_args(description: str, default_config: str,
@@ -27,18 +47,41 @@ def parse_args(description: str, default_config: str,
     return parser.parse_args(argv)
 
 
-def check_single_process(cf: dict) -> None:
-    """The port runs one process; data parallelism and async checkpoints
-    are not ported yet, and neither is ignored."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world > 1:
-        raise NotImplementedError(
-            f"WORLD_SIZE={world}: multi-process training is not ported "
-            f"yet (ROADMAP A.6)")
-    if cf.get("async_ckpt", False):
-        raise NotImplementedError(
-            "async_ckpt: true: asynchronous checkpointing is not ported "
-            "yet (ROADMAP A.7)")
+def start_processes(args, cf: dict):
+    """Join the launcher's process group (``parallel/multihost.py``; a
+    no-op alone) and lay every rank on the data axis, as the JAX CLIs'
+    ``make_mesh()`` does.  Returns ``(device, mesh, local train batch,
+    loader process_shard)``; ``mesh`` is None in a single process."""
+    device = multihost.initialize(args.device)
+    mesh = make_mesh() if dist.is_initialized() else None
+    nproc = multihost.process_count()
+    if cf["train_bc"] % nproc:
+        raise ValueError(f"train_bc {cf['train_bc']} not divisible by "
+                         f"{nproc} processes")
+    shard = (multihost.process_index(), nproc) if nproc > 1 else None
+    return device, mesh, cf["train_bc"] // nproc, shard
+
+
+def experiment_dir(config_path: str, cf: dict, project_dir: str,
+                   program_name: str) -> ExperimentDir:
+    """The run directory: made and written by rank 0 only, its path
+    broadcast to the other ranks."""
+    exp = ExperimentDir(config_path, cf.get("project_dir", project_dir),
+                        is_debug=cf.get("is_debug", False),
+                        log_with=cf.get("log_with", ""),
+                        program_name=program_name,
+                        writer=multihost.is_main_process())
+    if dist.is_initialized():
+        root = [exp.root]
+        dist.broadcast_object_list(root, 0)
+        exp.root = root[0]
+    return exp
+
+
+def wait_for_main(cf: dict) -> None:
+    """The other ranks wait here while rank 0 validates or writes (a
+    barrier with the config's ``barrier_timeout``)."""
+    multihost.barrier(cf.get("barrier_timeout", 3600))
 
 
 def generator_kwargs(cf: dict, remat_default: bool) -> dict:
@@ -50,8 +93,9 @@ def generator_kwargs(cf: dict, remat_default: bool) -> dict:
 
 def build_pipeline(cf: dict, dataset, device):
     """``build_gfe_mamba`` from the classify config keys (``mixer``,
-    ``attn_dropout`` and ``ff_dropout`` among them), f32 weights drawn
-    from ``seed`` under the torch law."""
+    ``attn_dropout`` and ``ff_dropout`` among them, and the port-only
+    ``cross_ff_dropout``), f32 weights drawn from ``seed`` under the torch
+    law."""
     from gfe_mamba_torch.models.pipeline import build_gfe_mamba
     return build_gfe_mamba(
         categories=dataset.num_cat, num_continuous=dataset.num_cont,
@@ -59,6 +103,7 @@ def build_pipeline(cf: dict, dataset, device):
         dim_out=cf.get("dim_out", 1),
         attn_dropout=cf.get("attn_dropout", 0.1),
         ff_dropout=cf.get("ff_dropout", 0.1),
+        cross_ff_dropout=cf.get("cross_ff_dropout", 0.1),
         seq_length=cf.get("seq_length", 4),
         mixer=cf.get("mixer", "mamba"), seed=cf.get("seed", 0),
         device=device, **generator_kwargs(cf, remat_default=False))

@@ -358,3 +358,16 @@ class ClassifyConfig:
     @classmethod
     def from_yaml(cls, path: str) -> "ClassifyConfig":
         return _from_flat(cls, load_config(path))
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The (data, model) process grid (``parallel/mesh.py::make_mesh``);
+    -1 means "all remaining ranks".  The default is pure data parallelism
+    over every process (the reference's only strategy, torch DDP --
+    main_gan_vit.py:31,54-56); a ``model`` axis splits the large ViT
+    patch-embedding, cross-attention K/V and MoE expert kernels
+    (``parallel/sharding.py``)."""
+
+    data: int = -1
+    model: int = 1

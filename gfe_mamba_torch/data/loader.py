@@ -42,11 +42,19 @@ class DataLoader:
       prefetch: batches to keep in flight (>=1 enables the background
         producer thread)
       seed: shuffle seed; epoch counter advances it deterministically
+      process_shard: optional (process_index, process_count) of a
+        multi-process run: every process builds the SAME global shuffle
+        (the seed must match across processes) and loads only its
+        contiguous block of each global batch, so ``batch_size`` here is
+        the PER-PROCESS batch and ``len`` counts global batches;
+        ``drop_last`` is required (every rank must take the same number
+        of steps on batches of one shape)
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 0,
-                 prefetch: int = 2, seed: int = 0):
+                 prefetch: int = 2, seed: int = 0,
+                 process_shard: "tuple[int, int] | None" = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -55,20 +63,39 @@ class DataLoader:
         self.prefetch = prefetch
         self.seed = seed
         self.epoch = 0
+        if process_shard is not None:
+            pid, nproc = process_shard
+            if not 0 <= pid < nproc:
+                raise ValueError(f"bad process_shard {process_shard}")
+            if not drop_last:
+                raise ValueError(
+                    "process_shard requires drop_last=True: every process "
+                    "must step on batches of the same shape")
+        self.process_shard = process_shard
         # seconds the consumer waited for its batches, and their count
         self.wait_s, self.batches = 0.0, 0
 
     def __len__(self) -> int:
         n = len(self.dataset)
+        global_bs = self.batch_size * (
+            self.process_shard[1] if self.process_shard else 1)
         if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+            return n // global_bs
+        return (n + global_bs - 1) // global_bs
 
     def _index_batches(self):
         order = np.arange(len(self.dataset))
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self.epoch)
             rng.shuffle(order)
+        if self.process_shard is not None:
+            pid, nproc = self.process_shard
+            global_bs = self.batch_size * nproc
+            for start in range(0, len(order) - global_bs + 1, global_bs):
+                chunk = order[start:start + global_bs]
+                yield chunk[pid * self.batch_size:
+                            (pid + 1) * self.batch_size]
+            return
         for start in range(0, len(order), self.batch_size):
             chunk = order[start:start + self.batch_size]
             if len(chunk) < self.batch_size and self.drop_last:

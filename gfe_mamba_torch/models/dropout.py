@@ -7,6 +7,12 @@ the module is the identity.  The mask comes from the generator that
 torch's global RNG: a module in train mode with p > 0 and no generator
 raises.  The two frameworks draw different bits from the same seed, so
 parity tests run with p = 0.
+
+Under data parallelism each data rank draws its own masks over its own
+rows, from a generator seeded by :func:`rank_seed` (JAX draws one mask
+over the global batch: the one departure of the port's multi-process
+training from JAX's).  The ranks of one data index (a tensor-parallel
+row) share the seed, so their replicated activations stay equal.
 """
 
 from __future__ import annotations
@@ -42,3 +48,10 @@ def seed_dropout(module: nn.Module, generator: torch.Generator) -> None:
     for mod in module.modules():
         if isinstance(mod, Dropout):
             mod.generator = generator
+
+
+def rank_seed(seed: int, data_rank: int) -> int:
+    """The dropout seed of data rank ``data_rank``: ``seed`` itself at
+    rank 0 (a one-process run draws what it always drew), a distinct
+    64-bit seed elsewhere."""
+    return (seed + (data_rank << 32)) % (1 << 64)

@@ -28,6 +28,8 @@ from torch import nn
 from gfe_mamba_torch.models.attention import _heads, _merge
 from gfe_mamba_torch.models.dropout import Dropout
 from gfe_mamba_torch.models.mamba import MambaBlock, MambaConfig, RMSNorm
+from gfe_mamba_torch.parallel.collectives import (copy_to_model,
+                                                  reduce_from_model)
 
 
 @dataclass(frozen=True)
@@ -154,7 +156,16 @@ class MLP(nn.Module):
 class SparseMoEBlock(nn.Module):
     """Top-k routed SwiGLU experts, dense dispatch.  Returns the output
     and the router logits ``(B*L, E)``; with one expert, a plain
-    :class:`MLP` (``expert``) and ones ``(B*L, 1)``."""
+    :class:`MLP` (``expert``) and ones ``(B*L, 1)``.
+
+    Expert parallel (``parallel/sharding.py`` sets ``ep_group`` and
+    ``ep_index`` and leaves this rank's slice of the experts): the router
+    runs whole on every rank, the dense dispatch runs over this rank's
+    experts with their gates, and the partial outputs are all-reduced over
+    the model group."""
+
+    ep_group = None
+    ep_index = 0
 
     def __init__(self, d_model: int, num_experts: int,
                  num_experts_per_tok: int, mlp_size: int):
@@ -181,10 +192,16 @@ class SparseMoEBlock(nn.Module):
         top_w, top_i = weights.topk(self.k, dim=-1)
         gates = torch.zeros_like(weights).scatter(-1, top_i, top_w) \
             .to(x.dtype)
+        if self.ep_group is not None:
+            local = self.experts_gate.shape[0]
+            x = copy_to_model(x, self.ep_group)
+            gates = copy_to_model(gates, self.ep_group).narrow(
+                -1, self.ep_index * local, local)
         g = torch.einsum("bld,edf->belf", x, self.experts_gate)
         u = torch.einsum("bld,edf->belf", x, self.experts_up)
         y = torch.einsum("belf,efd->beld", F.silu(g) * u, self.experts_down)
-        out = torch.einsum("beld,ble->bld", y, gates)
+        out = reduce_from_model(torch.einsum("beld,ble->bld", y, gates),
+                                self.ep_group)
         return out, router_logits.reshape(bsz * seq, self.num_experts)
 
 

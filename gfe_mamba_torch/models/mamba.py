@@ -129,8 +129,16 @@ class MambaBlock(nn.Module):
         x = F.silu(x)
         A = -torch.exp(self.A_log.float())
         delta, B, C = self._delta_bc(x)
-        delta = F.linear(delta, self.dt_proj.weight)
-        return [x, delta, A, B, C, self.D, z, self.dt_proj.bias]
+        return [x, self._dt_matmul(delta), A, B, C, self.D, z,
+                self.dt_proj.bias]
+
+    def _dt_matmul(self, delta: torch.Tensor) -> torch.Tensor:
+        """dt_proj without its bias, which the scan adds in f32; a
+        tensor-parallel dt_proj (``parallel/sharding.py``) is asked to
+        leave it out too."""
+        if type(self.dt_proj) is nn.Linear:
+            return F.linear(delta, self.dt_proj.weight)
+        return self.dt_proj(delta, add_bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = selective_scan(*self.scan_operands(x), delta_softplus=True)
@@ -150,8 +158,7 @@ class MambaBlock(nn.Module):
         x = F.silu(x)
         A = -torch.exp(self.A_log.float())
         delta, B, C = self._delta_bc(x)
-        delta = F.softplus(F.linear(delta, self.dt_proj.weight,
-                                    self.dt_proj.bias))
+        delta = F.softplus(self.dt_proj(delta))
         y, h = selective_scan_step(h, x, delta, A, B, C, self.D)
         y = y.to(z.dtype) * F.silu(z)
         return self.out_proj(y), (h, window[:, 1:].to(conv_in.dtype))

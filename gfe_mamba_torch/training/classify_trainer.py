@@ -8,17 +8,31 @@ Adam over the combiner and classifier only.  A step whose loss or any
 gradient is not finite moves neither the parameters nor Adam's moments;
 Adam's step count still advances, as optax's integer count does under
 the JAX trainer's finite guard.
+
+With a ``mesh`` (``parallel/mesh.py``) each rank steps on its own rows
+of the global batch.  The gradients are averaged over the data group
+before the finite check and the clip, so every rank takes the same skip
+decision and the same update; the logged loss and accuracy are the
+global batch's.  Parameters that ``parallel/sharding.py`` split over the
+model group are clipped by the norm of the whole tensor.  The port's
+gradients come from ``torch.autograd.grad``, so DDP's reducer hooks
+would never fire: the all-reduce is the trainer's own.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
 from gfe_mamba_torch import resolve_device
-from gfe_mamba_torch.models.dropout import seed_dropout
+from gfe_mamba_torch.models.dropout import rank_seed, seed_dropout
 from gfe_mamba_torch.models.pipeline import GFEMamba
+from gfe_mamba_torch.parallel.collectives import (all_reduce_mean_,
+                                                  all_true, mean_over)
+from gfe_mamba_torch.parallel.sharding import sharded_state
 from gfe_mamba_torch.training.metrics import (confusion_counts,
                                               metrics_from_counts)
 from gfe_mamba_torch.training.optim import (advance_adam_count_, all_finite,
@@ -36,11 +50,15 @@ class ClassifyTrainer:
     init law of step 0 (``utils/initializers.py``): ``"torch"`` keeps the
     weights ``build_gfe_mamba`` drew under that law, ``"flax"`` draws the whole
     model again from ``seed`` under flax's, as the JAX trainer's
-    ``init_state`` does; weights loaded afterwards win."""
+    ``init_state`` does; weights loaded afterwards win.  ``mesh``: the
+    process grid of a multi-process run (module docstring); the model's
+    parameters must be equal on every rank, and split (if at all) before
+    the trainer is built."""
 
     def __init__(self, model: GFEMamba, lr: float = 1e-4,
                  grad_clip: float = 1.0, mixed_precision: str = "bf16",
-                 device=None, seed: int = 0, init: str = "torch"):
+                 device=None, seed: int = 0, init: str = "torch",
+                 mesh=None):
         if check_law(init) == "flax":
             init_weights(model, torch.Generator().manual_seed(seed), "flax")
         self.device = resolve_device(device)
@@ -52,7 +70,13 @@ class ClassifyTrainer:
         self.grad_clip = grad_clip
         self.dtype = compute_dtype(mixed_precision)
         self.frozen, self._frozen_key, self._frozen_from = {}, None, None
-        self.rng = torch.Generator(device=self.device).manual_seed(seed)
+        self.mesh = mesh
+        self.data_group = mesh.data_group if mesh is not None else None
+        split = sharded_state(model)
+        self.splits = {i: split[n][1] for i, n in enumerate(self.trainable)
+                       if n in split}
+        self.rng = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed, mesh.data_index if mesh is not None else 0))
         seed_dropout(model, self.rng)
         self.step = 0
 
@@ -82,18 +106,32 @@ class ClassifyTrainer:
                                  (mri.to(self.dtype), x_cat, x_num))
         return logits.float().squeeze(-1)
 
-    def train_step(self, mri, x_cat, x_num, labels) -> dict[str, float]:
-        """One update; returns ``{"cla_loss", "batch_acc", "skipped"}``."""
+    def gradients(self, mri, x_cat, x_num, labels):
+        """The loss's gradients of the trainable parameters (in their
+        order), averaged over the data group, and ``{"cla_loss",
+        "batch_acc"}`` of the global batch; no update."""
         mri, x_cat, x_num, labels = self._inputs(mri, x_cat, x_num, labels)
         labels = labels.float()
         self.model.train()
         logits = self._logits(mri, x_cat, x_num)
         loss = F.binary_cross_entropy_with_logits(logits, labels)
+        grads = list(torch.autograd.grad(loss, list(self.trainable.values()),
+                                         materialize_grads=True))
+        all_reduce_mean_(grads, self.data_group)
+        acc = ((torch.sigmoid(logits) >= 0.5) == (labels >= 0.5)).float()
+        loss, acc = mean_over([float(loss.detach()), float(acc.mean())],
+                              self.data_group, self.device)
+        return grads, {"cla_loss": loss, "batch_acc": acc}
+
+    def train_step(self, mri, x_cat, x_num, labels) -> dict[str, float]:
+        """One update; returns ``{"cla_loss", "batch_acc", "skipped"}``."""
+        grads, logs = self.gradients(mri, x_cat, x_num, labels)
         trainable = list(self.trainable.values())
-        grads = torch.autograd.grad(loss, trainable, materialize_grads=True)
-        ok = all_finite([loss, *grads])
+        ok = math.isfinite(logs["cla_loss"]) and all_finite(grads)
+        if self.mesh is not None and self.mesh.model_size > 1:
+            ok = all_true(ok, self.device)
         if ok:
-            clip_by_param_norm_(grads, self.grad_clip)
+            clip_by_param_norm_(grads, self.grad_clip, self.splits)
             for p, g in zip(trainable, grads):
                 p.grad = g
             self.optimizer.step()
@@ -101,10 +139,7 @@ class ClassifyTrainer:
         else:
             advance_adam_count_(self.optimizer, trainable)
         self.step += 1
-        acc = ((torch.sigmoid(logits) >= 0.5) == (labels >= 0.5)).float()
-        return {"cla_loss": float(loss.detach()),
-                "batch_acc": float(acc.mean()),
-                "skipped": 0.0 if ok else 1.0}
+        return {**logs, "skipped": 0.0 if ok else 1.0}
 
     @torch.no_grad()
     def eval_step(self, mri, x_cat, x_num, labels):

@@ -20,6 +20,15 @@ trainer's finite guard (which runs after D's warm-up gate).
 microbatches of the batch; ``d_fresh_recon`` trains D on a second,
 no-grad generator forward with the updated G (the reference loop's
 order) instead of the shared reconstruction.
+
+With a ``mesh`` (``parallel/mesh.py``) each rank steps on its own rows
+of the global batch: both players' gradients are averaged over the data
+group, and the logged losses are the global batch's means, before the
+finite check and G's clip, so every rank skips the same steps and takes
+the same update (the gradients come from ``torch.autograd.grad``, so
+DDP's hooks would never fire).  G's global norm counts a parameter that
+``parallel/sharding.py`` split over the model group once, whole, and a
+replicated one once.
 """
 
 from __future__ import annotations
@@ -33,7 +42,10 @@ from torch.func import functional_call
 
 from gfe_mamba_torch import resolve_device
 from gfe_mamba_torch.losses.gan import patch_adversarial_loss
-from gfe_mamba_torch.models.dropout import seed_dropout
+from gfe_mamba_torch.models.dropout import rank_seed, seed_dropout
+from gfe_mamba_torch.parallel.collectives import (all_reduce_mean_,
+                                                  all_true, mean_over)
+from gfe_mamba_torch.parallel.sharding import sharded_state
 from gfe_mamba_torch.training.optim import (advance_adam_count_, all_finite,
                                             cast_for_compute,
                                             clip_by_global_norm_,
@@ -48,7 +60,10 @@ class GanTrainer:
     law (``utils/initializers.py``): ``"torch"`` keeps the weights
     ``build_generator`` drew under that law, ``"flax"`` draws them again from
     ``seed`` under flax's; the discriminator keeps its own (DCGAN) law
-    under both, as in the JAX trainer."""
+    under both, as in the JAX trainer.  ``mesh``: the process grid of a
+    multi-process run (module docstring); both players' parameters must
+    be equal on every rank, and split (if at all) before the trainer is
+    built."""
 
     def __init__(self, generator: nn.Module, discriminator: nn.Module,
                  perceptual_loss: nn.Module, lr_g: float = 1e-4,
@@ -56,7 +71,7 @@ class GanTrainer:
                  perceptual_weight: float = 0.001, grad_clip: float = 1.0,
                  mixed_precision: str = "bf16", accum_steps: int = 1,
                  d_fresh_recon: bool = False, device=None, seed: int = 0,
-                 g_init: str = "torch"):
+                 g_init: str = "torch", mesh=None):
         self.accum = max(1, accum_steps)
         if d_fresh_recon and self.accum > 1:
             raise ValueError("d_fresh_recon requires accum_steps == 1")
@@ -77,7 +92,13 @@ class GanTrainer:
         self.grad_clip = grad_clip
         self.d_fresh_recon = d_fresh_recon
         self.dtype = compute_dtype(mixed_precision)
-        self.rng = torch.Generator(device=self.device).manual_seed(seed)
+        self.mesh = mesh
+        self.data_group = mesh.data_group if mesh is not None else None
+        split = sharded_state(generator)
+        self.g_splits = {i: split[n][1] for i, n in enumerate(self.g_params)
+                         if n in split}
+        self.rng = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed, mesh.data_index if mesh is not None else 0))
         seed_dropout(generator, self.rng)
         self.step = 0
 
@@ -117,20 +138,41 @@ class GanTrainer:
         opt.zero_grad(set_to_none=True)
 
     def _step_g(self, grads) -> None:
-        clip_by_global_norm_(grads, self.grad_clip)
+        clip_by_global_norm_(grads, self.grad_clip, self.g_splits)
         self._apply(self.g_opt, self.g_params, grads)
 
-    def train_step(self, mri, pet, adv_on) -> dict[str, float]:
-        """One G + D update; ``adv_on`` is the 0/1 warm-up gate.  Returns
-        ``{"g_loss", "d_loss", "l1", "perceptual", "gen_adv",
-        "skipped"}``, each averaged over the microbatches."""
+    def _global(self, grads: list, logs: dict, keys) -> None:
+        """Average ``grads`` (in place) and ``logs[keys]`` over the data
+        group."""
+        all_reduce_mean_(grads, self.data_group)
+        keys = list(keys)
+        for k, v in zip(keys, mean_over([logs[k] for k in keys],
+                                        self.data_group, self.device)):
+            logs[k] = v
+
+    def gradients(self, mri, pet, adv_on):
+        """G's and D's gradients of one step from the shared
+        reconstruction (``d_fresh_recon`` off), averaged over the
+        microbatches and the data group, in ``g_params`` / ``d_params``
+        order, and the global batch's logs; no update."""
+        mri, pet, adv_on = self._prepare(mri, pet, adv_on)
+        g_grads, d_grads, logs = self._g_pass(mri, pet, adv_on)
+        self._global(g_grads + d_grads, logs, logs)
+        return g_grads, d_grads, logs
+
+    def _prepare(self, mri, pet, adv_on):
         mri, pet = mri.to(self.device), pet.to(self.device)
-        adv_on = float(adv_on)
         if mri.shape[0] % self.accum:
             raise ValueError(f"batch {mri.shape[0]} does not split into "
                              f"{self.accum} microbatches")
         self.generator.train()
         self.discriminator.train()
+        return mri, pet, float(adv_on)
+
+    def _g_pass(self, mri, pet, adv_on):
+        """The microbatch loop on this rank's rows: G's mean gradients,
+        D's from the shared reconstruction (empty with
+        ``d_fresh_recon``) and the local logs."""
         n = self.accum
         g_sum = d_sum = None
         logs = dict.fromkeys(("g_loss", "d_loss", "l1", "perceptual",
@@ -151,8 +193,32 @@ class GanTrainer:
                     [a + b for a, b in zip(d_sum, d_grads)]
                 logs["d_loss"] += float(loss_d.detach()) / n
         g_grads = [g / n for g in g_sum]
+        d_grads = [] if self.d_fresh_recon else [g / n for g in d_sum]
+        return g_grads, d_grads, logs
 
-        if self.d_fresh_recon:
+    def _all_ranks(self, ok: bool) -> bool:
+        if self.mesh is not None and self.mesh.model_size > 1:
+            return all_true(ok, self.device)
+        return ok
+
+    def train_step(self, mri, pet, adv_on) -> dict[str, float]:
+        """One G + D update; ``adv_on`` is the 0/1 warm-up gate.  Returns
+        ``{"g_loss", "d_loss", "l1", "perceptual", "gen_adv",
+        "skipped"}``, each averaged over the microbatches (and the global
+        batch)."""
+        mri, pet, adv_on = self._prepare(mri, pet, adv_on)
+        if not self.d_fresh_recon:
+            g_grads, d_grads, logs = self._g_pass(mri, pet, adv_on)
+            self._global(g_grads + d_grads, logs, logs)
+            ok = self._all_ranks(math.isfinite(logs["g_loss"])
+                                 and math.isfinite(logs["d_loss"])
+                                 and all_finite([*g_grads, *d_grads]))
+            if ok:
+                self._step_g(g_grads)
+        else:
+            g_grads, _, logs = self._g_pass(mri, pet, adv_on)
+            self._global(g_grads, logs, ("g_loss", "l1", "perceptual",
+                                         "gen_adv"))
             # G first, then D against a fresh no-grad forward of the
             # updated G; undone below if the step turns out non-finite
             backup = ([p.detach().clone() for p in self.g_params.values()],
@@ -164,20 +230,15 @@ class GanTrainer:
             loss_d = self._d_loss(recon_d, pet, adv_on)
             d_grads = self._grads(loss_d, self.d_params)
             logs["d_loss"] = float(loss_d.detach())
-            ok = (finite_g and math.isfinite(logs["g_loss"])
-                  and all_finite([loss_d, *d_grads]))
+            self._global(d_grads, logs, ("d_loss",))
+            ok = self._all_ranks(finite_g and math.isfinite(logs["g_loss"])
+                                 and math.isfinite(logs["d_loss"])
+                                 and all_finite(d_grads))
             if not ok:
                 with torch.no_grad():
                     for p, b in zip(self.g_params.values(), backup[0]):
                         p.copy_(b)
                 self.g_opt.load_state_dict(backup[1])
-        else:
-            d_grads = [g / n for g in d_sum]
-            ok = (math.isfinite(logs["g_loss"])
-                  and math.isfinite(logs["d_loss"])
-                  and all_finite([*g_grads, *d_grads]))
-            if ok:
-                self._step_g(g_grads)
         if not ok:
             advance_adam_count_(self.g_opt, self.g_params.values())
             if adv_on > 0:
@@ -190,19 +251,32 @@ class GanTrainer:
 
     def state_dict(self) -> dict:
         """What a resumed run needs: both players' and both Adams' state
-        dicts, the dropout generator's state and the step count."""
+        dicts, the dropout generator's state and the step count.  With a
+        mesh, ``rng`` lists every data rank's generator state (gathered
+        over the data group: every rank calls this)."""
+        rng = self.rng.get_state()
+        if self.data_group is not None:
+            import torch.distributed as dist
+            states = [None] * dist.get_world_size(self.data_group)
+            dist.all_gather_object(states, rng, group=self.data_group)
+            rng = states
         return {"generator": self.generator.state_dict(),
                 "discriminator": self.discriminator.state_dict(),
                 "g_opt": self.g_opt.state_dict(),
                 "d_opt": self.d_opt.state_dict(),
-                "rng": self.rng.get_state(), "step": self.step}
+                "rng": rng, "step": self.step}
 
     def load_state_dict(self, state: dict) -> None:
+        """The inverse of :meth:`state_dict`; a data rank takes its own
+        entry of a listed ``rng``."""
         self.generator.load_state_dict(state["generator"])
         self.discriminator.load_state_dict(state["discriminator"])
         self.g_opt.load_state_dict(state["g_opt"])
         self.d_opt.load_state_dict(state["d_opt"])
-        self.rng.set_state(state["rng"])
+        rng = state["rng"]
+        if isinstance(rng, (list, tuple)):
+            rng = rng[self.mesh.data_index if self.mesh is not None else 0]
+        self.rng.set_state(rng)
         self.step = int(state["step"])
 
     @torch.no_grad()

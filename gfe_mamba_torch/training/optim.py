@@ -41,22 +41,50 @@ def _norm(g: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(g, dtype=torch.float32)
 
 
+def _split_squares(grads: list, splits: Mapping[int, object]) -> dict:
+    """``{index: |g|^2 of the whole logical tensor}`` of the gradients of
+    split parameters (``splits``: index -> model group): each shard's
+    squared norm summed over its group, one all-reduce per group."""
+    import torch.distributed as dist
+
+    by_group: dict = {}
+    for i, group in splits.items():
+        by_group.setdefault(id(group), (group, []))[1].append(i)
+    out = {}
+    for group, idx in by_group.values():
+        sq = torch.stack([_norm(grads[i]).square() for i in idx])
+        dist.all_reduce(sq, group=group)
+        out.update(zip(idx, sq))
+    return out
+
+
 @torch.no_grad()
-def clip_by_param_norm_(grads: Iterable[torch.Tensor],
-                        max_norm: float) -> None:
-    """Scale each gradient in place to a norm of at most ``max_norm``."""
-    for g in grads:
-        scale = torch.clamp(max_norm / torch.clamp(_norm(g), min=1e-12),
+def clip_by_param_norm_(grads: Iterable[torch.Tensor], max_norm: float,
+                        splits: Mapping[int, object] | None = None) -> None:
+    """Scale each gradient in place to a norm of at most ``max_norm``.
+    ``splits`` maps the index of a tensor-parallel shard's gradient to
+    its model group: its norm is the whole tensor's."""
+    grads = list(grads)
+    split_sq = _split_squares(grads, splits) if splits else {}
+    for i, g in enumerate(grads):
+        norm = torch.sqrt(split_sq[i]) if i in split_sq else _norm(g)
+        scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12),
                             max=1.0)
         g.mul_(scale.to(g.dtype))
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: Iterable[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
-    """optax ``clip_by_global_norm`` in place; returns the global norm."""
+def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float,
+                         splits: Mapping[int, object] | None = None
+                         ) -> torch.Tensor:
+    """optax ``clip_by_global_norm`` in place; returns the global norm.
+    ``splits`` as in :func:`clip_by_param_norm_`: a split parameter counts
+    once, whole; a replicated one once, not once per model rank."""
     grads = list(grads)
-    norm = torch.sqrt(sum(_norm(g).square() for g in grads))
+    split_sq = _split_squares(grads, splits) if splits else {}
+    norm_sq = sum(_norm(g).square() for i, g in enumerate(grads)
+                  if i not in split_sq)
+    norm = torch.sqrt(norm_sq + sum(split_sq.values()))
     clip = norm >= max_norm
     for g in grads:
         g.copy_(torch.where(clip, g / norm * max_norm, g))

@@ -10,6 +10,12 @@ Linear weights ``(O, I)``; conv kernels ``(kx, ky, kz, I, O)`` become
 module paths are rewritten to the reference torch names the port uses.
 :func:`jax_tree_from_state_dict` goes the other way, so that the npz files
 of ``training/checkpoint.py`` carry the JAX package's keys and layouts.
+
+A model whose parameters ``parallel/sharding.py`` split over a model
+group crosses the same way: :func:`jax_tree_from_module` gathers its
+shards (collective: every rank of the group calls it) into the tree an
+unsharded model gives, and :func:`load_jax_tree` loads a whole tree into
+it, each rank taking its shard.
 """
 
 from __future__ import annotations
@@ -179,6 +185,23 @@ def _groupnorm_index(order: str, conv: str) -> int:
     return order.index("g")
 
 
+def flax_entry(key: str, value: np.ndarray,
+               layer_order: str = "gcr") -> tuple[str, np.ndarray]:
+    """The ``'/'``-joined flax path and flax layout of the port's
+    state_dict entry ``key``."""
+    path = key.replace(".", "/")
+    deconv = path.endswith("upsampling/upsample/conv_transposed/weight")
+    for pattern, repl in _INVERSE_RENAMES:
+        path = re.sub(pattern, repl, path)
+    path = re.sub(r"(^|/)(conv[23])/groupnorm/",
+                  lambda m: f"{m.group(1)}{m.group(2)}/groupnorm_"
+                  f"{_groupnorm_index(layer_order, m.group(2))}/", path)
+    if deconv:
+        return path, np.transpose(value[:, :, ::-1, ::-1, ::-1],
+                                  (2, 3, 4, 0, 1))
+    return _flax_leaf(path, value)
+
+
 def jax_tree_from_state_dict(state_dict: Mapping[str, Any],
                              layer_order: str = "gcr") -> dict:
     """The inverse of :func:`state_dict_from_jax`: the port's state_dict
@@ -191,18 +214,7 @@ def jax_tree_from_state_dict(state_dict: Mapping[str, Any],
     for key, tensor in state_dict.items():
         value = np.asarray(tensor.detach().float().cpu()
                            if torch.is_tensor(tensor) else tensor, np.float32)
-        path = key.replace(".", "/")
-        deconv = path.endswith("upsampling/upsample/conv_transposed/weight")
-        for pattern, repl in _INVERSE_RENAMES:
-            path = re.sub(pattern, repl, path)
-        path = re.sub(r"(^|/)(conv[23])/groupnorm/",
-                      lambda m: f"{m.group(1)}{m.group(2)}/groupnorm_"
-                      f"{_groupnorm_index(layer_order, m.group(2))}/", path)
-        if deconv:
-            value = np.transpose(value[:, :, ::-1, ::-1, ::-1],
-                                 (2, 3, 4, 0, 1))
-        else:
-            path, value = _flax_leaf(path, value)
+        path, value = flax_entry(key, value, layer_order)
         node = tree
         *parents, leaf = path.split("/")
         for name in parents:
@@ -215,3 +227,20 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     """``{'/'-joined path: array}`` of a nested tree, the npz key form of
     the JAX package's ``save_params_npz``."""
     return dict(_flatten(tree, prefix))
+
+
+def jax_tree_from_module(module: torch.nn.Module,
+                         layer_order: str = "gcr") -> dict:
+    """:func:`jax_tree_from_state_dict` of ``module`` with its
+    tensor-parallel shards all-gathered (``parallel.multihost.host_local``,
+    collective)."""
+    from gfe_mamba_torch.parallel.multihost import host_local
+    return jax_tree_from_state_dict(host_local(module), layer_order)
+
+
+def load_jax_tree(module: torch.nn.Module, params: Mapping[str, Any]) -> None:
+    """Load a whole flax tree into ``module`` in place; a split parameter
+    takes this rank's shard of it."""
+    from gfe_mamba_torch.parallel.sharding import shard_state_dict
+    module.load_state_dict(shard_state_dict(module,
+                                            state_dict_from_jax(params)))

@@ -47,12 +47,18 @@ def make_experiment_dir(config_path: str, folder: str,
 
 
 class ExperimentDir:
-    """Run directory + text/TensorBoard logging + checkpoint subdirs."""
+    """Run directory + text/TensorBoard logging + checkpoint subdirs.
+    ``writer=False`` (a rank other than 0 of a multi-process run) makes
+    and writes nothing; its ``root`` is set from rank 0's."""
 
     def __init__(self, config_path: str, project_dir: str,
                  is_debug: bool = False, log_with: str = "",
-                 program_name: str | None = None):
+                 program_name: str | None = None, writer: bool = True):
         self.is_debug = is_debug
+        self.log_file = self.writer = None
+        if not writer:
+            self.root = "." if is_debug else None
+            return
         if is_debug:
             self.root = "."
             self.log_file = open("debug.txt", "w")
@@ -63,7 +69,6 @@ class ExperimentDir:
             for sub in ("model_save", "model_best", "model_current",
                         "val_data", "results_save"):
                 os.makedirs(join(self.root, sub), exist_ok=True)
-        self.writer = None
         if log_with and not is_debug:
             try:
                 from tensorboardX import SummaryWriter
@@ -75,8 +80,9 @@ class ExperimentDir:
         return join(self.root, *parts)
 
     def write(self, text: str) -> None:
-        self.log_file.write(text)
-        self.log_file.flush()
+        if self.log_file is not None:
+            self.log_file.write(text)
+            self.log_file.flush()
 
     def log_scalars(self, logs: dict, step: int) -> None:
         if self.writer is not None:
@@ -84,7 +90,8 @@ class ExperimentDir:
                 self.writer.add_scalar(key, float(value), step)
 
     def close(self) -> None:
-        self.log_file.close()
+        if self.log_file is not None:
+            self.log_file.close()
         if self.writer is not None:
             self.writer.close()
 

@@ -169,19 +169,29 @@ def test_stage2_tableless_and_flax_init(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_what_one_process_cannot_do(tmp_path, monkeypatch):
+    """No card without ``--device cpu``; a multi-process launch whose
+    process group cannot form raises rather than training alone;
+    ``async_ckpt: true`` (once refused) now writes its step directory."""
+    monkeypatch.chdir(tmp_path)
     cfg = _gan_config(tmp_path, 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if torch.cuda.is_available():
             pytest.skip("a GPU is present")
         main_gan_vit.main(argparse.Namespace(config_path=cfg, device=None))
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="WORLD_SIZE"):
+    with pytest.raises(RuntimeError, match="RANK is not set"):
+        main_gan_vit.main(_args(cfg))
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
         main_gan_vit.main(_args(cfg))
     monkeypatch.delenv("WORLD_SIZE")
+    monkeypatch.delenv("RANK")
     with open(cfg, "a") as f:
-        f.write("async_ckpt: true\n")
-    with pytest.raises(NotImplementedError, match="async_ckpt"):
-        main_gan_vit.main(_args(cfg))
+        f.write("async_ckpt: true\nautoresume: false\n")
+    s1 = main_gan_vit.main(_args(cfg))
+    assert os.path.isfile(os.path.join(s1["exp_dir"], "model_save",
+                                       "step_00000001", "arrays.npz"))
 
 
 def test_stage1_cli_kill_and_restart_resumes_at_right_epoch(tmp_path):
