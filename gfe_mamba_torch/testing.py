@@ -230,8 +230,9 @@ def tp_forward_and_grads(out_dir: str, spec: dict) -> None:
     ``spec["inputs"]`` and the gradients of their mean BCE against
     ``spec["labels"]`` for every parameter outside the frozen generator
     (whose forward runs without a gradient), the shards all-gathered.
-    Rank 0 writes ``<out_dir>/tp.pt``: the logits and the gradients as a
-    flax tree."""
+    Rank 0 writes ``<out_dir>/tp.pt``: the logits, the gradients as a
+    flax tree, and the split model's weights gathered back into one
+    (``utils/convert.py::jax_tree_from_module``)."""
     import os
 
     import torch.nn.functional as F
@@ -243,7 +244,8 @@ def tp_forward_and_grads(out_dir: str, spec: dict) -> None:
     from gfe_mamba_torch.parallel.sharding import (apply_param_shardings,
                                                    infer_param_shardings,
                                                    sharded_state)
-    from gfe_mamba_torch.utils.convert import (jax_tree_from_state_dict,
+    from gfe_mamba_torch.utils.convert import (jax_tree_from_module,
+                                               jax_tree_from_state_dict,
                                                load_jax_tree)
 
     mesh = make_mesh({"data": 1, "model": multihost.process_count()})
@@ -266,8 +268,9 @@ def tp_forward_and_grads(out_dir: str, spec: dict) -> None:
     splits = sharded_state(model)
     whole = {n: all_gather_cat(g, *splits[n]) if n in splits else g
              for n, g in zip(names, grads)}
+    weights = jax_tree_from_module(model, order)
     if multihost.is_main_process():
         torch.save(dict(logits=logits.detach(), loss=float(loss),
-                        split=sorted(splits),
+                        split=sorted(splits), weights=weights,
                         grads=jax_tree_from_state_dict(whole, order)),
                    os.path.join(out_dir, "tp.pt"))

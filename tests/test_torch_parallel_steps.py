@@ -7,8 +7,9 @@ batch: a Stage-2 step (Mamba head), a Stage-2 step whose global batch
 holds a NaN in rank 1's rows, and Stage-1 G + D steps with the warm-up
 gate off and on.  A second launch splits the tiny Jamba pipeline of the
 dry run over a model axis of 2 (threshold 128: ViT, cross-attention,
-Mamba in_proj and feed-forward kernels, MoE experts) and takes its
-forward and gradients.  Meanwhile this process computes JAX's steps on
+Mamba in_proj and feed-forward kernels, MoE experts), loading JAX's
+tree shard by shard, takes its forward and gradients, and gathers its
+weights back into one tree (bitwise the tree loaded).  Meanwhile this process computes JAX's steps on
 the whole global batch from the same weights (drawn by the port,
 carried across with ``utils/convert.py``).  Dropout is off on both sides
 (each rank draws its own masks; JAX one over the global batch).
@@ -156,7 +157,7 @@ def runs(tmp_path_factory):
         raise errors[0]
     ranks_out = [torch.load(os.path.join(out, f"rank{r}.pt"),
                             weights_only=False) for r in range(2)]
-    return dict(ref=ref, ranks=ranks_out, s2_tree=s2_tree,
+    return dict(ref=ref, ranks=ranks_out, s2_tree=s2_tree, tp_tree=tp_tree,
                 tp=torch.load(os.path.join(out, "tp.pt"),
                               weights_only=False))
 
@@ -300,6 +301,11 @@ def test_dp_stage1_step_equals_jax_on_the_global_batch(runs, gate):
 def test_tp_ep_forward_and_gradient_equal_jax_replicated(runs):
     got, ref = runs["tp"], runs["ref"]["tp"]
     assert len(got["split"]) == 12
+    # the whole flax tree went in shard by shard and comes back whole
+    loaded, back = _flat(runs["tp_tree"]), _flat(got["weights"])
+    assert set(back) == set(loaded)
+    for key, value in loaded.items():
+        np.testing.assert_array_equal(back[key], value, err_msg=key)
     _close(got["logits"].numpy(), ref["logits"], 1e-4, "logits")
     np.testing.assert_allclose(got["loss"], ref["loss"], rtol=1e-5)
     want = {k: v for k, v in _flat(ref["grads"]).items()
