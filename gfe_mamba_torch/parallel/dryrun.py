@@ -100,6 +100,12 @@ IMG = (16, 16, 8)
 THRESHOLD = 128
 
 
+def _require(ok: bool, message: str) -> None:
+    """A check of the dry run (raised also under ``python -O``)."""
+    if not ok:
+        raise AssertionError(message)
+
+
 def model_axis(procs: int) -> int:
     """JAX's split: a model axis of 2 when there are at least 4 ranks and
     an even number of them, else 1."""
@@ -157,19 +163,20 @@ def _stage2(mesh, device, f_maps) -> str:
     g_one, _ = replay.gradients(mri, x_cat, x_num, labels)
     g_err = _max_err(dict(zip(sharded.trainable, g_mesh)),
                      dict(zip(replay.trainable, g_one)), shardings, mesh)
-    assert g_err < 5e-5, f"gradient divergence: max abs err {g_err}"
+    _require(g_err < 5e-5, f"gradient divergence: max abs err {g_err}")
 
     logs = sharded.train_step(*local)
     ref = replay.train_step(mri, x_cat, x_num, labels)
     loss, ref_loss = logs["cla_loss"], ref["cla_loss"]
-    assert np.isfinite(loss) and np.isfinite(ref_loss), (loss, ref_loss)
-    assert abs(loss - ref_loss) < 1e-5 + 1e-4 * abs(ref_loss), (
-        f"sharded loss {loss} != single-process {ref_loss}")
+    _require(np.isfinite(loss) and np.isfinite(ref_loss)
+             and abs(loss - ref_loss) < 1e-5 + 1e-4 * abs(ref_loss),
+             f"sharded loss {loss} != single-process {ref_loss}")
     p_err = _max_err(dict(sharded.model.named_parameters()),
                      dict(replay.model.named_parameters()), shardings, mesh)
-    assert p_err < 4 * LR, f"param-update divergence: max abs err {p_err}"
+    _require(p_err < 4 * LR, f"param-update divergence: max abs err {p_err}")
     logs = sharded.train_step(*local)
-    assert np.isfinite(logs["cla_loss"]) and not logs["skipped"]
+    _require(np.isfinite(logs["cla_loss"]) and not logs["skipped"],
+             f"the second sharded step: {logs}")
     return (f"stage 2: loss={loss:.4f} replay={ref_loss:.4f} "
             f"grad_max_abs_err={g_err:.2e} "
             f"param_update_max_abs_err={p_err:.2e}; {len(shardings)} "
@@ -204,8 +211,8 @@ def _stage1(mesh, device, f_maps) -> str:
     g_one = replay.gradients(mri, pet, 1.0)[0]
     g_err = _max_err(dict(zip(sharded.g_params, g_mesh)),
                      dict(zip(replay.g_params, g_one)), shardings, mesh)
-    assert g_err < 5e-5, \
-        f"GAN generator gradient divergence: max abs err {g_err}"
+    _require(g_err < 5e-5,
+             f"GAN generator gradient divergence: max abs err {g_err}")
 
     for adv_on in (0.0, 1.0):
         sharded, _ = trainer(True)
@@ -213,9 +220,10 @@ def _stage1(mesh, device, f_maps) -> str:
         logs = sharded.train_step(mri[rows], pet[rows], adv_on)
         ref = replay.train_step(mri, pet, adv_on)
         loss, ref_loss = logs["g_loss"], ref["g_loss"]
-        assert np.isfinite(loss) and np.isfinite(ref_loss), (loss, ref_loss)
-        assert abs(loss - ref_loss) < 1e-5 + 1e-4 * abs(ref_loss), (
-            adv_on, loss, ref_loss)
+        _require(np.isfinite(loss) and np.isfinite(ref_loss)
+                 and abs(loss - ref_loss) < 1e-5 + 1e-4 * abs(ref_loss),
+                 f"GAN loss (adv_on={adv_on}): sharded {loss}, "
+                 f"single-process {ref_loss}")
         p_err = max(
             _max_err(dict(sharded.generator.named_parameters()),
                      dict(replay.generator.named_parameters()), shardings,
@@ -223,8 +231,8 @@ def _stage1(mesh, device, f_maps) -> str:
             _max_err(dict(sharded.discriminator.named_parameters()),
                      dict(replay.discriminator.named_parameters()), {},
                      mesh))
-        assert p_err < 4e-3, (f"GAN param-update divergence (adv_on="
-                              f"{adv_on}): max abs err {p_err}")
+        _require(p_err < 4e-3, f"GAN param-update divergence (adv_on="
+                               f"{adv_on}): max abs err {p_err}")
     return (f"stage 1: g_loss={loss:.4f} replay={ref_loss:.4f} "
             f"grad_max_abs_err={g_err:.2e} "
             f"param_update_max_abs_err={p_err:.2e}; warm-up gate off and "

@@ -182,6 +182,11 @@ class AsyncCheckpointManager:
             self._metrics[step] = float(metric)
         if not self.writer:
             return
+        # a finished write's error surfaces at the next save, not only at
+        # wait(); its future is dropped
+        for future in [f for f in self._pending if f.done()]:
+            self._pending.remove(future)
+            future.result()
         arrays: dict = {}
         skeleton = _encode(tree, arrays)
         self._pending.append(
