@@ -2009,6 +2009,14 @@ def drive_other_mixers(card: str, root: str, phase12: dict) -> dict:
     return dict(k2=k2_jamba, k4=stage2["k4"])
 
 
+def _adam_start(run: dict, player: str, name: str, lr: float):
+    """The weights Adam's first step started from, read back from the
+    step's result: p + lr m / (|m| + 1e-9) (its update is lr m_hat /
+    (sqrt(v_hat) + 1e-8), with m_hat = 10 m and sqrt(v_hat) = |10 m|)."""
+    m = run["moments"][player][name].float()
+    return run["params"][player][name].float() + lr * m / (m.abs() + 1e-9)
+
+
 def compare_dp(tag: str, dp: dict, one: dict, lrs: dict) -> None:
     """Phase 14(a)'s check of rank 0's step against one process stepping
     the global batch from the same weights, both bf16 on the card.  The
@@ -2019,7 +2027,12 @@ def compare_dp(tag: str, dp: dict, one: dict, lrs: dict) -> None:
     over each player's whole set of tensors (a missing gradient average,
     each rank on its own volume, reads 0.5 or more); every parameter
     within 2 lr of the reference's (Adam's first step moves an entry by
-    about lr x sign(g), and a gradient near 0 may take either sign)."""
+    about lr x sign(g), and a gradient near 0 may take either sign); and
+    each run's update elementwise against its own moments: Adam's first
+    step takes p0 - lr m / (|m| + 1e-9), so p + lr m / (|m| + 1e-9), the
+    weights both runs started from, agrees between them within 1e-3 lr +
+    2 f32 ulps of p.  A skipped, sign-flipped or rescaled update fails
+    that, where the 2 lr bound alone cannot."""
     for key, want in one["logs"][0].items():
         got = dp["logs"][0][key]
         rel = abs(got - want) / max(abs(want), 1e-6)
@@ -2042,13 +2055,19 @@ def compare_dp(tag: str, dp: dict, one: dict, lrs: dict) -> None:
         if not rel <= 5e-2:
             raise AssertionError(f"{tag}: {player}'s gradients differ")
     for player, state in one["params"].items():
-        lr = lrs[player]
+        lr, eps = lrs[player], torch.finfo(torch.float32).eps
         err = max(float((dp["params"][player][k].float() - v.float())
                         .abs().max()) for k, v in state.items()
                   if v.is_floating_point())
+        start = max(float(((_adam_start(dp, player, k, lr)
+                            - _adam_start(one, player, k, lr)).abs()
+                           - 2 * eps * state[k].float().abs()).max())
+                    for k in one["moments"][player])
         log(f"{tag} {player}: parameters max |two ranks - one process| "
-            f"{err:.3e} (bound 2 lr = {2 * lr:.1e})")
-        if not err <= 2.0001 * lr:
+            f"{err:.3e} (bound 2 lr = {2 * lr:.1e}); the weights each "
+            f"run's update started from differ by {start:.3e} over 2 ulps "
+            f"(bound 1e-3 lr = {1e-3 * lr:.1e})")
+        if not err <= 2.0001 * lr or not start <= 1e-3 * lr:
             raise AssertionError(f"{tag}: {player}'s parameters differ")
 
 

@@ -164,7 +164,7 @@ def main(args) -> dict:
                        for p, state in parts.items()}, "epoch": epoch},
                     metric=accuracy)
         if do_val or do_save:
-            wait_for_main(cf)
+            wait_for_main()
     if ckpt is not None:
         ckpt.close()
     exp.close()

@@ -12,9 +12,9 @@ The two training CLIs run under a launcher as they run alone:
 Each process takes ``cuda:LOCAL_RANK`` (NCCL; ``--device cpu``: gloo),
 ``train_bc / WORLD_SIZE`` rows of every global batch (``train_bc`` must
 divide) and averages its gradients with the others'.  A process group
-that fails to form raises; nothing falls back to one process.
-``barrier_timeout`` (seconds, default 3600) bounds how long the other
-ranks wait while rank 0 validates and writes."""
+that fails to form raises; nothing falls back to one process.  The
+other ranks wait at most ``WAIT_FOR_MAIN_S`` while rank 0 validates and
+writes."""
 
 from __future__ import annotations
 
@@ -28,6 +28,9 @@ from gfe_mamba_torch.parallel import multihost
 from gfe_mamba_torch.parallel.mesh import make_mesh
 from gfe_mamba_torch.training.checkpoint import load_params_npz
 from gfe_mamba_torch.utils.experiment import ExperimentDir
+
+# how long the other ranks wait while rank 0 validates or writes
+WAIT_FOR_MAIN_S = 3600.0
 
 # the JAX CLIs' generator keys, and the ViT's dropout rates (a port-only
 # pair: JAX draws one mask over the global batch, the port one per rank,
@@ -78,10 +81,10 @@ def experiment_dir(config_path: str, cf: dict, project_dir: str,
     return exp
 
 
-def wait_for_main(cf: dict) -> None:
+def wait_for_main() -> None:
     """The other ranks wait here while rank 0 validates or writes (a
-    barrier with the config's ``barrier_timeout``)."""
-    multihost.barrier(cf.get("barrier_timeout", 3600))
+    barrier that raises after ``WAIT_FOR_MAIN_S``)."""
+    multihost.barrier(WAIT_FOR_MAIN_S)
 
 
 def generator_kwargs(cf: dict, remat_default: bool) -> dict:

@@ -172,7 +172,7 @@ def main(args) -> dict:
                 ckpt.save("state", {"generator": g_host,
                                     "discriminator": d_host, "epoch": epoch})
         if do_val or do_save:
-            wait_for_main(cf)
+            wait_for_main()
     if auto is not None:
         auto.close()
     if async_ckpt:

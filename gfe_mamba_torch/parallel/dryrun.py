@@ -3,13 +3,13 @@
 
     python -m gfe_mamba_torch.parallel.dryrun --procs N [--device cpu]
 
-N processes (one per card, or all on the CPU, or ``--device cuda:0
---backend gloo`` for N ranks on one card) lay out a (data, model) grid:
-``model`` 2 when N >= 4 and N is even (or ``--model``), else 1; the rest
-``data``.  On JAX's tiny Jamba pipeline (``_canonical_pipeline(small=
-True)``) and its generator, dropout off (each rank draws its own masks,
-so a replay could not draw the same ones), with the sharding threshold
-at 128:
+N processes (one per card by default, ``--device cpu`` for all on the
+CPU, or ``--device cuda:0 --backend gloo`` for N ranks on one card) lay
+out a (data, model) grid: ``model`` 2 when N >= 4 and N is even (or
+``--model``), else 1; the rest ``data``.  On JAX's tiny Jamba pipeline
+(``_canonical_pipeline(small=True)``) and its generator, dropout off
+(each rank draws its own masks, so a replay could not draw the same
+ones), with the sharding threshold at 128:
 
 (a) Stage 2: the tensor- (TP) and expert-parallel (EP) split model, each
     rank on its rows of the global batch (DP): the gradient and one
@@ -40,6 +40,8 @@ import time
 
 import numpy as np
 import torch
+
+from gfe_mamba_torch import resolve_device
 
 LR = 1e-4
 
@@ -248,7 +250,7 @@ def widths(kwargs: dict, f_maps) -> dict:
     return out
 
 
-def run(model: int, device: str, f_maps=(4, 8, 16)) -> None:
+def run(model: int, device, f_maps=(4, 8, 16)) -> None:
     """One rank of the dry run (inside :func:`launch`)."""
     from gfe_mamba_torch.parallel import multihost
     from gfe_mamba_torch.parallel.mesh import make_mesh
@@ -257,10 +259,10 @@ def run(model: int, device: str, f_maps=(4, 8, 16)) -> None:
     # not differ by TF32 rounding of the discriminator's convolutions
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    device = multihost.initialize(device)    # joined: this rank's device
     n = multihost.process_count()
     mesh = make_mesh({"data": n // model, "model": model})
-    lines = [_stage2(mesh, torch.device(device), f_maps),
-             _stage1(mesh, torch.device(device), f_maps)]
+    lines = [_stage2(mesh, device, f_maps), _stage1(mesh, device, f_maps)]
     if multihost.is_main_process():
         for line in lines:
             print(f"dryrun({n}) mesh={mesh.shape} {line} ok", flush=True)
@@ -272,9 +274,10 @@ def main(argv=None) -> int:
     parser.add_argument("--model", type=int, default=None,
                         help="size of the model axis (default: 2 when "
                              "--procs is even and >= 4, else 1)")
-    parser.add_argument("--device", default="cpu",
-                        help="'cpu', or 'cuda' (one card per rank) or "
-                             "'cuda:0' (every rank on card 0)")
+    parser.add_argument("--device", default=None,
+                        help="default: one card per rank (cuda:LOCAL_RANK; "
+                             "raises without a card); 'cuda:0' puts every "
+                             "rank on card 0; 'cpu' runs on the CPU")
     parser.add_argument("--backend", default=None,
                         help="default: nccl on CUDA, gloo on the CPU")
     parser.add_argument("--f_maps", default="4,8,16",
@@ -287,6 +290,7 @@ def main(argv=None) -> int:
     if args.procs % model:
         raise ValueError(f"--model {model} does not divide --procs "
                          f"{args.procs}")
+    resolve_device(args.device)          # no card and no --device: raise
     t = time.perf_counter()
     f_maps = tuple(int(f) for f in args.f_maps.split(","))
     launch(run, args.procs, (model, args.device, f_maps), device=args.device,

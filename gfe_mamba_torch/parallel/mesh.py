@@ -96,15 +96,13 @@ def _resolve_axes(axes: Optional[Mapping[str, int]], n: int) -> dict:
 
 def make_mesh(axes: Optional[Mapping[str, int]] = None,
               ranks: Optional[Sequence[int]] = None) -> Mesh:
-    """The grid of ``axes`` (``{axis: size}``, a ``MeshConfig``'s fields;
-    default: every rank on ``data``) over ``ranks``.
+    """The grid of ``axes`` (``{axis: size}``; default: every rank on
+    ``data``) over ``ranks``.
 
     With ``ranks`` given the mesh is only laid out (no process group is
     needed).  Otherwise the ranks are the world's, and every rank builds
     every row and column group (``new_group`` is collective), keeping its
     own two; a single process gets the 1x1 mesh with no groups."""
-    if axes is not None and not isinstance(axes, Mapping):
-        axes = {"data": axes.data, "model": axes.model}   # a MeshConfig
     if ranks is not None:
         ranks = list(ranks)
         axes = _resolve_axes(axes, len(ranks))

@@ -105,6 +105,18 @@ def test_make_mesh_errors_match_jax(axes):
     assert str(port_err.value) == str(jax_err.value)
 
 
+def test_dryrun_takes_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """Without ``--device`` the dry run wants one card per rank and raises
+    when there is none, before it starts a process."""
+    from gfe_mamba_torch.parallel import dryrun
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dryrun, "launch", lambda *a, **k: pytest.fail(
+        "ranks started without a card"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["--procs", "2"])
+
+
 def test_rank_rows_take_the_place_of_form_global_array():
     """JAX assembles each process's rows into one global array; in the
     port each rank keeps its rows.  The data ranks' rows, in data order,
