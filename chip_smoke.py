@@ -110,7 +110,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    true``: their npz files bitwise phase 12's, and ``AutoResume`` over
    the async manager restores Stage 1's last state; (a)'s one-process
    references, (b) and (c)'s two runs go at once, each in its own
-   processes.
+   processes;
+15. the segmentation family, f32 with TF32 off: (a) ``get_model``'s
+   UNet3D and ResidualUNet3D at the JAX package's defaults (full width)
+   on a 32x64x64 patch, card against CPU within 1e-4 relative, K1 13
+   and 18 times per forward (UNet3D's C_in = 1 stem on cuDNN), UNet2D
+   (cuDNN only, no K1) and ResidualUNetSE3D at a small width; (d) K1
+   (forward, and as dz) and K3 against their plain versions at the
+   segmentation widths (32 -> 64 and the concat-joined 192, 384, 768),
+   the stem's C_in = 1 refused by K1 and ruled onto cuDNN; (e) the
+   UNet3D forward on one 64x128x128 patch timed, with its 13 K1 convs,
+   their plain versions, cuDNN's f32 conv and the bound, and per
+   training step K1-dz and K3 beside cuDNN's dgrad and wgrad; (b)
+   ``seg_predict`` over a 96x192x192 volume written by ``data/h5.py``
+   (8 patches, batch 4) from a checkpoint of seeded weights: the file
+   read back equals ``sliding_window_predict`` driven directly, K1 13
+   times per forward; (c) ``seg_train`` at batch 1: 3 steps with one
+   validation and both checkpoints, a resume to step 4, ``seg_predict``
+   from the best checkpoint; every step K1 13 forward + 13 dz and K3 13
+   (f32).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  K1's ``ms``, ``plain_ms``,
@@ -128,7 +146,9 @@ phase 8, K3 (and K1's ``dz_launches``) the 3 steps of phase 9, K5a and
 K5b the 3 calls of phase 10; K2's ``jamba_launches`` the 3 Jamba
 requests of phase 13(b), K4's the 3 Jamba Stage-2 steps of 13(c);
 ``dp_launches`` (K1-K4) rank 0's launches in phase 14(a), K1's summed
-over its Stage-2 and Stage-1 steps.
+over its Stage-2 and Stage-1 steps; K1's and K3's ``seg_launches``
+their launches over phase 15(b) and (c), and ``seg`` their f32 times
+of 15(e) (K1 per UNet3D forward, its dz and K3 per training step).
 """
 
 from __future__ import annotations
@@ -194,6 +214,30 @@ MIXER_PARITY_IMG = (64, 64, 32)
 # levels above), 8 groups
 GN_GROUPS = 8
 GN_ACTS = ("none", "elu", "relu", "leaky_relu")
+# phase 15: the segmentation family at the JAX package's get_model
+# defaults (pytorch3dunet's), f32; K1 launches per forward, the C_in = 1
+# stem of UNet3D going to cuDNN
+SEG_UNET3D = dict(name="UNet3D", in_channels=1, out_channels=1, f_maps=64,
+                  layer_order="gcr", num_groups=8)
+SEG_FORWARD_K1 = {"UNet3D": 13, "ResidualUNet3D": 18}
+SEG_PATCH = (64, 128, 128)
+# (a): both families at full width, UNet2D (cuDNN only) and the SE family
+# at a small width
+SEG_PARITY_CASES = (
+    (SEG_UNET3D, (1, 32, 64, 64, 1)),
+    (dict(name="ResidualUNet3D", in_channels=1, out_channels=1),
+     (1, 32, 64, 64, 1)),
+    (dict(name="UNet2D", in_channels=1, out_channels=3, f_maps=16,
+          final_sigmoid=False), (2, 128, 128, 1)),
+    (dict(name="ResidualUNetSE3D", in_channels=2, out_channels=2, f_maps=16,
+          num_levels=4), (1, 32, 32, 32, 2)))
+SEG_VOLUME = (96, 192, 192)
+SEG_STRIDE = (32, 64, 64)
+SEG_BATCH = 4
+# K1 / K3 checks at the segmentation widths (C, F): the stem (refused by
+# K1, cuDNN's), DoubleConv's 32 -> 64, the concat-joined decoder inputs
+SEG_CHECK_SHAPE = (1, 12, 20, 24)
+SEG_CHECK_WIDTHS = ((32, 64), (192, 64), (384, 128), (768, 256))
 
 
 def log(*args):
@@ -2294,6 +2338,414 @@ def check_torchrun_clis(root: str, configs: dict, phase12: dict) -> None:
         f"generator bitwise phase 12's last state")
 
 
+def seg_model(cfg: dict, seed: int = 0):
+    """``get_model(cfg)`` on the CPU (weights drawn from ``seed``, eval)."""
+    from gfe_mamba_torch.models.unet3d import get_model
+    return get_model(cfg, seed=seed)
+
+
+def seg_parity(card: str) -> None:
+    """Phase 15(a): each family's logits on the card against the CPU, same
+    weights, f32, TF32 off; UNet3D and ResidualUNet3D at full width must
+    launch K1 13 and 18 times per forward."""
+    from gfe_mamba_torch.ops.cuda import conv3d as k1
+
+    for cfg, shape in SEG_PARITY_CASES:
+        cfg = dict(cfg, is_segmentation=False)     # logits, not sigmoid
+        model = seg_model(cfg, seed=5)
+        x = torch.randn(*shape, generator=torch.Generator().manual_seed(6))
+        t = time.perf_counter()
+        with torch.no_grad():
+            want = model(x)
+        cpu_s = time.perf_counter() - t
+        model.to("cuda")
+        with torch.no_grad():
+            before = k1.launches
+            got = model(x.to("cuda"))
+            torch.cuda.synchronize()
+        launches = k1.launches - before
+        err, rel = rel_err(got, want)
+        log(f"phase 15(a) {cfg['name']} {list(shape)}: card vs CPU "
+            f"max_abs_err={err:.3e} rel={rel:.3e} (tol 1e-4); K1 "
+            f"{launches} launches per forward; CPU forward {cpu_s:.1f} s")
+        if not rel <= 1e-4:
+            raise AssertionError(f"phase 15(a) {cfg['name']}: card and CPU "
+                                 f"differ: rel {rel}")
+        want_k1 = SEG_FORWARD_K1.get(cfg["name"])
+        if want_k1 is not None and launches != want_k1:
+            raise AssertionError(f"phase 15(a) {cfg['name']}: {launches} K1 "
+                                 f"launches per forward, expected {want_k1}")
+        if cfg["name"] == "UNet2D" and launches:
+            raise AssertionError("phase 15(a) UNet2D launched K1")
+        del model, got, want
+    torch.cuda.empty_cache()
+
+
+def seg_check_kernels(gen) -> None:
+    """Phase 15(d): K1 (forward with the folded GN and relu, and as dz with
+    flipped weights) and K3 (f32, with the GN affine) against their plain
+    versions at the segmentation widths; the stem's C_in = 1 is refused by
+    K1 and ruled onto cuDNN."""
+    from gfe_mamba_torch.ops.blocks import SingleConv, k1_eligible
+    from gfe_mamba_torch.ops.cuda import conv3d as kc
+
+    for C, F in SEG_CHECK_WIDTHS:
+        x, w, _, a, s, _ = conv_inputs(gen, SEG_CHECK_SHAPE, C, F,
+                                       torch.float32, False)
+        got = kc.conv3x3x3_cuda(x, w, None, a, s, None, "relu")
+        want = kc.conv3x3x3_plain(x, w, None, a, s, None, "relu")
+        g1 = torch.randn(*SEG_CHECK_SHAPE, F, generator=gen, device="cuda")
+        wf = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+        dz, dz_want = kc.conv3x3x3_cuda(g1, wf), kc.conv3x3x3_plain(g1, wf)
+        dw = kc.conv3x3x3_dw_cuda(x, g1, a, s)
+        dw_want = kc.conv3x3x3_dw_plain(x, g1, a, s)
+        torch.cuda.synchronize()
+        for name, pair in (("K1", (got, want)), ("K1-dz", (dz, dz_want)),
+                           ("K3", (dw, dw_want))):
+            err, rel = rel_err(*pair)
+            log(f"phase 15(d) {name} check {list(SEG_CHECK_SHAPE)}x{C}->{F} "
+                f"f32: max_abs_err={err:.3e} rel={rel:.3e} (tol 1e-4)")
+            if not rel <= 1e-4:
+                raise AssertionError(f"phase 15(d) {name} at {C}->{F} "
+                                     f"disagrees with its plain version: "
+                                     f"rel {rel}")
+        del x, w, a, s, g1, wf, got, want, dz, dz_want, dw, dw_want
+    x = torch.randn(1, 8, 8, 8, 1, generator=gen, device="cuda")
+    w = torch.randn(3, 3, 3, 1, 32, generator=gen, device="cuda")
+    try:
+        kc.conv3x3x3_cuda(x, w)
+    except ValueError as exc:
+        log(f"phase 15(d) K1 refuses the stem's C=1 -> F=32: {exc}")
+    else:
+        raise AssertionError("K1 took a C_in = 1 conv")
+    stem = SingleConv(1, 32, "gcr", 8)
+    if k1_eligible(3, 3, 1, 1, 32) or stem.fused:
+        raise AssertionError("the conv rule sends the stem to K1")
+    log("phase 15(d) the conv rule sends the stem (1 -> 32) to cuDNN")
+
+
+def seg_conv_specs(model, x) -> list:
+    """The input shape, output width and GN/act flags of every K1 conv of
+    ``model``'s forward on ``x``, from forward pre-hooks."""
+    from gfe_mamba_torch.ops.blocks import SingleConv
+
+    specs, hooks = [], []
+    for mod in model.modules():
+        if isinstance(mod, SingleConv) and mod.fused:
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, args: specs.append(
+                    (tuple(args[0].shape), m.conv.weight.shape[0]))))
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return specs
+
+
+def seg_times(card: str, gen) -> dict:
+    """Phase 15(e): a UNet3D forward at full width on one patch (batch 1),
+    and per forward its 13 K1 convs, their plain versions, cuDNN's f32
+    conv on the same convs (TF32 off) and the bound; per training step
+    the same convs as K1-dz against cuDNN's dgrad and as K3 against
+    cuDNN's wgrad.  Bounds: f32 operations over the CUDA-core peak, or
+    bytes (each input read once, each output written once) over HBM."""
+    from gfe_mamba_torch.ops.cuda import conv3d as kc
+
+    model = seg_model(SEG_UNET3D).to("cuda")
+    x = torch.randn(1, *SEG_PATCH, 1, generator=gen, device="cuda")
+    specs = seg_conv_specs(model, x)
+    if len(specs) != SEG_FORWARD_K1["UNet3D"]:
+        raise AssertionError(f"UNet3D has {len(specs)} K1 convs")
+    with torch.no_grad():
+        forward = time_ms(lambda: model(x), reps=3)
+    del model
+    fwd = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    step = dict(dz_ms=0.0, dz_library_ms=0.0, dz_bound_ms=0.0, dw_ms=0.0,
+                dw_plain_ms=0.0, dw_library_ms=0.0, dw_bound_ms=0.0)
+    for shape, F in specs:
+        C = shape[-1]
+        xi, w, _, a, s, _ = conv_inputs(gen, shape[:-1], C, F,
+                                        torch.float32, False)
+        g1 = torch.randn(*shape[:-1], F, generator=gen, device="cuda")
+        wf = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+        zhat = kc.affine_in_dtype(xi, a, s)
+        xc = zhat.permute(0, 4, 1, 2, 3)
+        wc = w.permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        vox = math.prod(shape[:-1])
+        flops = 2 * vox * 27 * C * F
+        t_ops = flops / PEAK_F32
+        fwd_bytes = 4 * (vox * (C + F) + 27 * C * F) + 8 * C
+        fwd["bound_ms"] += max(t_ops, fwd_bytes / HBM_BYTES_PER_S) * 1e3
+        fwd["ms"] += time_ms(lambda: kc.conv3x3x3_cuda(
+            xi, w, None, a, s, None, "relu"), reps=3)
+        fwd["plain_ms"] += time_ms(lambda: kc.conv3x3x3_plain(
+            xi, w, None, a, s, None, "relu"), reps=3)
+        fwd["library_ms"] += time_ms(lambda: torch.nn.functional.conv3d(
+            xc, wc, padding=1), reps=3)
+        step["dz_ms"] += time_ms(lambda: kc.conv3x3x3_cuda(g1, wf), reps=3)
+        step["dz_library_ms"] += time_ms(lambda: cudnn_conv_grad(
+            zhat, w, g1, "x"), reps=3)
+        step["dw_ms"] += time_ms(lambda: kc.conv3x3x3_dw_cuda(xi, g1, a, s),
+                                 reps=3)
+        step["dw_plain_ms"] += time_ms(lambda: kc.conv3x3x3_dw_plain(
+            xi, g1, a, s), reps=1)
+        step["dw_library_ms"] += time_ms(lambda: cudnn_conv_grad(
+            zhat, w, g1, "w"), reps=3)
+        # dz reads g1 and w and writes dz; dw reads x and g1 and writes dw
+        step["dz_bound_ms"] += max(t_ops, fwd_bytes / HBM_BYTES_PER_S) * 1e3
+        step["dw_bound_ms"] += max(t_ops, fwd_bytes / HBM_BYTES_PER_S) * 1e3
+        del xi, w, a, s, g1, wf, zhat, xc, wc
+    torch.cuda.empty_cache()
+    log(f"phase 15(e) UNet3D forward {list(SEG_PATCH)} batch 1 f32: "
+        f"{forward:.2f} ms; its 13 K1 convs {fwd['ms']:.2f} ms "
+        f"({fwd['ms'] / forward:.1%}), plain {fwd['plain_ms']:.2f} ms, "
+        f"cuDNN f32 conv {fwd['library_ms']:.2f} ms, bound "
+        f"{fwd['bound_ms']:.2f} ms [{card}]")
+    log(f"phase 15(e) per training step (batch 1): K1-dz {step['dz_ms']:.2f}"
+        f" ms (cuDNN dgrad {step['dz_library_ms']:.2f}, bound "
+        f"{step['dz_bound_ms']:.2f}), K3 {step['dw_ms']:.2f} ms (plain "
+        f"{step['dw_plain_ms']:.2f}, cuDNN wgrad "
+        f"{step['dw_library_ms']:.2f}, bound {step['dw_bound_ms']:.2f}) "
+        f"[{card}]")
+    return dict(forward_ms=forward, k1=fwd, step=step)
+
+
+def seg_write_volume(path: str, shape, seed: int) -> None:
+    """A smooth synthetic volume and its foreground label, written by
+    ``data/h5.py`` (gzip-chunked)."""
+    import numpy as np
+
+    from gfe_mamba_torch.data import h5
+    rng = np.random.RandomState(seed)
+    coarse = rng.randn(*[max(2, n // 16) for n in shape]).astype(np.float32)
+    raw = torch.nn.functional.interpolate(
+        torch.from_numpy(coarse)[None, None], size=tuple(shape),
+        mode="trilinear", align_corners=False)[0, 0].numpy()
+    raw += 0.1 * rng.randn(*shape).astype(np.float32)
+    h5.write(path, {"raw": raw, "label": (raw > 0).astype(np.uint8)})
+
+
+def seg_config(root: str, **sections) -> str:
+    """The nested YAML of a segmentation run over ``root``'s directories."""
+    model = "\n".join(f"  {k}: {v}" for k, v in SEG_UNET3D.items())
+    text = f"""manual_seed: 0
+model:
+{model}
+model_path: {sections.get('model_path', root + '/ckpt/best_checkpoint')}
+loss:
+  name: BCEDiceLoss
+eval_metric:
+  name: DiceCoefficient
+optimizer:
+  name: Adam
+  learning_rate: 1.0e-4
+trainer:
+  checkpoint_dir: {root}/ckpt
+  max_num_iterations: 3
+  max_num_epochs: 10
+  validate_after_iters: 2
+  log_after_iters: 1
+loaders:
+  batch_size: 1
+  num_workers: 0
+  train:
+    file_paths: [{root}/train]
+    slice_builder:
+      patch_shape: {list(SEG_PATCH)}
+      stride_shape: {list(SEG_PATCH)}
+    transformer:
+      - name: Standardize
+  val:
+    file_paths: [{root}/val]
+    slice_builder:
+      patch_shape: {list(SEG_PATCH)}
+      stride_shape: {list(SEG_PATCH)}
+  test:
+    file_paths: [{sections.get('test', root + '/test')}]
+    batch_size: {SEG_BATCH}
+    slice_builder:
+      patch_shape: {list(SEG_PATCH)}
+      stride_shape: {list(SEG_STRIDE)}
+"""
+    path = os.path.join(root, f"{sections.get('name', 'seg')}.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def seg_args(config: str, *overrides):
+    import argparse
+    return argparse.Namespace(config=config, override=list(overrides),
+                              device="cuda")
+
+
+def seg_predict_phase(card: str, root: str) -> dict:
+    """Phase 15(b): ``seg_predict`` over a synthetic volume at full width
+    (patches at batch 4) from a checkpoint of seeded weights; its file,
+    read back by ``data/h5.py``, must equal ``sliding_window_predict``
+    driven directly, and K1 must launch 13 times per forward."""
+    import numpy as np
+
+    from gfe_mamba_torch.cli import seg_predict
+    from gfe_mamba_torch.data import h5
+    from gfe_mamba_torch.ops.cuda import conv3d as k1
+    from gfe_mamba_torch.segmentation.predictor import sliding_window_predict
+    from gfe_mamba_torch.segmentation.slicers import SliceBuilder
+    from gfe_mamba_torch.training.checkpoint import Checkpointer
+
+    os.makedirs(f"{root}/big")
+    seg_write_volume(f"{root}/big/volume.h5", SEG_VOLUME, 11)
+    model = seg_model(SEG_UNET3D, seed=12)
+    Checkpointer(f"{root}/seeded").save("weights", {
+        "model": model.state_dict(), "num_iterations": 0,
+        "best_eval_score": 0.0})
+    config = seg_config(root, name="predict", test=f"{root}/big",
+                        model_path=f"{root}/seeded/weights")
+    before = k1.launches
+    t = time.perf_counter()
+    written = seg_predict.main(seg_args(config))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = k1.launches - before
+    patches = len(SliceBuilder(SEG_VOLUME, SEG_PATCH, SEG_STRIDE))
+    forwards = -(-patches // SEG_BATCH)
+    got = h5.read(written[0], "predictions")
+    model.to("cuda")
+
+    @torch.no_grad()
+    def fwd(x):
+        return model(torch.from_numpy(x).to("cuda")).cpu().numpy()
+
+    raw = h5.read(f"{root}/big/volume.h5", "raw")[..., None]
+    want = np.moveaxis(sliding_window_predict(
+        fwd, raw, SEG_PATCH, SEG_STRIDE, batch_size=SEG_BATCH), -1, 0)
+    diff = float(np.abs(got - want).max())
+    log(f"phase 15(b) seg_predict {list(SEG_VOLUME)}: {patches} patches in "
+        f"{forwards} forwards of batch {SEG_BATCH}, {wall:.1f} s wall "
+        f"[{card}]; K1 {launches} launches; file vs direct max |diff| "
+        f"{diff:.3e}; predictions in [{got.min():.3f}, {got.max():.3f}]")
+    if got.shape != (1, *SEG_VOLUME) or not np.isfinite(got).all():
+        raise AssertionError(f"phase 15(b): predictions {got.shape}")
+    if diff > 1e-6:
+        raise AssertionError(f"phase 15(b): the file differs from the "
+                             f"direct prediction by {diff}")
+    if launches != SEG_FORWARD_K1["UNet3D"] * forwards:
+        raise AssertionError(f"phase 15(b): {launches} K1 launches, "
+                             f"expected 13 x {forwards}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, forwards=forwards)
+
+
+def seg_train_phase(card: str, root: str) -> dict:
+    """Phase 15(c): ``seg_train`` of UNet3D at full width, batch 1: 3 steps
+    with one validation and both checkpoints, a resume from the last one
+    to step 4, then ``seg_predict`` from the best one.  Each step must
+    launch K1 13 times in the forward and 13 times as dz, and K3 13 times
+    (on its f32 variant)."""
+    import numpy as np
+
+    from gfe_mamba_torch.cli import seg_predict, seg_train
+    from gfe_mamba_torch.data import h5
+    from gfe_mamba_torch.ops.cuda import conv3d as k1
+    from gfe_mamba_torch.segmentation import trainer as seg_trainer
+    from gfe_mamba_torch.training.checkpoint import Checkpointer
+
+    for phase, shape, seed in (("train", (SEG_PATCH[0], SEG_PATCH[1],
+                                          2 * SEG_PATCH[2]), 21),
+                               ("val", SEG_PATCH, 22), ("test", SEG_PATCH,
+                                                        23)):
+        os.makedirs(f"{root}/{phase}")
+        seg_write_volume(f"{root}/{phase}/v.h5", shape, seed)
+    config = seg_config(root)
+    steps = []
+    original = seg_trainer.UNetTrainer.train_step
+
+    def counted(self, raw, label):
+        at_forward_end = []
+        hook = self.model.register_forward_hook(
+            lambda *_: at_forward_end.append(k1.launches))
+        before = (k1.launches, k1.dw_launches, k1.dw_fma_launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            loss = original(self, raw, label)
+            torch.cuda.synchronize()
+        finally:
+            hook.remove()
+        steps.append(dict(
+            ms=(time.perf_counter() - t) * 1e3, loss=loss,
+            forward=at_forward_end[0] - before[0],
+            dz=k1.launches - at_forward_end[0],
+            k3=k1.dw_launches - before[1], k3_f32=k1.dw_fma_launches
+            - before[2]))
+        return loss
+
+    seg_trainer.UNetTrainer.train_step = counted
+    try:
+        t = time.perf_counter()
+        first = seg_train.main(seg_args(config))
+        first_wall = time.perf_counter() - t
+        resumed = seg_train.main(seg_args(
+            config, "trainer.resume=true", "trainer.max_num_iterations=4"))
+    finally:
+        seg_trainer.UNetTrainer.train_step = original
+    for i, st in enumerate(steps):
+        log(f"phase 15(c) seg_train step {i + 1}: {st['ms']:.1f} ms "
+            f"[{card}], loss {st['loss']:.5f}; K1 {st['forward']} forward "
+            f"+ {st['dz']} dz, K3 {st['k3']} ({st['k3_f32']} f32)")
+        if (st["forward"], st["dz"], st["k3"], st["k3_f32"]) != \
+                (13, 13, 13, 13) or not math.isfinite(st["loss"]):
+            raise AssertionError(f"phase 15(c) step {i + 1}: {st}")
+    ckpt = Checkpointer(f"{root}/ckpt")
+    last = ckpt.restore("last_checkpoint", map_location="cpu")
+    if (len(steps), first.num_iterations, resumed.num_iterations,
+            last["num_iterations"]) != (5, 3, 4, 4) \
+            or not ckpt.exists("best_checkpoint"):
+        raise AssertionError(f"phase 15(c): {len(steps)} steps, iterations "
+                             f"{first.num_iterations} then "
+                             f"{resumed.num_iterations}, last checkpoint at "
+                             f"{last['num_iterations']}")
+    written = seg_predict.main(seg_args(config))
+    pred = h5.read(written[0], "predictions")
+    if pred.shape != (1, *SEG_PATCH) or not np.isfinite(pred).all() \
+            or pred.min() < 0 or pred.max() > 1:
+        raise AssertionError(f"phase 15(c): seg_predict from the best "
+                             f"checkpoint gave {pred.shape}")
+    log(f"phase 15(c) seg_train: first run (3 steps, 1 validation) "
+        f"{first_wall:.1f} s wall, resumed at iteration 2 to 4; best score "
+        f"{resumed.best_eval_score:.4f}; seg_predict from the best "
+        f"checkpoint {list(pred.shape)} [{card}]")
+    return dict(step_ms=[st["ms"] for st in steps])
+
+
+def drive_segmentation(card: str) -> dict:
+    """Phase 15: the segmentation family on the card, f32, TF32 off."""
+    from gfe_mamba_torch.ops.cuda import conv3d as k1
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    with tf32_settings(False, False):
+        seg_parity(card)
+        seg_check_kernels(gen)
+        times = seg_times(card, gen)
+        with tempfile.TemporaryDirectory(prefix="gfe_seg_") as root:
+            k1.launches = k1.dw_launches = 0
+            k1.dw_mma_launches = k1.dw_fma_launches = 0
+            predict = seg_predict_phase(card, root)
+            train = seg_train_phase(card, root)
+            launches = dict(K1=k1.launches, K3=k1.dw_launches)
+    log(f"phase 15: seg_train ms/step {['%.1f' % v for v in train['step_ms']]}"
+        f", seg_predict {predict['wall_s']:.1f} s wall; launches on the path "
+        f"{launches}; {time.perf_counter() - t0:.1f} s of wall [{card}]")
+    if not all(launches.values()):
+        raise AssertionError(f"phase 15: {launches}: a kernel never "
+                             f"launched on the segmentation path")
+    return dict(launches=launches, times=times, train_step_ms=train["step_ms"],
+                predict_wall_s=predict["wall_s"])
+
+
 @contextlib.contextmanager
 def tf32_settings(cudnn: bool, matmul: bool):
     """cuDNN's and cuBLAS's TF32 switches set for the block, then put
@@ -2383,6 +2835,19 @@ def main() -> int:
             phase12 = drive_clis(card, root)
         other = drive_other_mixers(card, root, phase12)
         dp = drive_parallel(card, root, phase12)
+    seg = drive_segmentation(card)
+    kernels[0]["seg_launches"] = seg["launches"]["K1"]
+    kernels[0]["seg"] = dict(per="UNet3D forward, 64x128x128, batch 1, f32",
+                             forward_ms=seg["times"]["forward_ms"],
+                             **seg["times"]["k1"],
+                             **{k: v for k, v in seg["times"]["step"].items()
+                                if k.startswith("dz")})
+    k3["seg_launches"] = seg["launches"]["K3"]
+    k3["seg"] = dict(per="UNet3D training step, batch 1, f32",
+                     ms=seg["times"]["step"]["dw_ms"],
+                     plain_ms=seg["times"]["step"]["dw_plain_ms"],
+                     library_ms=seg["times"]["step"]["dw_library_ms"],
+                     bound_ms=seg["times"]["step"]["dw_bound_ms"])
     kernels[1]["jamba_launches"] = other["k2"]
     k4["jamba_launches"] = other["k4"]
     for k, name in zip(kernels[:2] + [k4, k3], ("K1", "K2", "K4", "K3")):

@@ -32,12 +32,9 @@ from gfe_mamba_torch.utils.experiment import ExperimentDir
 # how long the other ranks wait while rank 0 validates or writes
 WAIT_FOR_MAIN_S = 3600.0
 
-# the JAX CLIs' generator keys, and the ViT's dropout rates (a port-only
-# pair: JAX draws one mask over the global batch, the port one per rank,
-# so a multi-process run equals a one-process run only with them at 0)
+# the JAX CLIs' generator keys
 GENERATOR_KEYS = ("fold_factor", "vit_patch_size", "vit_dim", "vit_depth",
-                  "vit_heads", "vit_mlp_dim", "vit_dropout",
-                  "vit_emb_dropout")
+                  "vit_heads", "vit_mlp_dim")
 
 
 def parse_args(description: str, default_config: str,
@@ -96,9 +93,8 @@ def generator_kwargs(cf: dict, remat_default: bool) -> dict:
 
 def build_pipeline(cf: dict, dataset, device):
     """``build_gfe_mamba`` from the classify config keys (``mixer``,
-    ``attn_dropout`` and ``ff_dropout`` among them, and the port-only
-    ``cross_ff_dropout``), f32 weights drawn from ``seed`` under the torch
-    law."""
+    ``attn_dropout`` and ``ff_dropout`` among them), f32 weights drawn
+    from ``seed`` under the torch law."""
     from gfe_mamba_torch.models.pipeline import build_gfe_mamba
     return build_gfe_mamba(
         categories=dataset.num_cat, num_continuous=dataset.num_cont,
@@ -106,7 +102,6 @@ def build_pipeline(cf: dict, dataset, device):
         dim_out=cf.get("dim_out", 1),
         attn_dropout=cf.get("attn_dropout", 0.1),
         ff_dropout=cf.get("ff_dropout", 0.1),
-        cross_ff_dropout=cf.get("cross_ff_dropout", 0.1),
         seq_length=cf.get("seq_length", 4),
         mixer=cf.get("mixer", "mamba"), seed=cf.get("seed", 0),
         device=device, **generator_kwargs(cf, remat_default=False))

@@ -1,7 +1,9 @@
-"""Flat YAML configs and the typed trees (counterpart of
-``gfe_mamba_tpu/config.py``), without PyYAML.
+"""YAML configs and the typed trees (counterpart of
+``gfe_mamba_tpu/config.py``), without PyYAML: the flat reader of the
+GFE entry points' configs, and the nested reader of the segmentation
+configs (:func:`parse_nested_yaml`, :func:`load_nested_config`).
 
-The reader takes what the configs of ``configs/`` use: one flat mapping
+The flat reader takes what the configs of ``configs/`` use: one flat mapping
 of scalars, single- or double-quoted strings, flow lists ``[a, b]`` of
 scalars, comments and blank lines.  Scalars resolve as
 ``yaml.safe_load``'s YAML 1.1 resolver resolves them: ``1.0e-4`` is a
@@ -192,7 +194,8 @@ class _Cursor:
             return self.quoted()
         return resolve_plain(self.plain(in_flow))
 
-    def flow_list(self) -> list:
+    def flow_list(self, nested: bool = False) -> list:
+        """A flow list of scalars; of flow lists too where ``nested``."""
         self.i += 1   # '['
         items = []
         while True:
@@ -203,9 +206,12 @@ class _Cursor:
             if self.s[self.i] == "]":
                 self.i += 1
                 return items
-            if self.s[self.i] in "[{":
+            if self.s[self.i] == "[" and nested:
+                items.append(self.flow_list(nested))
+            elif self.s[self.i] in "[{":
                 self.fail("nested flow collections are not supported")
-            items.append(self.scalar(in_flow=True))
+            else:
+                items.append(self.scalar(in_flow=True))
             self.skip_spaces()
             if self.s[self.i:self.i + 1] == ",":
                 self.i += 1
@@ -238,11 +244,11 @@ class _Cursor:
         self.i += 1
         return key
 
-    def value(self):
+    def value(self, nested: bool = False):
         if self.at_end():
             return None
         if self.s[self.i] == "[":
-            value = self.flow_list()
+            value = self.flow_list(nested)
         else:
             value = self.scalar()
         if not self.at_end():
@@ -271,6 +277,159 @@ def parse_yaml(text: str) -> dict:
     if not out:
         raise ValueError("the YAML holds no mapping")
     return out
+
+
+def _block_lines(text: str) -> list[list]:
+    """``[indent, content, lineno]`` of every line that holds YAML: blank
+    and comment-only lines and a leading ``---`` dropped."""
+    lines, started = [], False
+    for lineno, line in enumerate(text.splitlines(), 1):
+        stripped = line.strip()
+        if not stripped or stripped.startswith("#"):
+            continue
+        if stripped == "---" and not started and line.startswith("---"):
+            started = True
+            continue
+        started = True
+        body = line.lstrip(" ")
+        if body.startswith("\t"):
+            raise ValueError(f"line {lineno}: a tab in the indentation: "
+                             f"{line!r}")
+        lines.append([len(line) - len(body), body.rstrip(), lineno])
+    return lines
+
+
+def _is_item(content: str) -> bool:
+    return content == "-" or content.startswith("- ")
+
+
+def _is_entry(content: str, lineno: int) -> bool:
+    """Whether ``content`` opens a ``key: value`` entry (else it is a
+    value)."""
+    if content.startswith("["):
+        return False
+    cur = _Cursor(content, lineno)
+    if content[0] in "'\"":
+        cur.quoted()
+        cur.skip_spaces()
+        return content[cur.i:cur.i + 1] == ":"
+    for i, ch in enumerate(content):
+        if ch == "#" and i and content[i - 1] in " \t":
+            return False
+        if ch == ":" and content[i + 1:i + 2] in ("", " ", "\t"):
+            return True
+    return False
+
+
+class _Blocks:
+    """The block structure of a nested YAML text: mappings and sequences
+    by indentation, each leaf read by :class:`_Cursor`."""
+
+    def __init__(self, text: str):
+        self.lines = _block_lines(text)
+
+    def indent(self, i: int) -> int:
+        return self.lines[i][0] if i < len(self.lines) else -1
+
+    def block(self, i: int, indent: int):
+        """The block at line ``i`` (indented ``indent``) and the line after
+        it."""
+        if _is_item(self.lines[i][1]):
+            return self.sequence(i, indent)
+        if _is_entry(self.lines[i][1], self.lines[i][2]):
+            return self.mapping(i, indent)
+        _, content, lineno = self.lines[i]
+        value = _Cursor(content, lineno).value(nested=True)
+        if self.indent(i + 1) > indent:
+            raise ValueError(f"line {self.lines[i + 1][2]}: multi-line "
+                             f"scalars are not supported")
+        return value, i + 1
+
+    def nested(self, i: int, indent: int, of_key: bool):
+        """The value of an entry (``of_key``) or item with nothing after
+        its key or dash: the deeper block below it, or for an entry a
+        sequence at its key's own indent; else None."""
+        below = self.indent(i)
+        if below > indent or (of_key and below == indent
+                              and _is_item(self.lines[i][1])):
+            return self.block(i, below)
+        return None, i
+
+    def mapping(self, i: int, indent: int):
+        out: dict = {}
+        while self.indent(i) == indent and not _is_item(self.lines[i][1]):
+            _, content, lineno = self.lines[i]
+            cur = _Cursor(content, lineno)
+            key = cur.key()
+            if cur.at_end():
+                out[key], i = self.nested(i + 1, indent, True)
+                continue
+            out[key] = cur.value(nested=True)
+            i += 1
+            if self.indent(i) > indent:
+                raise ValueError(f"line {self.lines[i][2]}: multi-line "
+                                 f"scalars are not supported")
+        if self.indent(i) > indent:
+            raise ValueError(f"line {self.lines[i][2]}: bad indentation")
+        return out, i
+
+    def sequence(self, i: int, indent: int):
+        out: list = []
+        while self.indent(i) == indent and _is_item(self.lines[i][1]):
+            _, content, lineno = self.lines[i]
+            rest = content[1:].lstrip(" ")
+            if not rest or rest.startswith("#"):
+                value, i = self.nested(i + 1, indent, False)
+            else:
+                # the item's content is a block of its own, at its column
+                column = indent + len(content) - len(rest)
+                self.lines[i] = [column, rest, lineno]
+                value, i = self.block(i, column)
+            out.append(value)
+        if self.indent(i) > indent:
+            raise ValueError(f"line {self.lines[i][2]}: bad indentation")
+        return out, i
+
+
+def parse_nested_yaml(text: str):
+    """A nested YAML document, as ``yaml.safe_load`` reads it: block
+    mappings at any depth; block sequences (at their key's indent or
+    deeper) of scalars, of mappings (``- name: ...`` with the entries
+    below at the name's column) and of sequences; flow lists, nested
+    ones too; and the scalar rules of :func:`parse_yaml`.  Anchors,
+    aliases, tags, flow mappings and multi-line or block scalars raise
+    ``ValueError``."""
+    blocks = _Blocks(text)
+    if not blocks.lines:
+        return None
+    value, end = blocks.block(0, blocks.lines[0][0])
+    if end < len(blocks.lines):
+        raise ValueError(f"line {blocks.lines[end][2]}: bad indentation")
+    return value
+
+
+def parse_value(text: str):
+    """One inline YAML value (a scalar or a flow list), as
+    ``yaml.safe_load(text)`` reads it."""
+    return _Cursor(text.strip(), 0).value(nested=True)
+
+
+def load_nested_config(path: str, overrides=()) -> dict:
+    """A nested YAML config file (``seg_train.py::load_nested_config``):
+    each override ``dotted.key=value`` sets that key, making the mappings
+    on its way, to the YAML value ``value``."""
+    with open(path, "r", encoding="utf-8") as f:
+        config = parse_nested_yaml(f.read())
+    if not isinstance(config, dict):
+        raise ValueError(f"{path}: the YAML holds no mapping")
+    for item in overrides or ():
+        keys, value = item.split("=", 1)
+        node = config
+        parts = keys.split(".")
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = parse_value(value)
+    return config
 
 
 def load_config(file_path: str) -> dict:

@@ -5,8 +5,9 @@ Slices a fraction of each axis of both volumes, pushes the 2D slices
 through a frozen SqueezeNet-1.1 feature trunk, and sums over its five
 taps the spatial mean of the squared difference of the channel-normalised
 features; the three axes are averaged.  The trunk is seeded-random, as in
-the JAX package: carry its weights across with
-``utils.convert.state_dict_from_jax`` to reproduce a JAX loss.
+the JAX package, or read from ``weights_path``: the npz of
+``{"params": tree}`` that ``tools/convert_squeezenet.py`` writes and the
+JAX loss reads, carried across by ``utils.convert.state_dict_from_jax``.
 
 Traps kept from the JAX package: conv1 is VALID with stride 2; the max
 pools are VALID (``ceil_mode=False``, unlike torchvision's SqueezeNet);
@@ -20,11 +21,13 @@ upscale); and the slice indices are exactly those of
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from gfe_mamba_torch import resolve_device
+from gfe_mamba_torch.utils.convert import state_dict_from_jax
 
 
 class Fire(nn.Module):
@@ -106,15 +109,21 @@ def _normalize_channels(feat: torch.Tensor, eps: float = 1e-10):
 class PerceptualLoss(nn.Module):
     """``loss = PerceptualLoss()(pred, target)`` over channels-last
     volumes ``(B, X, Y, Z, C)``.  The feature trunk is frozen; its
-    weights come from ``seed`` and it lives on ``device`` (CUDA unless
+    weights come from ``weights_path`` when given (module docstring),
+    else from ``seed``, and it lives on ``device`` (CUDA unless
     ``device="cpu"``)."""
 
     def __init__(self, fake_3d_ratio: float = 0.25, seed: int = 0,
-                 device=None):
+                 device=None, weights_path: str | None = None):
         super().__init__()
         self.fake_3d_ratio = fake_3d_ratio
         self.net = SqueezeFeatures()
-        self.net.reset_parameters(torch.Generator().manual_seed(seed))
+        if weights_path:
+            with np.load(weights_path, allow_pickle=True) as loaded:
+                tree = loaded["params"].item()
+            self.net.load_state_dict(state_dict_from_jax(tree))
+        else:
+            self.net.reset_parameters(torch.Generator().manual_seed(seed))
         self.net.requires_grad_(False)
         self.to(resolve_device(device))
 

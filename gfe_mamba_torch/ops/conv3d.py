@@ -4,10 +4,17 @@ Counterpart of ``gfe_mamba_tpu/ops/pallas/conv3d.py``: the fused
 GN-apply + 3x3x3 conv (K1) with its backward (K1 again for the input
 gradient, K3 for the weight gradient) behind ``conv3x3x3``, plus the
 helpers around it -- GroupNorm statistics, the activation set, the 2x2x2
-max pool, the stride-2 transposed conv and the nearest resize.
+max pool, the stride-2 transposed conv and the nearest resize -- and the
+general ops of the segmentation blocks (``ops/blocks.py`` of the JAX
+package) on 2D or 3D channels-last tensors: ``conv_nd`` (cuDNN's conv,
+for the convs K1 does not take), ``deconv_nd``, ``pool_nd`` and
+``interpolate_to`` (the floor-index nearest resize, or
+``jax.image.resize``'s kernels for every other method).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -17,8 +24,9 @@ from gfe_mamba_torch.ops.cuda.conv3d import (apply_act, conv3x3x3_cuda,
                                              conv3x3x3_dw_plain,
                                              conv3x3x3_plain)
 
-__all__ = ["Conv3x3x3Fn", "apply_act", "conv3x3x3", "deconv3x3x3_s2",
-           "group_norm_stats", "max_pool2", "resize_nearest"]
+__all__ = ["Conv3x3x3Fn", "apply_act", "conv3x3x3", "conv_nd",
+           "deconv3x3x3_s2", "deconv_nd", "group_norm_stats",
+           "interpolate_to", "max_pool2", "pool_nd", "resize_nearest"]
 
 
 class _SumOfSquares(torch.autograd.Function):
@@ -60,8 +68,7 @@ def group_norm_stats(x: torch.Tensor, num_groups: int, eps: float = 1e-5):
 
 def max_pool2(x: torch.Tensor) -> torch.Tensor:
     """2x2x2 max pool, stride 2, of a channels-last volume."""
-    y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), 2, 2)
-    return y.permute(0, 2, 3, 4, 1)
+    return pool_nd(x, "max", 2)
 
 
 def deconv3x3x3_s2(x: torch.Tensor, weight: torch.Tensor,
@@ -91,6 +98,118 @@ def resize_nearest(x: torch.Tensor, spatial) -> torch.Tensor:
                           * (n / size)).long()
         x = torch.index_select(x, axis, idx.to(x.device))
     return x
+
+
+def _channels_first(x: torch.Tensor) -> torch.Tensor:
+    return x.movedim(-1, 1)
+
+
+def _channels_last(y: torch.Tensor) -> torch.Tensor:
+    return y.movedim(1, -1).contiguous()
+
+
+def conv_nd(x: torch.Tensor, weight: torch.Tensor, bias=None,
+            padding=1) -> torch.Tensor:
+    """Stride-1 conv of a channels-last ``(B, *spatial, C)`` tensor (2D
+    or 3D) through cuDNN (``F.conv2d`` / ``F.conv3d``): the convs of the
+    segmentation blocks that K1 does not take.  ``weight`` is the torch
+    layout ``(O, I, *k)``; ``padding`` an int, a tuple or 'SAME' /
+    'VALID' (flax's names)."""
+    conv = F.conv3d if x.dim() == 5 else F.conv2d
+    if isinstance(padding, str):
+        padding = padding.lower()
+    y = conv(_channels_first(x), weight.to(x.dtype),
+             None if bias is None else bias.to(x.dtype), padding=padding)
+    return _channels_last(y)
+
+
+def deconv_nd(x: torch.Tensor, weight: torch.Tensor,
+              stride: int) -> torch.Tensor:
+    """flax ``ConvTranspose(k, strides=stride, padding=(1, 1) per axis)``
+    of a channels-last tensor: (n - 1) * stride + 4 - k samples per axis
+    (2n - 1 at k = 3, stride 2).  ``weight`` is the torch layout ``(I, O,
+    *k)``, the flax kernel flipped spatially."""
+    conv = F.conv_transpose3d if x.dim() == 5 else F.conv_transpose2d
+    k = weight.shape[-1]
+    y = conv(_channels_first(x), weight.to(x.dtype), stride=stride)
+    # the full transposed conv pads the dilated input by k - 1 per side,
+    # flax's by 1: take k - 2 off each side (or add zeros when k = 1)
+    return _channels_last(F.pad(y, [2 - k] * (2 * (x.dim() - 2))))
+
+
+def pool_nd(x: torch.Tensor, kind: str, k: int) -> torch.Tensor:
+    """``kind`` ('max' or 'avg') pool of a channels-last tensor, window
+    and stride ``k`` per spatial axis, VALID."""
+    dims = x.dim() - 2
+    fn = {("max", 2): F.max_pool2d, ("max", 3): F.max_pool3d,
+          ("avg", 2): F.avg_pool2d, ("avg", 3): F.avg_pool3d}[kind, dims]
+    return _channels_last(fn(_channels_first(x), k, k))
+
+
+def _triangle(d):
+    return torch.clamp(1.0 - d.abs(), min=0.0)
+
+
+def _keys_cubic(d):
+    out = ((1.5 * d - 2.5) * d) * d + 1.0
+    out = torch.where(d >= 1.0, ((-0.5 * d + 2.5) * d - 4.0) * d + 2.0, out)
+    return torch.where(d >= 2.0, 0.0, out)
+
+
+def _lanczos(radius: float):
+    def kernel(d):
+        y = radius * torch.sin(math.pi * d) * torch.sin(math.pi * d / radius)
+        out = torch.where(d > 1e-3, y / torch.where(
+            d != 0, math.pi ** 2 * d ** 2, torch.ones_like(d)), 1.0)
+        return torch.where(d > radius, 0.0, out)
+    return kernel
+
+
+_RESIZE_KERNELS = {
+    **dict.fromkeys(("linear", "bilinear", "trilinear", "triangle"),
+                    _triangle),
+    **dict.fromkeys(("cubic", "bicubic", "tricubic"), _keys_cubic),
+    "lanczos3": _lanczos(3.0), "lanczos5": _lanczos(5.0)}
+
+
+def _resize_weights(n_in: int, n_out: int, kernel) -> torch.Tensor:
+    """``(n_in, n_out)`` f32 weights of ``jax.image.resize`` along one
+    axis (``compute_weight_mat``, antialiased, no translation)."""
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) \
+        * inv_scale - 0.5
+    d = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]
+         ).abs() / kernel_scale
+    w = kernel(d)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def interpolate_to(x: torch.Tensor, spatial, method: str) -> torch.Tensor:
+    """Resize channels-last ``x`` to the spatial extents ``spatial``
+    (``_interpolate_to`` of the JAX package): 'nearest' by the floor-index
+    rule of :func:`resize_nearest`, any other method as
+    ``jax.image.resize`` computes it (separable weights per axis, in x's
+    dtype)."""
+    if tuple(x.shape[1:-1]) == tuple(spatial):
+        return x
+    if method == "nearest":
+        return resize_nearest(x, spatial)
+    try:
+        kernel = _RESIZE_KERNELS[method]
+    except KeyError:
+        raise ValueError(f"unknown resize method {method!r}") from None
+    for axis, size in enumerate(spatial, start=1):
+        n = x.shape[axis]
+        if n == size:
+            continue
+        w = _resize_weights(n, size, kernel).to(x.device, x.dtype)
+        x = torch.tensordot(x, w, dims=([axis], [0])).movedim(-1, axis)
+    return x.contiguous()
 
 
 def _act_grad_from_out(y: torch.Tensor, act: str):

@@ -9,14 +9,15 @@ gradient is not finite moves neither the parameters nor Adam's moments;
 Adam's step count still advances, as optax's integer count does under
 the JAX trainer's finite guard.
 
-With a ``mesh`` (``parallel/mesh.py``) each rank steps on its own rows
-of the global batch.  The gradients are averaged over the data group
-before the finite check and the clip, so every rank takes the same skip
-decision and the same update; the logged loss and accuracy are the
-global batch's.  Parameters that ``parallel/sharding.py`` split over the
-model group are clipped by the norm of the whole tensor.  The port's
-gradients come from ``torch.autograd.grad``, so DDP's reducer hooks
-would never fire: the all-reduce is the trainer's own.
+With a ``mesh`` (``parallel/mesh.py``) each rank steps on its own rows of the
+global batch.  The gradients are averaged over the data group before the finite
+check and the clip, so every rank takes the same skip decision and the same
+update; the logged loss and accuracy are the global batch's, and the dropout
+masks those of one process over the global batch (``models/dropout.py``).
+Parameters that ``parallel/sharding.py`` split over the model group are clipped
+by the norm of the whole tensor.  The port's gradients come from
+``torch.autograd.grad``, so DDP's reducer hooks would never fire: the
+all-reduce is the trainer's own.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from gfe_mamba_torch import resolve_device
-from gfe_mamba_torch.models.dropout import rank_seed, seed_dropout
+from gfe_mamba_torch.models.dropout import seed_dropout
 from gfe_mamba_torch.models.pipeline import GFEMamba
 from gfe_mamba_torch.parallel.collectives import (all_reduce_mean_,
                                                   all_true, mean_over)
@@ -75,9 +76,8 @@ class ClassifyTrainer:
         split = sharded_state(model)
         self.splits = {i: split[n][1] for i, n in enumerate(self.trainable)
                        if n in split}
-        self.rng = torch.Generator(device=self.device).manual_seed(
-            rank_seed(seed, mesh.data_index if mesh is not None else 0))
-        seed_dropout(model, self.rng)
+        self.rng = torch.Generator(device=self.device).manual_seed(seed)
+        seed_dropout(model, self.rng, mesh)
         self.step = 0
 
     def _inputs(self, *tensors):

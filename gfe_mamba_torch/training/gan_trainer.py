@@ -21,12 +21,13 @@ microbatches of the batch; ``d_fresh_recon`` trains D on a second,
 no-grad generator forward with the updated G (the reference loop's
 order) instead of the shared reconstruction.
 
-With a ``mesh`` (``parallel/mesh.py``) each rank steps on its own rows
-of the global batch: both players' gradients are averaged over the data
-group, and the logged losses are the global batch's means, before the
-finite check and G's clip, so every rank skips the same steps and takes
-the same update (the gradients come from ``torch.autograd.grad``, so
-DDP's hooks would never fire).  G's global norm counts a parameter that
+With a ``mesh`` (``parallel/mesh.py``) each rank steps on its own rows of the
+global batch: both players' gradients are averaged over the data group, and the
+logged losses are the global batch's means, before the finite check and G's
+clip, so every rank skips the same steps and takes the same update (the
+gradients come from ``torch.autograd.grad``, so DDP's hooks would never fire);
+the dropout masks are those of one process over the global batch
+(``models/dropout.py``). G's global norm counts a parameter that
 ``parallel/sharding.py`` split over the model group once, whole, and a
 replicated one once.
 """
@@ -42,7 +43,7 @@ from torch.func import functional_call
 
 from gfe_mamba_torch import resolve_device
 from gfe_mamba_torch.losses.gan import patch_adversarial_loss
-from gfe_mamba_torch.models.dropout import rank_seed, seed_dropout
+from gfe_mamba_torch.models.dropout import seed_dropout
 from gfe_mamba_torch.parallel.collectives import (all_reduce_mean_,
                                                   all_true, mean_over)
 from gfe_mamba_torch.parallel.sharding import sharded_state
@@ -97,9 +98,8 @@ class GanTrainer:
         split = sharded_state(generator)
         self.g_splits = {i: split[n][1] for i, n in enumerate(self.g_params)
                          if n in split}
-        self.rng = torch.Generator(device=self.device).manual_seed(
-            rank_seed(seed, mesh.data_index if mesh is not None else 0))
-        seed_dropout(generator, self.rng)
+        self.rng = torch.Generator(device=self.device).manual_seed(seed)
+        seed_dropout(generator, self.rng, mesh)
         self.step = 0
 
     def _recon(self, mri: torch.Tensor) -> torch.Tensor:
@@ -251,32 +251,21 @@ class GanTrainer:
 
     def state_dict(self) -> dict:
         """What a resumed run needs: both players' and both Adams' state
-        dicts, the dropout generator's state and the step count.  With a
-        mesh, ``rng`` lists every data rank's generator state (gathered
-        over the data group: every rank calls this)."""
-        rng = self.rng.get_state()
-        if self.data_group is not None:
-            import torch.distributed as dist
-            states = [None] * dist.get_world_size(self.data_group)
-            dist.all_gather_object(states, rng, group=self.data_group)
-            rng = states
+        dicts, the dropout generator's state (alike on every data rank)
+        and the step count."""
         return {"generator": self.generator.state_dict(),
                 "discriminator": self.discriminator.state_dict(),
                 "g_opt": self.g_opt.state_dict(),
                 "d_opt": self.d_opt.state_dict(),
-                "rng": rng, "step": self.step}
+                "rng": self.rng.get_state(), "step": self.step}
 
     def load_state_dict(self, state: dict) -> None:
-        """The inverse of :meth:`state_dict`; a data rank takes its own
-        entry of a listed ``rng``."""
+        """The inverse of :meth:`state_dict`."""
         self.generator.load_state_dict(state["generator"])
         self.discriminator.load_state_dict(state["discriminator"])
         self.g_opt.load_state_dict(state["g_opt"])
         self.d_opt.load_state_dict(state["d_opt"])
-        rng = state["rng"]
-        if isinstance(rng, (list, tuple)):
-            rng = rng[self.mesh.data_index if self.mesh is not None else 0]
-        self.rng.set_state(rng)
+        self.rng.set_state(state["rng"])
         self.step = int(state["step"])
 
     @torch.no_grad()

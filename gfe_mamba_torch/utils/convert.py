@@ -30,7 +30,7 @@ import torch
 _RENAMES = [
     (r"(^|/)encoder_(\d+)/", r"\1encoders/\2/"),
     (r"(^|/)decoder_(\d+)/", r"\1decoders/\2/"),
-    (r"/groupnorm_\d+/", "/groupnorm/"),
+    (r"/(groupnorm|batchnorm)_\d+/", r"/\1/"),
     (r"(^|/)upsampling/kernel$",
      r"\1upsampling/upsample/conv_transposed/kernel"),
     # ViT bottleneck
@@ -77,11 +77,14 @@ def _transform(path: str, value: np.ndarray) -> np.ndarray:
         return value.T
     if leaf == "kernel" and value.ndim == 3:       # depthwise conv1d
         return np.transpose(value, (2, 1, 0))
+    if leaf == "kernel" and path.endswith("upsampling/kernel"):
+        # transposed conv (*k, I, O) -> (I, O, *k), flipped spatially
+        k = value.ndim - 2
+        flip = (slice(None),) * 2 + (slice(None, None, -1),) * k
+        return np.transpose(value, (k, k + 1, *range(k)))[flip]
     if leaf == "kernel" and value.ndim == 4:       # 2D conv
         return np.transpose(value, (3, 2, 0, 1))
     if leaf == "kernel" and value.ndim == 5:
-        if path.endswith("upsampling/kernel"):
-            return np.transpose(value, (3, 4, 0, 1, 2))[:, :, ::-1, ::-1, ::-1]
         return np.transpose(value, (4, 3, 0, 1, 2))
     return value
 
@@ -98,19 +101,34 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     the Stage-1 trees whose flax names the port keeps:
     ``PatchDiscriminator`` (``conv_i``, ``norm_i``, ``conv_pre``,
     ``norm_pre``, ``conv_out``) and the perceptual loss's
-    ``SqueezeFeatures`` (``conv1``, ``fire1..8``).  ``group_norm_act``
+    ``SqueezeFeatures`` (``conv1``, ``fire1..8``), and on the segmentation
+    UNets', whose flax names the port keeps too; flax variables
+    ``{"params": ..., "batch_stats": ...}`` give the BatchNorms' running
+    statistics as well.  ``group_norm_act``
     (``ops/group_norm.py``) needs nothing here: its scale and bias are
     arguments, and no model holds it."""
-    if set(params) == {"params"}:
-        params = params["params"]
+    stats = {}
+    if set(params) <= {"params", "batch_stats"} and "params" in params:
+        params, stats = params["params"], params.get("batch_stats", {})
     out = {}
     for path, value in _flatten(params):
-        key = path
-        for pattern, repl in _RENAMES:
-            key = re.sub(pattern, repl, key)
-        out[key.replace("/", ".")] = torch.from_numpy(
+        out[_port_key(path)] = torch.from_numpy(
             np.array(_transform(path, value), dtype=np.float32))
+    for path, value in _flatten(stats):
+        head, leaf = _port_key(path).rsplit(".", 1)
+        out[f"{head}.{_STAT_NAMES[leaf]}"] = torch.from_numpy(
+            np.array(value, dtype=np.float32))
     return out
+
+
+# flax BatchNorm's ``batch_stats`` leaves and the port's buffers
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _port_key(path: str) -> str:
+    for pattern, repl in _RENAMES:
+        path = re.sub(pattern, repl, path)
+    return path.replace("/", ".")
 
 
 
@@ -177,12 +195,13 @@ def _flax_leaf(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
     return join("kernel"), np.transpose(value, (2, 3, 4, 1, 0))
 
 
-def _groupnorm_index(order: str, conv: str) -> int:
+def _norm_index(order: str, conv: str, norm: str) -> int:
     """flax names a SingleConv's GroupNorm ``groupnorm_<position of 'g' in
-    its order>``; conv3's order is the block's without non-linearities."""
+    its order>`` (a BatchNorm ``batchnorm_<of 'b'>``); a ResNetBlock's
+    conv3's order is the block's without non-linearities."""
     if conv == "conv3":
         order = "".join(c for c in order if c not in "rel")
-    return order.index("g")
+    return order.index(norm[0])
 
 
 def flax_entry(key: str, value: np.ndarray,
@@ -193,12 +212,14 @@ def flax_entry(key: str, value: np.ndarray,
     deconv = path.endswith("upsampling/upsample/conv_transposed/weight")
     for pattern, repl in _INVERSE_RENAMES:
         path = re.sub(pattern, repl, path)
-    path = re.sub(r"(^|/)(conv[23])/groupnorm/",
-                  lambda m: f"{m.group(1)}{m.group(2)}/groupnorm_"
-                  f"{_groupnorm_index(layer_order, m.group(2))}/", path)
+    path = re.sub(r"(^|/)(conv[23]|SingleConv[12])/(groupnorm|batchnorm)/",
+                  lambda m: f"{m.group(1)}{m.group(2)}/{m.group(3)}_"
+                  f"{_norm_index(layer_order, m.group(2), m.group(3))}/",
+                  path)
     if deconv:
-        return path, np.transpose(value[:, :, ::-1, ::-1, ::-1],
-                                  (2, 3, 4, 0, 1))
+        k = value.ndim - 2
+        flip = (slice(None),) * 2 + (slice(None, None, -1),) * k
+        return path, np.transpose(value[flip], (*range(2, k + 2), 0, 1))
     return _flax_leaf(path, value)
 
 
@@ -212,15 +233,47 @@ def jax_tree_from_state_dict(state_dict: Mapping[str, Any],
     O)``."""
     tree: dict = {}
     for key, tensor in state_dict.items():
-        value = np.asarray(tensor.detach().float().cpu()
-                           if torch.is_tensor(tensor) else tensor, np.float32)
-        path, value = flax_entry(key, value, layer_order)
-        node = tree
-        *parents, leaf = path.split("/")
-        for name in parents:
-            node = node.setdefault(name, {})
-        node[leaf] = np.ascontiguousarray(value)
+        if key.rsplit(".", 1)[-1] in _STAT_NAMES.values():
+            raise ValueError(f"{key}: running statistics go to flax's "
+                             f"batch_stats (jax_variables_from_state_dict)")
+        path, value = flax_entry(key, _numpy(tensor), layer_order)
+        _put(tree, path, value)
     return tree
+
+
+def _numpy(tensor) -> np.ndarray:
+    return np.asarray(tensor.detach().float().cpu()
+                      if torch.is_tensor(tensor) else tensor, np.float32)
+
+
+def _put(tree: dict, path: str, value: np.ndarray) -> None:
+    node = tree
+    *parents, leaf = path.split("/")
+    for name in parents:
+        node = node.setdefault(name, {})
+    node[leaf] = np.ascontiguousarray(value)
+
+
+def jax_variables_from_state_dict(state_dict: Mapping[str, Any],
+                                  layer_order: str = "gcr") -> dict:
+    """The flax variables of a port state_dict: ``{"params": ...}`` as
+    :func:`jax_tree_from_state_dict` gives them, and with BatchNorms
+    ``"batch_stats"`` too (``running_mean`` / ``running_var`` ->
+    ``mean`` / ``var``)."""
+    leaves = {v: k for k, v in _STAT_NAMES.items()}
+    params, stats = {}, {}
+    for key, tensor in state_dict.items():
+        head, leaf = key.rsplit(".", 1)
+        if leaf in leaves:
+            path, _ = flax_entry(head + ".weight", np.zeros(1), layer_order)
+            _put(stats, path.rsplit("/", 1)[0] + "/" + leaves[leaf],
+                 _numpy(tensor))
+        else:
+            params[key] = tensor
+    out = {"params": jax_tree_from_state_dict(params, layer_order)}
+    if stats:
+        out["batch_stats"] = stats
+    return out
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:

@@ -7,20 +7,23 @@
   normal truncated at two deviations, scaled so its std is
   1/sqrt(fan_in)) and zero biases.
 
-Under both laws norms are 1/0; embeddings, the CLS and positional tokens
-and the numerical embedder's tables are N(0, 1) (the JAX models' own
-``normal(1.0)`` initializers, which neither law re-draws), an embedding
-with an ``init_std`` attribute N(0, init_std) (``JambaLM``'s); the
-stacked MoE experts (``experts_gate/up/down``, ``(E, in, out)``) are
-lecun_normal over their in axis, the law flax draws them with and the
-torch law leaves alone (it re-draws ``kernel`` leaves only); the Mamba
-SSM parameters follow their own laws (``MambaBlock.reset_ssm_parameters``).
+Under both laws norms are 1/0 (a BatchNorm's running mean and variance
+0/1, flax's ``batch_stats`` at ``init``); embeddings, the CLS and
+positional tokens and the numerical embedder's tables are N(0, 1) (the
+JAX models' own ``normal(1.0)`` initializers, which neither law
+re-draws), an embedding with an ``init_std`` attribute N(0, init_std)
+(``JambaLM``'s); the stacked MoE experts (``experts_gate/up/down``,
+``(E, in, out)``) are lecun_normal over their in axis, the law flax
+draws them with and the torch law leaves alone (it re-draws ``kernel``
+leaves only); the Mamba SSM parameters follow their own laws
+(``MambaBlock.reset_ssm_parameters``).
 
 fan_in is JAX's for every kernel: the product of the flax kernel's shape
-but its last axis, i.e. in-features x window.  For a ``ConvTranspose3d``
-weight ``(I, O, k, k, k)`` that is 27 * I, not torch's 27 * O: the JAX
-package draws its decoder deconvs with the in-channels fan as a design
-choice (its module docstring), and the port follows it.
+but its last axis, i.e. in-features x window.  For a transposed-conv
+weight ``(I, O, *k)`` that is I x window (27 * I at k = 3 in 3D), not
+torch's O x window: the JAX package draws its decoder deconvs with the
+in-channels fan as a design choice (its module docstring), and the port
+follows it.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ def check_law(law: str) -> str:
 def kernel_fan_in(module: nn.Module) -> int:
     """fan_in of ``module.weight`` in the flax kernel layout."""
     w = module.weight
-    if isinstance(module, nn.ConvTranspose3d):
+    if isinstance(module, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
         return w.shape[0] * w[0, 0].numel()
     return w[0].numel()
 
@@ -68,10 +71,10 @@ def init_weights(model: nn.Module, generator: torch.Generator,
     generator: the draws are made on the CPU and copied, so a seed gives
     the same weights on every device) under ``law``."""
     from gfe_mamba_torch.models.mamba import MambaBlock, RMSNorm
-    from gfe_mamba_torch.ops.blocks import GroupNorm
+    from gfe_mamba_torch.ops.blocks import BatchNorm, GroupNorm
 
     check_law(law)
-    norms = (nn.LayerNorm, GroupNorm, RMSNorm)
+    norms = (nn.LayerNorm, GroupNorm, BatchNorm, RMSNorm)
     for mod in model.modules():
         for name, p in mod.named_parameters(recurse=False):
             if isinstance(mod, norms):
@@ -94,3 +97,5 @@ def init_weights(model: nn.Module, generator: torch.Generator,
     for mod in model.modules():
         if isinstance(mod, MambaBlock):
             mod.reset_ssm_parameters(generator)
+        elif isinstance(mod, BatchNorm):
+            mod.reset_running_stats()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Where the time of one of the port's canonical paths goes, on one GPU.
 
-    python3 profile_torch.py [--path serve|stage2|stage1]
+    python3 profile_torch.py [--path serve|stage2|stage1|seg_forward|seg_step]
         [--mixer mamba|jamba|transformer] [TRACE.json]
 
 ``serve`` (the default) builds the canonical pipeline (``bench.py``'s
@@ -10,7 +10,11 @@ with the ``--mixer`` classifier head (Mamba by default) and runs
 requests; ``stage2`` runs ``ClassifyTrainer`` steps on it (bf16, batch
 1); ``stage1`` runs ``GanTrainer`` steps over the canonical
 generator, ``PatchDiscriminator(3, 32)`` and ``PerceptualLoss(0.25)``
-(bf16, batch 1, adversary on).  After two warm-up iterations it traces
+(bf16, batch 1, adversary on); ``seg_forward`` runs the segmentation
+UNet3D at ``get_model``'s defaults (f_maps 64, 4 levels) in f32 (TF32
+off) on ``seg_predict``'s batch of 4 patches of 64x128x128, and
+``seg_step`` runs ``UNetTrainer`` steps on it (batch 1, BCEDiceLoss,
+Adam).  After two warm-up iterations it traces
 two more with ``torch.profiler`` (CPU and CUDA activities) and prints the
 host time per iteration, the device's busy time (the sum of kernel
 times; the work runs on one stream), its idle share and the number of
@@ -26,6 +30,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -33,6 +38,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 IMG = (160, 160, 96)
 BATCH = 4
+SEG_PATCH = (64, 128, 128)
 REQUESTS = 2
 CATEGORIES = dict(categories=(6,) * 8, num_continuous=40)
 # the kernels of gfe_mamba_torch/csrc, as the profiler names them
@@ -51,6 +57,9 @@ def _work(path: str, mixer: str, gen: torch.Generator):
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
+
+    if path.startswith("seg"):
+        return _seg_work(path, randn)
 
     if path == "serve":
         model = build_gfe_mamba(img_size=IMG, dtype=torch.bfloat16, seed=0,
@@ -84,9 +93,37 @@ def _work(path: str, mixer: str, gen: torch.Generator):
                                       1.0)
 
 
+def _seg_work(path: str, randn):
+    from gfe_mamba_torch.models.unet3d import get_model
+    from gfe_mamba_torch.segmentation.trainer import UNetTrainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = get_model(dict(name="UNet3D", in_channels=1, out_channels=1,
+                           f_maps=64, layer_order="gcr", num_groups=8))
+    if path == "seg_forward":
+        model.to("cuda")
+
+        def forward():
+            with torch.inference_mode():
+                model(randn(BATCH, *SEG_PATCH, 1))
+        return forward
+    ckpt = tempfile.TemporaryDirectory()       # the trainer makes it; no save
+    trainer = UNetTrainer(model, {"loss": {"name": "BCEDiceLoss"},
+                                  "eval_metric": {"name": "DiceCoefficient"}},
+                          checkpoint_dir=ckpt.name)
+    trainer.init_state(0)
+
+    def step():
+        trainer.train_step(randn(1, *SEG_PATCH, 1),
+                           (randn(1, *SEG_PATCH, 1) > 0).float())
+    step.ckpt = ckpt
+    return step
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("serve", "stage2", "stage1"),
+    parser.add_argument("--path", choices=("serve", "stage2", "stage1",
+                                            "seg_forward", "seg_step"),
                         default="serve")
     parser.add_argument("--mixer", choices=("mamba", "jamba", "transformer"),
                         default="mamba", help="the classifier head of the "
@@ -130,7 +167,9 @@ def main() -> int:
                          evt.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"{card}: {args.path} ({args.mixer}) {wall_ms:.2f} ms per "
+    what = args.path if args.path.startswith("seg") \
+        else f"{args.path} ({args.mixer})"
+    print(f"{card}: {what} {wall_ms:.2f} ms per "
           f"iteration (host "
           f"clock), device busy {busy_ms:.2f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}, {sum(r[1] for r in rows)} kernel "

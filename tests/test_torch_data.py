@@ -267,7 +267,7 @@ def test_png_decodes_to_volume_grid(tmp_path):
 
 
 _BLOCKED = ("jax", "jaxlib", "flax", "optax", "gfe_mamba_tpu", "pandas",
-            "yaml", "PIL", "orbax", "tensorboardX")
+            "yaml", "PIL", "orbax", "tensorboardX", "h5py")
 
 
 def test_port_imports_none_of_jax_pandas_yaml_pil_orbax():

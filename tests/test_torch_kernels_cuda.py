@@ -54,12 +54,18 @@ def _randn(gen, *shape, scale=1.0):
     ("relu", False, "none"), ("none", True, "relu"), ("elu", False, "none")])
 @pytest.mark.parametrize("shape,C,F", [((2, 5, 7, 19), 24, 40),
                                        ((1, 9, 13, 24), 24, 40),
-                                       ((3, 11, 6, 24), 128, 64)])
+                                       ((3, 11, 6, 24), 128, 64),
+                                       ((1, 8, 12, 16), 32, 64),
+                                       ((1, 6, 8, 8), 192, 64),
+                                       ((1, 4, 8, 8), 384, 128),
+                                       ((1, 4, 4, 8), 768, 256)])
 def test_conv_kernel_matches_plain(cuda, dtype, rel, act, with_res,
                                    post_act, shape, C, F):
     """Ragged shapes: X and Y not multiples of the brick, Z = 24 (the
     256-channel level's depth) and 19, C and F multiples of 8 but not of
-    16, and more input channels than one 64-wide output tile."""
+    16, and more input channels than one 64-wide output tile; and the
+    segmentation UNet3D's widths: its first K1 conv (32 -> 64) and its
+    decoders' concat-joined inputs (192, 384, 768 channels)."""
     gen = np.random.RandomState(0)
     x = _randn(gen, *shape, C).to(cuda, dtype)
     w = _randn(gen, 3, 3, 3, C, F, scale=(27 * C) ** -0.5).to(cuda, dtype)
@@ -72,6 +78,26 @@ def test_conv_kernel_matches_plain(cuda, dtype, rel, act, with_res,
     want = k1.conv3x3x3_plain(*args)
     torch.cuda.synchronize()
     _assert_close(got, want, rel)
+
+
+def test_full_width_unet3d_forward_launches_k1_13_times(cuda):
+    """``get_model``'s UNet3D at JAX's defaults (f_maps 64, 4 levels):
+    14 3x3x3 convs, the C_in = 1 stem on cuDNN, 13 on K1; f32, card
+    against the CPU within 1e-4 relative."""
+    from gfe_mamba_torch.models.unet3d import get_model
+
+    model = get_model(dict(name="UNet3D", in_channels=1, out_channels=1,
+                           f_maps=64, layer_order="gcr", num_groups=8,
+                           is_segmentation=False))
+    x = _randn(np.random.RandomState(3), 1, 16, 32, 32, 1)
+    with torch.no_grad():
+        want = model(x)
+        card = model.to(cuda)
+        before = k1.launches
+        got = card(x.to(cuda))
+        torch.cuda.synchronize()
+    assert k1.launches - before == 13
+    _assert_close(got, want, 1e-4)
 
 
 def test_conv_kernel_rejects_channels_not_multiple_of_8(cuda):

@@ -3,19 +3,18 @@
 global batches; ``async_ckpt: true`` and auto-resume through the async
 manager; and the multi-process dry run at four processes.
 
-Dropout is off (``vit_dropout``, ``vit_emb_dropout``,
-``cross_ff_dropout``, ``attn_dropout``, ``ff_dropout`` at 0): each rank
-draws its own masks.  Tolerance of the saved weights against the
-one-process run, after Adam steps at lr 1e-4: Adam moves an entry by
-about lr x sign(g) per step, and a gradient within rounding of 0 may
-take either sign on the two sides, so every entry is within 2 lr per
-step, and all but 1% of each tensor's entries within 1e-6 x max(1, |p|).
-A rank that averaged nothing, each on its own rows, would move most
-entries differently.  The cross-attention's key bias is held to the
-first bound only: the softmax cancels it, so its gradient is zero in
-exact arithmetic and rounding noise on both sides, which Adam scales to
-about lr.  Every ``torchrun`` has a timeout that kills its process
-group.
+Dropout is on where the JAX CLIs put it (the ViT's and the final
+feed-forward's, at their 0.1): every rank draws the global batch's masks and
+keeps its own rows, so they are the one process's.  Tolerance of the saved
+weights against the one-process run, after Adam steps at lr 1e-4: Adam moves an
+entry by about lr x sign(g) per step, and a gradient within rounding of 0 may
+take either sign on the two sides, so every entry is within 2 lr per step, and
+all but 1% of each tensor's entries within 1e-6 x max(1, |p|). A rank that
+averaged nothing, each on its own rows, would move most entries differently.
+The cross-attention's key bias is held to the first bound only: the softmax
+cancels it, so its gradient is zero in exact arithmetic and rounding noise on
+both sides, which Adam scales to about lr.  Every ``torchrun`` has a timeout
+that kills its process group.
 """
 
 import os
@@ -41,9 +40,8 @@ SHAPE = (16, 16, 8)
 LR = 1e-4
 TINY = dict(img_sz=[16, 16, 8], f_maps=[4, 8], fold_factor=2,
             vit_patch_size=4, vit_dim=16, vit_depth=1, vit_heads=2,
-            vit_mlp_dim=32, vit_dropout=0.0, vit_emb_dropout=0.0,
-            num_workers=0, mixed_precision="none", log_every=1, seed=0,
-            val_inter=1, save_inter=1, async_ckpt=True)
+            vit_mlp_dim=32, num_workers=0, mixed_precision="none",
+            log_every=1, seed=0, val_inter=1, save_inter=1, async_ckpt=True)
 
 
 def _write(path, cf) -> str:
@@ -173,7 +171,7 @@ def test_stage2_cli_two_ranks_equals_one_process(tmp_path):
     cf = dict(TINY, train_path=vol_dir, eval_path=str(root / "eval"),
               table_path=csv, train_bc=2, eval_bc=2, num_epochs=1,
               gan_ckpt=npz, dim=16, depth=1, heads=2, seq_length=2,
-              attn_dropout=0.0, ff_dropout=0.0, cross_ff_dropout=0.0)
+              attn_dropout=0.0, ff_dropout=0.0)
     ranks = dict(cf, project_dir=str(tmp_path / "ranks"))
     cwd = tmp_path / "cwd"
     cwd.mkdir()

@@ -12,7 +12,8 @@ tree shard by shard, takes its forward and gradients, and gathers its
 weights back into one tree (bitwise the tree loaded).  Meanwhile this process computes JAX's steps on
 the whole global batch from the same weights (drawn by the port,
 carried across with ``utils/convert.py``).  Dropout is off on both sides
-(each rank draws its own masks; JAX one over the global batch).
+(the two frameworks draw different bits); with it on, the two ranks are
+held instead to this process stepping the global batch.
 
 Tolerances: those of ``tests/test_torch_train_stage2.py`` (loss 1e-5
 relative; Adam's first moment, 0.1 x the clipped gradient, within 1e-4
@@ -126,11 +127,18 @@ def runs(tmp_path_factory):
               keys=("mri", "pet"), jax_keys=True,
               trainer=dict(mixed_precision="none", g_init="torch"),
               batches=[gan])
+    # dropout on (the masks of one process over the global batch):
+    # Stage 2's final feed-forward, Stage 1's ViT
+    dropout = [
+        dict(s2, name="stage2_dropout", batches=[batch], jax_keys=False,
+             build=dict(s2_build, cross_ff_dropout=0.5)),
+        dict(s1, name="stage1_dropout", extra=(1.0,), jax_keys=False,
+             build=dict(s1["build"], vit_dropout=0.3, vit_emb_dropout=0.3))]
     spec = dict(device="cpu", jobs=[
         dict(s2, name="stage2", batches=[batch]),
         dict(s2, name="nan", batches=[nan], keep=False),
         dict(s1, name="gate_off", extra=(0.0,)),
-        dict(s1, name="gate_on", extra=(1.0,))])
+        dict(s1, name="gate_on", extra=(1.0,)), *dropout])
     inputs, labels = _jamba_inputs()
     tp = dict(build=tp_build, jax=tp_tree, threshold=128, inputs=inputs,
               labels=labels)
@@ -149,7 +157,9 @@ def runs(tmp_path_factory):
     try:
         ref = dict(stage2=_jax_stage2(s2_tree, batch),
                    stage1=_jax_stage1(g_tree, d_tree, perceptual, gan),
-                   tp=_jax_tp(tp_tree, inputs, labels))
+                   tp=_jax_tp(tp_tree, inputs, labels),
+                   one={job["name"]: testing.run_job(
+                       job, None, torch.device("cpu")) for job in dropout})
     finally:
         thread.join(TIMEOUT * 2 + 30)
     assert not thread.is_alive(), "the ranks did not finish"
@@ -295,6 +305,36 @@ def test_dp_stage1_step_equals_jax_on_the_global_batch(runs, gate):
             for name, value in moments.items():
                 _close(value, mu[name], 1e-3, f"{player}.{name}")
     a, b = (r[gate]["digests"] for r in runs["ranks"])
+    assert a == b
+
+
+@pytest.mark.parametrize("name,off,losses,rel", [
+    ("stage2_dropout", "stage2", ("cla_loss",), 1e-4),
+    ("stage1_dropout", "gate_on", ("g_loss", "d_loss", "l1"), 1e-3)])
+def test_dropout_masks_are_one_process_global_batch_masks(runs, name, off,
+                                                          losses, rel):
+    """Dropout on: each rank keeps its rows of the global batch's masks,
+    so both ranks step as one process stepping the global batch (losses
+    1e-5 relative; first moments, 0.1 x the averaged (clipped) gradient,
+    to the tolerances of the tests above); the masks did drop (the
+    losses are not the dropout-off step's)."""
+    one = runs["ref"]["one"][name]
+    for rank in runs["ranks"]:
+        job = rank[name]
+        for key in losses:
+            np.testing.assert_allclose(job["logs"][0][key],
+                                       one["logs"][0][key], rtol=1e-5,
+                                       err_msg=key)
+        for player, moments in job["moments"].items():
+            assert set(moments) == set(one["moments"][player])
+            for k, value in moments.items():
+                _close(value.numpy(), one["moments"][player][k].numpy(), rel,
+                       f"{player}.{k}")
+    loss = losses[0]
+    dropped = one["logs"][0][loss]
+    plain = runs["ranks"][0][off]["logs"][0][loss]
+    assert abs(dropped - plain) > 1e-3 * abs(plain)
+    a, b = (r[name]["digests"] for r in runs["ranks"])
     assert a == b
 
 

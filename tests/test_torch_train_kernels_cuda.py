@@ -156,14 +156,18 @@ def _dw_args(gen, shape, C, F, affine, dtype, device):
 
 # bf16 takes the tensor-core variant (4x4x16 bricks, 64x64 tiles): bricks
 # ragged in every axis with C, F below one tile; C != F over two channel
-# tiles; the 256-channel level's Z = 24 (a half-empty second z brick)
+# tiles; the 256-channel level's Z = 24 (a half-empty second z brick);
+# the segmentation UNet3D's widths (C != F, the concat-joined 192, 384
+# and 768 inputs)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,C,F,affine", [
     ((1, 20, 20, 12), 64, 64, True), ((2, 5, 7, 19), 24, 40, True),
     ((2, 5, 7, 19), 24, 40, False), ((2, 9, 13, 21), 24, 40, True),
     ((2, 9, 13, 21), 24, 40, False), ((1, 6, 7, 20), 128, 64, True),
     ((1, 6, 7, 20), 128, 64, False), ((1, 8, 8, 24), 256, 256, True),
-    ((1, 8, 8, 24), 256, 256, False)])
+    ((1, 8, 8, 24), 256, 256, False), ((1, 8, 12, 16), 32, 64, True),
+    ((1, 6, 8, 8), 192, 64, True), ((1, 4, 8, 8), 384, 128, True),
+    ((1, 4, 4, 8), 768, 256, False)])
 def test_dw_kernel_matches_plain(cuda, dtype, shape, C, F, affine):
     gen = np.random.RandomState(1)
     x, g1, a, s = _dw_args(gen, shape, C, F, affine, dtype, cuda)

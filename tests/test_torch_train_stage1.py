@@ -205,6 +205,36 @@ def test_perceptual_forward_matches_jax(reference):
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
+def test_perceptual_loss_reads_a_jax_weights_file(tmp_path):
+    """``weights_path``: the npz of ``{"params": tree}`` that
+    ``tools/convert_squeezenet.py`` writes, here saved from a JAX loss
+    drawn from a non-default seed; both packages read it and give the
+    same loss, and not the port's seeded trunk's.  Tolerance 1e-4
+    relative, as the forward test above: JAX's f32 loss lies some 2e-5
+    from the f64 value of the same function on this input, the port's f32
+    loss within 1e-6 of the port's f64 one (held too)."""
+    jax_seeded = JaxPerceptual(fake_3d_ratio=0.5, seed=7)
+    path = str(tmp_path / "squeezenet.npz")
+    np.savez(path, params=np.asarray(_np(jax_seeded.params), dtype=object))
+    rng = np.random.RandomState(4)
+    pred, target = (rng.randn(1, 36, 34, 10, 1).astype(np.float32)
+                    for _ in range(2))
+    want = float(jax.jit(lambda a, b: JaxPerceptual(
+        fake_3d_ratio=0.5, weights_path=path)(a, b))(
+        jnp.asarray(pred), jnp.asarray(target)))
+    port = PerceptualLoss(0.5, device="cpu", weights_path=path)
+    seeded = PerceptualLoss(0.5, device="cpu", seed=7)
+    with torch.no_grad():
+        got, other = (float(m(torch.from_numpy(pred),
+                              torch.from_numpy(target)))
+                      for m in (port, seeded))
+        exact = float(port.double()(torch.from_numpy(pred).double(),
+                                    torch.from_numpy(target).double()))
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    np.testing.assert_allclose(got, exact, rtol=1e-6)
+    assert abs(other - want) > 1e-3 * abs(want)
+
+
 @pytest.mark.parametrize("ratio", [0.25, 0.5])
 def test_perceptual_slice_indices_equal_jax(ratio):
     for n in range(1, 257):
