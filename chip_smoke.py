@@ -121,7 +121,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    the stem's C_in = 1 refused by K1 and ruled onto cuDNN; (e) the
    UNet3D forward on one 64x128x128 patch timed, with its 13 K1 convs,
    their plain versions, cuDNN's f32 conv and the bound, and per
-   training step K1-dz and K3 beside cuDNN's dgrad and wgrad; (b)
+   training step K1-dz and K3 beside cuDNN's dgrad and wgrad, each of
+   the three first held against its plain version at each of the 13
+   shapes; (f) one ``UNetTrainer`` step of that UNet3D (order gce) on
+   a 32x64x64 patch: the loss and every gradient of the kernels' step
+   against the same step with the plain convs on the card (1e-4) and
+   against the CPU (twice that witness's own distance); (b)
    ``seg_predict`` over a 96x192x192 volume written by ``data/h5.py``
    (8 patches, batch 4) from a checkpoint of seeded weights: the file
    read back equals ``sliding_window_predict`` driven directly, K1 13
@@ -2381,6 +2386,67 @@ def seg_parity(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def seg_step_parity(card: str) -> None:
+    """Phase 15(f): one ``UNetTrainer`` step (BCEDice, Adam) of UNet3D at
+    full width on a 32x64x64 patch, from the same weights, on the CPU
+    (plain versions), on the card (K1, K1-dz, K3) and, as a witness, on
+    the card with the plain convs in place of the kernels.  The order is
+    gce: relu's derivative jumps at 0, and a change in rounding flips a
+    few of its pre-activations, which moves some gradients by 1e-2 of
+    their max.  With gce the card's gradients of the first two encoder
+    levels still sit up to 7.3e-3 of their max from the CPU's, whether
+    the kernels or the plain convs run the convs (H100; the two card
+    runs agree within 7e-6), likely max pooling's argmax flipping the
+    same way between two devices.  So the kernels' step is held to
+    the witness within 1e-4 (each gradient against its largest entry and
+    its norm, and the loss), and to the CPU as in phase 9: the loss
+    within 1e-4, the gradients within twice the witness's worst error
+    (at least 1e-3)."""
+    from gfe_mamba_torch.segmentation.trainer import UNetTrainer
+
+    config = {"loss": {"name": "BCEDiceLoss"},
+              "eval_metric": {"name": "DiceCoefficient"},
+              "optimizer": {"name": "Adam", "learning_rate": 1e-4}}
+    gen = torch.Generator().manual_seed(16)
+    raw = torch.randn(1, *SEG_PARITY_CASES[0][1][1:], generator=gen)
+    label = (torch.rand(raw.shape, generator=gen) > 0.5).float()
+    tag = f"phase 15(f) UNet3D gce {list(raw.shape)} step"
+    t = time.perf_counter()
+    model = seg_model(dict(SEG_UNET3D, layer_order="gce"), seed=17)
+    runs = (("cpu", model, contextlib.nullcontext),
+            ("cuda", copy.deepcopy(model), contextlib.nullcontext),
+            ("cuda", copy.deepcopy(model), plain_convs_on_card))
+    trainers, logs = [], []
+    with tempfile.TemporaryDirectory(prefix="gfe_seg_step_") as ckpt:
+        for device, m, convs in runs:
+            tr = UNetTrainer(m, config, ckpt, device=device)
+            tr.init_state(0)
+            with convs():
+                logs.append({"loss": tr.train_step(raw.to(tr.device),
+                                                   label.to(tr.device))})
+            trainers.append(tr)
+    torch.cuda.synchronize()
+
+    def errors(a, b):
+        return grad_errors([("U", a.optimizer,
+                             dict(a.model.named_parameters()), b.optimizer,
+                             dict(b.model.named_parameters()))])
+
+    on_cpu, kernels, witness = trainers
+    check_losses(f"{tag} kernels vs witness", logs[2], logs[1], tol=1e-4)
+    check_grads(f"{tag} kernels vs witness, both on the card",
+                errors(witness, kernels), 1e-4, 1e-4)
+    check_losses(f"{tag} kernels vs CPU", logs[0], logs[1], tol=1e-4)
+    plain_max, plain_norm = report_grads(
+        f"{tag} witness: plain convs on the card vs CPU",
+        errors(on_cpu, witness), top=3)
+    check_grads(f"{tag} kernels vs CPU", errors(on_cpu, kernels),
+                max(1e-3, 2 * plain_max), max(1e-3, 2 * plain_norm))
+    log(f"{tag} parity done in {time.perf_counter() - t:.1f} s [{card}]")
+    del model, runs, trainers, on_cpu, kernels, witness
+    torch.cuda.empty_cache()
+
+
 def seg_check_kernels(gen) -> None:
     """Phase 15(d): K1 (forward with the folded GN and relu, and as dz with
     flipped weights) and K3 (f32, with the GN affine) against their plain
@@ -2448,7 +2514,10 @@ def seg_times(card: str, gen) -> dict:
     conv on the same convs (TF32 off) and the bound; per training step
     the same convs as K1-dz against cuDNN's dgrad and as K3 against
     cuDNN's wgrad.  Bounds: f32 operations over the CUDA-core peak, or
-    bytes (each input read once, each output written once) over HBM."""
+    bytes (each input read once, each output written once) over HBM.
+    At each of the 13 shapes K1, K1-dz and K3 are first held against
+    their plain versions on the same inputs (1e-4 of the largest entry);
+    the worst errors go into the kernels line."""
     from gfe_mamba_torch.ops.cuda import conv3d as kc
 
     model = seg_model(SEG_UNET3D).to("cuda")
@@ -2462,12 +2531,30 @@ def seg_times(card: str, gen) -> dict:
     fwd = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     step = dict(dz_ms=0.0, dz_library_ms=0.0, dz_bound_ms=0.0, dw_ms=0.0,
                 dw_plain_ms=0.0, dw_library_ms=0.0, dw_bound_ms=0.0)
+    errors = {"K1": (0.0, 0.0), "K1-dz": (0.0, 0.0), "K3": (0.0, 0.0)}
     for shape, F in specs:
         C = shape[-1]
         xi, w, _, a, s, _ = conv_inputs(gen, shape[:-1], C, F,
                                         torch.float32, False)
         g1 = torch.randn(*shape[:-1], F, generator=gen, device="cuda")
         wf = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+        for name, kernel, plain in (
+                ("K1", lambda: kc.conv3x3x3_cuda(xi, w, None, a, s, None,
+                                                 "relu"),
+                 lambda: kc.conv3x3x3_plain(xi, w, None, a, s, None,
+                                            "relu")),
+                ("K1-dz", lambda: kc.conv3x3x3_cuda(g1, wf),
+                 lambda: kc.conv3x3x3_plain(g1, wf)),
+                ("K3", lambda: kc.conv3x3x3_dw_cuda(xi, g1, a, s),
+                 lambda: kc.conv3x3x3_dw_plain(xi, g1, a, s))):
+            err, rel = rel_err(kernel(), plain())
+            log(f"phase 15(e) {name} check {list(shape[:-1])}x{C}->{F} f32:"
+                f" max_abs_err={err:.3e} rel={rel:.3e} (tol 1e-4)")
+            if not rel <= 1e-4:
+                raise AssertionError(f"phase 15(e) {name} at "
+                                     f"{list(shape[:-1])}x{C}->{F} disagrees "
+                                     f"with its plain version: rel {rel}")
+            errors[name] = tuple(map(max, errors[name], (err, rel)))
         zhat = kc.affine_in_dtype(xi, a, s)
         xc = zhat.permute(0, 4, 1, 2, 3)
         wc = w.permute(4, 3, 0, 1, 2).contiguous(
@@ -2508,7 +2595,10 @@ def seg_times(card: str, gen) -> dict:
         f"{step['dw_plain_ms']:.2f}, cuDNN wgrad "
         f"{step['dw_library_ms']:.2f}, bound {step['dw_bound_ms']:.2f}) "
         f"[{card}]")
-    return dict(forward_ms=forward, k1=fwd, step=step)
+    for name, (err, rel) in errors.items():
+        log(f"phase 15(e) {name} at the 13 path shapes: worst max_abs_err="
+            f"{err:.3e}, worst rel={rel:.3e} (tol 1e-4)")
+    return dict(forward_ms=forward, k1=fwd, step=step, errors=errors)
 
 
 def seg_write_volume(path: str, shape, seed: int) -> None:
@@ -2728,6 +2818,7 @@ def drive_segmentation(card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(15)
     with tf32_settings(False, False):
         seg_parity(card)
+        seg_step_parity(card)
         seg_check_kernels(gen)
         times = seg_times(card, gen)
         with tempfile.TemporaryDirectory(prefix="gfe_seg_") as root:
@@ -2842,12 +2933,18 @@ def main() -> int:
                              **seg["times"]["k1"],
                              **{k: v for k, v in seg["times"]["step"].items()
                                 if k.startswith("dz")})
+    errors = seg["times"]["errors"]
+    (kernels[0]["seg"]["max_abs_err"],
+     kernels[0]["seg"]["rel_err"]) = errors["K1"]
+    (kernels[0]["seg"]["dz_max_abs_err"],
+     kernels[0]["seg"]["dz_rel_err"]) = errors["K1-dz"]
     k3["seg_launches"] = seg["launches"]["K3"]
     k3["seg"] = dict(per="UNet3D training step, batch 1, f32",
                      ms=seg["times"]["step"]["dw_ms"],
                      plain_ms=seg["times"]["step"]["dw_plain_ms"],
                      library_ms=seg["times"]["step"]["dw_library_ms"],
-                     bound_ms=seg["times"]["step"]["dw_bound_ms"])
+                     bound_ms=seg["times"]["step"]["dw_bound_ms"],
+                     max_abs_err=errors["K3"][0], rel_err=errors["K3"][1])
     kernels[1]["jamba_launches"] = other["k2"]
     k4["jamba_launches"] = other["k4"]
     for k, name in zip(kernels[:2] + [k4, k3], ("K1", "K2", "K4", "K3")):

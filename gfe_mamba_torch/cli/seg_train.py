@@ -80,7 +80,7 @@ def main(args) -> UNetTrainer:
     np.random.seed(seed)
     torch.backends.cudnn.allow_tf32 = False
 
-    model = get_model(config["model"])
+    model = get_model(config["model"], seed=seed)
     trainer = UNetTrainer(model, config, config["trainer"]["checkpoint_dir"],
                           device=args.device)
     train_loader, val_loader = build_loaders(config)

@@ -26,7 +26,7 @@ from gfe_mamba_torch.ops.cuda.conv3d import (apply_act, conv3x3x3_cuda,
 
 __all__ = ["Conv3x3x3Fn", "apply_act", "conv3x3x3", "conv_nd",
            "deconv3x3x3_s2", "deconv_nd", "group_norm_stats",
-           "interpolate_to", "max_pool2", "pool_nd", "resize_nearest"]
+           "interpolate_to", "pool_nd", "resize_nearest"]
 
 
 class _SumOfSquares(torch.autograd.Function):
@@ -64,11 +64,6 @@ def group_norm_stats(x: torch.Tensor, num_groups: int, eps: float = 1e-5):
     rstd = torch.rsqrt(ex2 - mu * mu + eps)
     return (mu.repeat_interleave(per, dim=-1),
             rstd.repeat_interleave(per, dim=-1))
-
-
-def max_pool2(x: torch.Tensor) -> torch.Tensor:
-    """2x2x2 max pool, stride 2, of a channels-last volume."""
-    return pool_nd(x, "max", 2)
 
 
 def deconv3x3x3_s2(x: torch.Tensor, weight: torch.Tensor,

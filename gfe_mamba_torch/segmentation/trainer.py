@@ -31,7 +31,6 @@ from gfe_mamba_torch.models.dropout import seed_dropout
 from gfe_mamba_torch.segmentation.losses import get_loss_criterion
 from gfe_mamba_torch.segmentation.metrics import get_evaluation_metric
 from gfe_mamba_torch.training.checkpoint import Checkpointer
-from gfe_mamba_torch.utils.initializers import init_weights
 
 
 class OptaxRMSprop(torch.optim.Optimizer):
@@ -178,10 +177,9 @@ class UNetTrainer:
         self.lr_scale = 1.0
 
     def init_state(self, seed: int) -> None:
-        """Draw the weights from ``seed`` under flax's law (the JAX
-        trainer's ``model.init``), move the model to the device, and start
-        a fresh optimizer and the dropout generator."""
-        init_weights(self.model, torch.Generator().manual_seed(seed), "flax")
+        """Move the model (its weights drawn by ``get_model``) to the
+        device, and start a fresh optimizer and the dropout generator from
+        ``seed``."""
         self.model.to(self.device)
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer = create_optimizer(self.config.get("optimizer", {}),

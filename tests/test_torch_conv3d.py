@@ -114,7 +114,7 @@ def test_group_norm_stats(C, groups):
 def test_max_pool():
     x = np.random.RandomState(5).randn(2, 6, 4, 8, 3).astype(np.float32)
     want = fnn.max_pool(jnp.asarray(x), (2, 2, 2), strides=(2, 2, 2))
-    _assert_close(port.max_pool2(T(x)), want, rel=0.0)
+    _assert_close(port.pool_nd(T(x), "max", 2), want, rel=0.0)
 
 
 def test_deconv_emits_2n_like_the_octant_deconv():

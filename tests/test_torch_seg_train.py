@@ -214,7 +214,7 @@ def test_trainer_step_matches_jax(tmp_path, cfg, shape, loss):
     statistics stay where they were)."""
     config = {"loss": loss, "eval_metric": {"name": "DiceCoefficient"},
               "optimizer": {"name": "Adam", "learning_rate": 1e-3}}
-    port_model = unet3d.get_model(cfg)
+    port_model = unet3d.get_model(cfg, seed=4)
     tr = trainer.UNetTrainer(port_model, config, str(tmp_path / "p"),
                              device="cpu")
     tr.init_state(seed=4)
