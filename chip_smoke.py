@@ -123,10 +123,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    their plain versions, cuDNN's f32 conv and the bound, and per
    training step K1-dz and K3 beside cuDNN's dgrad and wgrad, each of
    the three first held against its plain version at each of the 13
-   shapes; (f) one ``UNetTrainer`` step of that UNet3D (order gce) on
-   a 32x64x64 patch: the loss and every gradient of the kernels' step
-   against the same step with the plain convs on the card (1e-4) and
-   against the CPU (twice that witness's own distance); (b)
+   shapes, each conv's times logged, each kernel's TFLOP/s and share of
+   the f32 peak printed beside them; (f) one ``UNetTrainer`` step of that
+   UNet3D (order gce, its encoders pooling by average) on a 32x64x64
+   patch: the loss and every gradient of the kernels' step against the
+   same step with the plain convs on the card (1e-4) and against the CPU
+   (twice that witness's own distance); (b)
    ``seg_predict`` over a 96x192x192 volume written by ``data/h5.py``
    (8 patches, batch 4) from a checkpoint of seeded weights: the file
    read back equals ``sliding_window_predict`` driven directly, K1 13
@@ -153,7 +155,8 @@ requests of phase 13(b), K4's the 3 Jamba Stage-2 steps of 13(c);
 ``dp_launches`` (K1-K4) rank 0's launches in phase 14(a), K1's summed
 over its Stage-2 and Stage-1 steps; K1's and K3's ``seg_launches``
 their launches over phase 15(b) and (c), and ``seg`` their f32 times
-of 15(e) (K1 per UNet3D forward, its dz and K3 per training step).
+of 15(e) (K1 per UNet3D forward, its dz and K3 per training step) with
+their TFLOP/s and shares of the f32 peak.
 """
 
 from __future__ import annotations
@@ -210,6 +213,13 @@ K1_VERSION = ("v6: bf16 mma.sync m16n8k16 on an 8x8x8 brick over a 2-stage "
               "GN affine applied in shared memory")
 K1_V5_REQUEST_MS = 60.6
 K1_V5_DZ_STEP_MS = 13.97
+# the f32 variants' designs (the segmentation path's), for the kernels line
+K1_F32_VERSION = ("f32 v2: CUDA-core implicit GEMM, 8 z rows x 8 channels "
+                  "per thread, 8-channel chunks in a 2-stage cp.async ring, "
+                  "32-channel tile where F <= 32")
+K3_F32_VERSION = ("f32 v2: the 9 taps of one dx per block over a "
+                  "double-buffered cp.async x slab, 4x4 per tap per thread, "
+                  "makespan-balanced split-K")
 # phase 13: CrossJambaBoth at depth 6 has 12 layers, layer 4 attention,
 # so 11 Mamba layers (K2 per forward, K4 per Stage-2 step); its parity
 # against the CPU runs on the slice tokens of volumes this size
@@ -2390,18 +2400,22 @@ def seg_step_parity(card: str) -> None:
     """Phase 15(f): one ``UNetTrainer`` step (BCEDice, Adam) of UNet3D at
     full width on a 32x64x64 patch, from the same weights, on the CPU
     (plain versions), on the card (K1, K1-dz, K3) and, as a witness, on
-    the card with the plain convs in place of the kernels.  The order is
-    gce: relu's derivative jumps at 0, and a change in rounding flips a
-    few of its pre-activations, which moves some gradients by 1e-2 of
-    their max.  With gce the card's gradients of the first two encoder
-    levels still sit up to 7.3e-3 of their max from the CPU's, whether
-    the kernels or the plain convs run the convs (H100; the two card
-    runs agree within 7e-6), likely max pooling's argmax flipping the
-    same way between two devices.  So the kernels' step is held to
-    the witness within 1e-4 (each gradient against its largest entry and
-    its norm, and the loss), and to the CPU as in phase 9: the loss
-    within 1e-4, the gradients within twice the witness's worst error
-    (at least 1e-3)."""
+    the card with the plain convs in place of the kernels.  The step is
+    held on a model whose every derivative is continuous, so that only
+    rounding separates the runs: order gce (relu's derivative jumps at 0,
+    and a change in rounding flips a few of its pre-activations, which
+    moves some gradients by 1e-2 of their max), and the encoders' pooling
+    set to average.  Max pooling's argmax flips where two candidates sit
+    within rounding of each other: on the H100, one window of 262,144
+    took another argmax between the kernels' forward and the witness's
+    (which agree within 2.1e-6) and moved a conv weight's gradient by
+    1.0e-2 of its max; with max pooling the card's gradients also sat
+    7.3e-3 from the CPU's.  The kernels' step is held to the witness
+    within 1e-4 (each gradient against its largest entry and its norm,
+    and the loss), and to the CPU as in phase 9: the loss within 1e-4,
+    the gradients within twice the witness's worst error (at least
+    1e-3)."""
+    from gfe_mamba_torch.ops.blocks import Encoder
     from gfe_mamba_torch.segmentation.trainer import UNetTrainer
 
     config = {"loss": {"name": "BCEDiceLoss"},
@@ -2413,6 +2427,9 @@ def seg_step_parity(card: str) -> None:
     tag = f"phase 15(f) UNet3D gce {list(raw.shape)} step"
     t = time.perf_counter()
     model = seg_model(dict(SEG_UNET3D, layer_order="gce"), seed=17)
+    for module in model.modules():
+        if isinstance(module, Encoder):
+            module.pool_type = "avg"
     runs = (("cpu", model, contextlib.nullcontext),
             ("cuda", copy.deepcopy(model), contextlib.nullcontext),
             ("cuda", copy.deepcopy(model), plain_convs_on_card))
@@ -2517,7 +2534,8 @@ def seg_times(card: str, gen) -> dict:
     bytes (each input read once, each output written once) over HBM.
     At each of the 13 shapes K1, K1-dz and K3 are first held against
     their plain versions on the same inputs (1e-4 of the largest entry);
-    the worst errors go into the kernels line."""
+    the worst errors go into the kernels line.  Each kernel's rate is
+    printed as TFLOP/s and as its share of the f32 peak (PEAK_F32)."""
     from gfe_mamba_torch.ops.cuda import conv3d as kc
 
     model = seg_model(SEG_UNET3D).to("cuda")
@@ -2531,6 +2549,7 @@ def seg_times(card: str, gen) -> dict:
     fwd = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     step = dict(dz_ms=0.0, dz_library_ms=0.0, dz_bound_ms=0.0, dw_ms=0.0,
                 dw_plain_ms=0.0, dw_library_ms=0.0, dw_bound_ms=0.0)
+    flops_total = 0
     errors = {"K1": (0.0, 0.0), "K1-dz": (0.0, 0.0), "K3": (0.0, 0.0)}
     for shape, F in specs:
         C = shape[-1]
@@ -2561,37 +2580,60 @@ def seg_times(card: str, gen) -> dict:
             memory_format=torch.channels_last_3d)
         vox = math.prod(shape[:-1])
         flops = 2 * vox * 27 * C * F
+        flops_total += flops
         t_ops = flops / PEAK_F32
         fwd_bytes = 4 * (vox * (C + F) + 27 * C * F) + 8 * C
         fwd["bound_ms"] += max(t_ops, fwd_bytes / HBM_BYTES_PER_S) * 1e3
-        fwd["ms"] += time_ms(lambda: kc.conv3x3x3_cuda(
-            xi, w, None, a, s, None, "relu"), reps=3)
-        fwd["plain_ms"] += time_ms(lambda: kc.conv3x3x3_plain(
-            xi, w, None, a, s, None, "relu"), reps=3)
-        fwd["library_ms"] += time_ms(lambda: torch.nn.functional.conv3d(
-            xc, wc, padding=1), reps=3)
-        step["dz_ms"] += time_ms(lambda: kc.conv3x3x3_cuda(g1, wf), reps=3)
-        step["dz_library_ms"] += time_ms(lambda: cudnn_conv_grad(
-            zhat, w, g1, "x"), reps=3)
-        step["dw_ms"] += time_ms(lambda: kc.conv3x3x3_dw_cuda(xi, g1, a, s),
-                                 reps=3)
+        ms = dict(
+            k1=time_ms(lambda: kc.conv3x3x3_cuda(
+                xi, w, None, a, s, None, "relu"), reps=3),
+            plain=time_ms(lambda: kc.conv3x3x3_plain(
+                xi, w, None, a, s, None, "relu"), reps=3),
+            conv=time_ms(lambda: torch.nn.functional.conv3d(
+                xc, wc, padding=1), reps=3),
+            dz=time_ms(lambda: kc.conv3x3x3_cuda(g1, wf), reps=3),
+            dgrad=time_ms(lambda: cudnn_conv_grad(zhat, w, g1, "x"), reps=3),
+            k3=time_ms(lambda: kc.conv3x3x3_dw_cuda(xi, g1, a, s), reps=3),
+            wgrad=time_ms(lambda: cudnn_conv_grad(zhat, w, g1, "w"), reps=3))
+        fwd["ms"] += ms["k1"]
+        fwd["plain_ms"] += ms["plain"]
+        fwd["library_ms"] += ms["conv"]
+        step["dz_ms"] += ms["dz"]
+        step["dz_library_ms"] += ms["dgrad"]
+        step["dw_ms"] += ms["k3"]
         step["dw_plain_ms"] += time_ms(lambda: kc.conv3x3x3_dw_plain(
             xi, g1, a, s), reps=1)
-        step["dw_library_ms"] += time_ms(lambda: cudnn_conv_grad(
-            zhat, w, g1, "w"), reps=3)
+        step["dw_library_ms"] += ms["wgrad"]
+        log(f"phase 15(e) time {list(shape[:-1])}x{C}->{F} f32: K1 "
+            f"{ms['k1']:.3f} ms ({flops / ms['k1'] / 1e9:.1f} TFLOP/s), "
+            f"plain {ms['plain']:.3f}, cuDNN conv {ms['conv']:.3f}; K1-dz "
+            f"{ms['dz']:.3f} ({flops / ms['dz'] / 1e9:.1f} TFLOP/s), cuDNN "
+            f"dgrad {ms['dgrad']:.3f}; K3 {ms['k3']:.3f} "
+            f"({flops / ms['k3'] / 1e9:.1f} TFLOP/s), cuDNN wgrad "
+            f"{ms['wgrad']:.3f}; bound {t_ops * 1e3:.3f} ms")
         # dz reads g1 and w and writes dz; dw reads x and g1 and writes dw
         step["dz_bound_ms"] += max(t_ops, fwd_bytes / HBM_BYTES_PER_S) * 1e3
         step["dw_bound_ms"] += max(t_ops, fwd_bytes / HBM_BYTES_PER_S) * 1e3
         del xi, w, a, s, g1, wf, zhat, xc, wc
     torch.cuda.empty_cache()
+    # achieved rate over the 13 convs, and its share of the f32 peak
+    for entry, key in ((fwd, "ms"), (step, "dz_ms"), (step, "dw_ms")):
+        prefix = key[:-2]
+        entry[f"{prefix}tflops"] = flops_total / entry[key] / 1e9
+        entry[f"{prefix}f32_peak_share"] = \
+            flops_total / entry[key] / 1e-3 / PEAK_F32
     log(f"phase 15(e) UNet3D forward {list(SEG_PATCH)} batch 1 f32: "
         f"{forward:.2f} ms; its 13 K1 convs {fwd['ms']:.2f} ms "
-        f"({fwd['ms'] / forward:.1%}), plain {fwd['plain_ms']:.2f} ms, "
-        f"cuDNN f32 conv {fwd['library_ms']:.2f} ms, bound "
-        f"{fwd['bound_ms']:.2f} ms [{card}]")
+        f"({fwd['ms'] / forward:.1%}; {fwd['tflops']:.1f} TFLOP/s, "
+        f"{fwd['f32_peak_share']:.1%} of the f32 peak), plain "
+        f"{fwd['plain_ms']:.2f} ms, cuDNN f32 conv {fwd['library_ms']:.2f} "
+        f"ms, bound {fwd['bound_ms']:.2f} ms [{card}]")
     log(f"phase 15(e) per training step (batch 1): K1-dz {step['dz_ms']:.2f}"
-        f" ms (cuDNN dgrad {step['dz_library_ms']:.2f}, bound "
-        f"{step['dz_bound_ms']:.2f}), K3 {step['dw_ms']:.2f} ms (plain "
+        f" ms ({step['dz_tflops']:.1f} TFLOP/s, "
+        f"{step['dz_f32_peak_share']:.1%}; cuDNN dgrad "
+        f"{step['dz_library_ms']:.2f}, bound {step['dz_bound_ms']:.2f}), K3 "
+        f"{step['dw_ms']:.2f} ms ({step['dw_tflops']:.1f} TFLOP/s, "
+        f"{step['dw_f32_peak_share']:.1%}; plain "
         f"{step['dw_plain_ms']:.2f}, cuDNN wgrad "
         f"{step['dw_library_ms']:.2f}, bound {step['dw_bound_ms']:.2f}) "
         f"[{card}]")
@@ -2929,6 +2971,7 @@ def main() -> int:
     seg = drive_segmentation(card)
     kernels[0]["seg_launches"] = seg["launches"]["K1"]
     kernels[0]["seg"] = dict(per="UNet3D forward, 64x128x128, batch 1, f32",
+                             version=K1_F32_VERSION,
                              forward_ms=seg["times"]["forward_ms"],
                              **seg["times"]["k1"],
                              **{k: v for k, v in seg["times"]["step"].items()
@@ -2940,7 +2983,10 @@ def main() -> int:
      kernels[0]["seg"]["dz_rel_err"]) = errors["K1-dz"]
     k3["seg_launches"] = seg["launches"]["K3"]
     k3["seg"] = dict(per="UNet3D training step, batch 1, f32",
+                     version=K3_F32_VERSION,
                      ms=seg["times"]["step"]["dw_ms"],
+                     tflops=seg["times"]["step"]["dw_tflops"],
+                     f32_peak_share=seg["times"]["step"]["dw_f32_peak_share"],
                      plain_ms=seg["times"]["step"]["dw_plain_ms"],
                      library_ms=seg["times"]["step"]["dw_library_ms"],
                      bound_ms=seg["times"]["step"]["dw_bound_ms"],

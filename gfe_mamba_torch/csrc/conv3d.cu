@@ -42,14 +42,40 @@
 // adds bias, applies act, adds the residual, applies post_act and rounds
 // once to bf16, 16 bytes per thread and step.
 //
-// f32 (conv_fma_kernel, for checks; TF32 would lose the 1e-4 parity): a
-// 4 x 4 x 16 brick, its halo and weights staged per 8-channel chunk by all
-// threads (the affine applied as the halo loads), an 8 x 8 FMA tile per
-// thread on the CUDA cores, and the same epilogue.
+// f32 (conv_fma_kernel): the segmentation UNets' eligible convs, which
+// train and predict in f32 as JAX's do (TF32 would lose the 1e-4 parity
+// with the CPU), and the generator's f32 checks.  On the H100 it is bound
+// by FFMA issue: 54 * C * F operations per voxel at 67 TFLOP/s, against
+// 8 * (C + F) bytes; one FFMA per cycle per SM quarter, so every other
+// instruction (shared loads, addresses, staging, waits at a barrier)
+// takes a slot from the FMAs.  The design keeps those few: an implicit
+// GEMM with M = a brick of output voxels, N = TN output channels and
+// K = 27 * C in chunks of 8 input channels, each thread holding 8 z rows
+// of one (x, y) column x 8 channels (64 accumulators).  For each (dx, dy)
+// and channel pair a thread reads its column's 10 shifted halo values
+// once (float2) and reuses them for the 3 dz taps, and each tap's 8
+// weights come as two float4 (channels 4t.. and TN/2 + 4t..): 44 shared
+// loads per 768 FFMAs.  A quarter-warp's 8 lanes read one halo address
+// (a broadcast) and 128 contiguous weight bytes, so no read of the inner
+// loop conflicts.  The halo is staged [voxel][8 channels] and the weights
+// [tap][channel][TN] by 16-byte cp.async into a 2-stage ring, one chunk
+// ahead; each thread forms the affine (__fmul_rn then __fadd_rn, as the
+// plain version rounds) on the real voxels it copied once its copies
+// land, so the zero halo stays zero, and one barrier per chunk publishes
+// the stage.  On the H100, 4-channel chunks at two blocks per SM (128
+// registers, with spills) or at one, 16 rows per thread, a 3-stage ring,
+// and a (dx, dy) or channel-pair loop left rolled were all slower than 8-
+// channel chunks in 2 stages at one block per SM (168 registers, no
+// spills), whose barrier and staging come half as often, with the (dx,
+// dy) loop unrolled by 3 (PERF.md).  The plan
+// (conv_f32_plan in ops/cuda/conv3d.py) takes a 64-channel tile over a
+// 4 x 8 x 8 brick, or a 32-channel tile over 8 x 8 x 8 where F <= 32 (the
+// input gradient of a 32-channel conv), so no FMA lands on a channel
+// beyond F.
 //
 // None of the TPU layout (z-pair lane packing, the 4-slot K layout, VMEM
-// staging) is kept.  The TMA, mbarrier, ldmatrix / mma.sync and affine
-// helpers come from hopper.cuh, shared with K3.
+// staging) is kept.  The TMA, mbarrier, ldmatrix / mma.sync, bf16 affine
+// and cp.async helpers come from hopper.cuh, shared with K3.
 
 #include "hopper.cuh"
 
@@ -57,7 +83,7 @@ namespace {
 
 constexpr int NTHREADS = 256;            // 8 warps
 constexpr int NWARPS = NTHREADS / 32;
-constexpr int BN = 64;                   // output channels per block
+constexpr int BN = 64;                   // output channels per bf16 block
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -117,17 +143,17 @@ __device__ __forceinline__ uint4 pack16(const float (&f)[8]) {
 }
 
 // One block's output: post_act(act(tile + bias) + residual) for the
-// brick's real voxels and channels, from the f32 tile[m][n] (row stride
-// LD; m = (bx * BY + by) * BZ + bz), 16 bytes of output per thread and
-// step.  A thread keeps one 16-byte slot of channels, so it reads its
+// brick's real voxels and its TN channels, from the f32 tile[m][n] (row
+// stride LD; m = (bx * BY + by) * BZ + bz), 16 bytes of output per thread
+// and step.  A thread keeps one 16-byte slot of channels, so it reads its
 // bias once; its rows go BATCH at a time, their residual loads issued
 // together.  F % 8 == 0, so a vector is all in or all out of range.
-template <typename T, int BX, int BY, int BZ, int LD>
+template <typename T, int BX, int BY, int BZ, int LD, int TN = BN>
 __device__ __forceinline__ void epilogue(
     const float* tile, const T* __restrict__ bias, const T* __restrict__ res,
     T* __restrict__ out, int b, int X, int Y, int Z, int F, int x0, int y0,
     int z0, int n0, int act, int post_act) {
-  constexpr int VEC = 16 / sizeof(T), SLOTS = BN / VEC;
+  constexpr int VEC = 16 / sizeof(T), SLOTS = TN / VEC;
   constexpr int STEP = NTHREADS / SLOTS, ROWS = BX * BY * BZ / STEP;
   constexpr int BATCH = 4;
   static_assert(NTHREADS % SLOTS == 0 && ROWS % BATCH == 0, "even split");
@@ -400,132 +426,219 @@ int launch_mma(const void* x, const void* w, const void* bias, const float* a,
 
 // ---- f32: CUDA cores ------------------------------------------------------
 
-constexpr int FX = 4, FY = 4, FZ = 16;           // output brick
-constexpr int FM = FX * FY * FZ;                 // 256 GEMM rows
-constexpr int FCK = 8;                           // input channels per chunk
-constexpr int FHX = FX + 2, FHY = FY + 2, FHZ = FZ + 2;
-// Row stride of the staged weights: 8 floats of padding shift each k-row
-// by 32 bytes, so the threads of a warp read distinct banks.
-constexpr int WS_LD = BN + 8;
-constexpr int RT = FM / (NTHREADS / 8);          // rows per thread
-constexpr int FMA_SMEM = (FHX * FHY * FHZ * FCK + 27 * FCK * WS_LD) * 4;
-static_assert(FMA_SMEM >= FM * BN * 4, "epilogue tile fits the operands");
-static_assert(FZ % RT == 0, "a thread's rows stay in one column");
+constexpr int FCK = 8;       // input channels per chunk: one 32-byte halo row
+constexpr int FSTAGES = 2;   // the cp.async ring
+constexpr int FBZ = 8;       // z extent of a brick: one thread's rows
 
-// Input halo of one channel chunk: halo[(hx*FHY + hy)*FHZ + hz][k], the
-// voxel at (x0+hx-1, y0+hy-1, z0+hz-1), channel c0+k, with the affine
-// (each step rounded, as the plain version's are); zero outside the
-// volume and beyond C.
-__device__ void load_halo(float* halo, const float* __restrict__ x,
-                          const float* __restrict__ a,
-                          const float* __restrict__ s, int b, int X, int Y,
-                          int Z, int C, int x0, int y0, int z0, int c0) {
-  constexpr int NV = FCK / 4;
-  for (int i = threadIdx.x; i < FHX * FHY * FHZ * NV; i += NTHREADS) {
-    const int v = i % NV, p = i / NV;
-    const int hz = p % FHZ, hy = (p / FHZ) % FHY, hx = p / (FHZ * FHY);
-    const int gx = x0 + hx - 1, gy = y0 + hy - 1, gz = z0 + hz - 1;
-    const int c = c0 + v * 4;
-    alignas(16) float vals[4] = {0.f, 0.f, 0.f, 0.f};
-    if (gx >= 0 && gx < X && gy >= 0 && gy < Y && gz >= 0 && gz < Z &&
-        c < C) {
-      const size_t off = ((((size_t)b * X + gx) * Y + gy) * Z + gz) * C + c;
-      *reinterpret_cast<float4*>(vals) =
-          __ldg(reinterpret_cast<const float4*>(x + off));
-      const size_t ac = (size_t)b * C + c;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (a != nullptr) vals[j] = __fmul_rn(vals[j], a[ac + j]);
-        if (s != nullptr) vals[j] = __fadd_rn(vals[j], s[ac + j]);
-      }
-    }
-    *reinterpret_cast<float4*>(halo + p * FCK + v * 4) =
-        *reinterpret_cast<const float4*>(vals);
-  }
-}
+// The f32 launch's geometry: TN output channels and a BX x BY x FBZ brick
+// per block.  TN / 8 threads share a column's rows and take 8 channels
+// each; the other thread index is the (x, y) column.  A stage holds the
+// chunk's weights (27 x FCK rows of TN floats) then its halo (HALO rows of
+// FCK floats); the f32 epilogue tile (row stride LD) reuses the ring.
+template <int TN_, int BX_, int BY_>
+struct FTile {
+  static constexpr int TN = TN_, BX = BX_, BY = BY_, BZ = FBZ;
+  static constexpr int NT = TN / 8;              // threads along N
+  static constexpr int BM = BX * BY * BZ;
+  static constexpr int HX = BX + 2, HY = BY + 2, HZ = BZ + 2;
+  static constexpr int HALO = HX * HY * HZ;
+  static constexpr int W_FLOATS = 27 * FCK * TN;
+  static constexpr int STAGE = W_FLOATS + HALO * FCK;   // floats
+  static constexpr int LD = TN + 4;
+  static constexpr int SMEM = cmax(FSTAGES * STAGE, BM * LD) * 4;
+  static_assert(NTHREADS == NT * BX * BY, "a thread per column and slot");
+  static_assert(SMEM <= 232448, "fits one block's shared memory");
+};
+using FWide = FTile<64, 4, 8>;     // F > 32
+using FNarrow = FTile<32, 8, 8>;   // F <= 32
 
-// Weights of one channel chunk: ws[t][k][n] = w[t][c0+k][n0+n] (row
-// stride WS_LD), zero beyond C and F.  w is the flax layout (3,3,3,C,F),
-// i.e. (27, C, F).
-__device__ void load_weights(float* ws, const float* __restrict__ w, int C,
-                             int F, int c0, int n0) {
-  constexpr int NV = BN / 4;
-  for (int i = threadIdx.x; i < 27 * FCK * NV; i += NTHREADS) {
-    const int v = i % NV, r = i / NV;
-    const int k = r % FCK, t = r / FCK;
-    const int c = c0 + k, f = n0 + v * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (c < C && f < F)
-      val = __ldg(reinterpret_cast<const float4*>(
-          w + ((size_t)t * C + c) * F + f));
-    *reinterpret_cast<float4*>(ws + (t * FCK + k) * WS_LD + v * 4) = val;
-  }
-}
-
-// Thread t owns rows [RT*(t/8), +RT) and channels [8*(t%8), +8).
+// Grid: one block per (brick, TN-channel output tile), decoded as the bf16
+// variant's (tile fastest, then z, y, x and the batch).  Thread t copies
+// the 16-byte weight vectors and halo vectors t + 256 j of each chunk,
+// then, with the affine, forms x * a + s on those of its halo vectors that
+// are real voxels; thread (m, n) = (t / NT, t % NT) accumulates rows
+// z0 .. z0 + BZ - 1 of column m (x0 + m / BY, y0 + m % BY) for channels
+// n0 + 4n + [0, 4) and n0 + TN/2 + 4n + [0, 4).
+template <typename G, bool AFFINE>
 __global__ void __launch_bounds__(NTHREADS, 1)
 conv_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ bias, const float* __restrict__ a,
                 const float* __restrict__ s, const float* __restrict__ res,
                 float* __restrict__ out, int X, int Y, int Z, int C, int F,
-                int act, int post_act) {
+                int act, int post_act, int nxt, int nyt, int nzt,
+                int ftiles) {
+  constexpr int CK = FCK, HV = CK / 4;   // 16-byte vectors per halo row
   extern __shared__ __align__(128) unsigned char smem[];
-  float* halo = reinterpret_cast<float*>(smem);
-  float* ws = halo + FHX * FHY * FHZ * FCK;
-  float* tile = halo;
-
-  const int nzt = (Z + FZ - 1) / FZ, nyt = (Y + FY - 1) / FY,
-            nxt = (X + FX - 1) / FX;
+  float* const ring = reinterpret_cast<float*>(smem);
   int id = blockIdx.x;
-  const int zt = id % nzt;
+  const int n0 = (id % ftiles) * G::TN;
+  id /= ftiles;
+  const int z0 = (id % nzt) * G::BZ;
   id /= nzt;
-  const int yt = id % nyt;
+  const int y0 = (id % nyt) * G::BY;
   id /= nyt;
-  const int xt = id % nxt;
+  const int x0 = (id % nxt) * G::BX;
   const int b = id / nxt;
-  const int x0 = xt * FX, y0 = yt * FY, z0 = zt * FZ, n0 = blockIdx.y * BN;
+  const int nchunks = (C + CK - 1) / CK;
 
-  const int ng = threadIdx.x % 8, mg = threadIdx.x / 8;
-  const int col = mg * RT / FZ, bx = col / FY, by = col % FY;
-  const int zb = (mg * RT) % FZ;
-  float acc[RT][8];
+  // halo row p is the voxel (x0 + hx - 1, y0 + hy - 1, z0 + hz - 1)
+  auto voxel = [&](int p, size_t& off) {
+    const int hz = p % G::HZ, q = p / G::HZ;
+    const int hy = q % G::HY, hx = q / G::HY;
+    const int gx = x0 + hx - 1, gy = y0 + hy - 1, gz = z0 + hz - 1;
+    off = (((size_t)b * X + gx) * Y + gy) * Z + gz;
+    return (unsigned)gx < (unsigned)X && (unsigned)gy < (unsigned)Y &&
+           (unsigned)gz < (unsigned)Z;
+  };
+  // chunk k's weights w[t][c0 + kk][n0 + n] (zeros beyond C and F) and
+  // halo x[voxel][c0 .. c0 + CK) (zeros outside the volume and beyond C)
+  // into its stage
+  auto load = [&](int k) {
+    float* const st = ring + (k % FSTAGES) * G::STAGE;
+    const int c0 = k * CK;
+    constexpr int WV = G::TN / 4;
+    for (int i = threadIdx.x; i < 27 * CK * WV; i += NTHREADS) {
+      const int v = i % WV, r = i / WV;   // r = tap * CK + kk
+      const int c = c0 + r % CK, f = n0 + 4 * v;
+      const bool in = c < C && f < F;
+      const float* src = in ? w + ((size_t)(r / CK) * C + c) * F + f : w;
+      cp_async16(smem_addr(st + r * G::TN + 4 * v), src, in);
+    }
+    float* const hs = st + G::W_FLOATS;
+    for (int i = threadIdx.x; i < G::HALO * HV; i += NTHREADS) {
+      const int p = i / HV, c = c0 + 4 * (i % HV);
+      size_t off;
+      const bool in = voxel(p, off) && c < C;
+      cp_async16(smem_addr(hs + 4 * i), in ? x + off * C + c : x, in);
+    }
+  };
+  // x * a + s on the real halo vectors this thread copied for chunk k
+  // (all of one 4-channel group: NTHREADS % HV == 0), each step rounded
+  // as the plain version's
+  auto affine = [&](int k) {
+    float* const hs = ring + (k % FSTAGES) * G::STAGE + G::W_FLOATS;
+    const int c = k * CK + 4 * (threadIdx.x % HV);
+    if (c >= C) return;
+    const size_t ac = (size_t)b * C + c;
+    float4 sc = make_float4(1.f, 1.f, 1.f, 1.f);
+    float4 sh = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (a != nullptr) sc = __ldg(reinterpret_cast<const float4*>(a + ac));
+    if (s != nullptr) sh = __ldg(reinterpret_cast<const float4*>(s + ac));
+    for (int i = threadIdx.x; i < G::HALO * HV; i += NTHREADS) {
+      size_t off;
+      if (!voxel(i / HV, off)) continue;
+      float4 v = *reinterpret_cast<float4*>(hs + 4 * i);
+      if (a != nullptr) {
+        v.x = __fmul_rn(v.x, sc.x);
+        v.y = __fmul_rn(v.y, sc.y);
+        v.z = __fmul_rn(v.z, sc.z);
+        v.w = __fmul_rn(v.w, sc.w);
+      }
+      if (s != nullptr) {
+        v.x = __fadd_rn(v.x, sh.x);
+        v.y = __fadd_rn(v.y, sh.y);
+        v.z = __fadd_rn(v.z, sh.z);
+        v.w = __fadd_rn(v.w, sh.w);
+      }
+      *reinterpret_cast<float4*>(hs + 4 * i) = v;
+    }
+  };
+
+  const int tn = threadIdx.x % G::NT, mt = threadIdx.x / G::NT;
+  const int bx = mt / G::BY, by = mt % G::BY;
+  float acc[G::BZ][8];
 #pragma unroll
-  for (int i = 0; i < RT; ++i)
+  for (int i = 0; i < G::BZ; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int c0 = 0; c0 < C; c0 += FCK) {
+
+#pragma unroll
+  for (int k = 0; k < FSTAGES - 1; ++k) {
+    if (k < nchunks) load(k);
+    cp_async_commit();
+  }
+  for (int k = 0; k < nchunks; ++k) {
+    cp_async_wait<FSTAGES - 2>();   // this thread's copies of chunk k
+    if (AFFINE) affine(k);
+    // chunk k is whole for every thread, and every thread is done with
+    // chunk k - 1, whose stage the load below refills
     __syncthreads();
-    load_halo(halo, x, a, s, b, X, Y, Z, C, x0, y0, z0, c0);
-    load_weights(ws, w, C, F, c0, n0);
-    __syncthreads();
-#pragma unroll 1
-    for (int t = 0; t < 27; ++t) {
-      const int dx = t / 9, dy = (t / 3) % 3, dz = t % 3;
-      const float* hp =
-          halo + (((bx + dx) * FHY + (by + dy)) * FHZ + zb + dz) * FCK;
-      const float* wp = ws + t * FCK * WS_LD + ng * 8;
+    if (k + FSTAGES - 1 < nchunks) load(k + FSTAGES - 1);
+    cp_async_commit();
+    const float* const st = ring + (k % FSTAGES) * G::STAGE;
+    const float* const hs = st + G::W_FLOATS + (bx * G::HY + by) * G::HZ * CK;
+    const float* const ws = st + 4 * tn;
+#pragma unroll 3
+    for (int dxy = 0; dxy < 9; ++dxy) {
+      const int dx = dxy / 3, dy = dxy % 3;
+      const float* const hp = hs + (dx * G::HY + dy) * G::HZ * CK;
+      const float* const wp = ws + dxy * 3 * CK * G::TN;
 #pragma unroll
-      for (int k = 0; k < FCK; ++k) {
-        float av[RT], bv[8];
+      for (int kp = 0; kp < CK / 2; ++kp) {
+        float2 av[G::BZ + 2];   // rows z0 - 1 .. z0 + BZ of two channels
 #pragma unroll
-        for (int i = 0; i < RT; ++i) av[i] = hp[i * FCK + k];
+        for (int z = 0; z < G::BZ + 2; ++z)
+          av[z] = *reinterpret_cast<const float2*>(hp + z * CK + 2 * kp);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) bv[j] = wp[k * WS_LD + j];
+        for (int dz = 0; dz < 3; ++dz)
 #pragma unroll
-        for (int i = 0; i < RT; ++i)
+          for (int kk = 0; kk < 2; ++kk) {
+            const float* const wr = wp + (dz * CK + 2 * kp + kk) * G::TN;
+            const float4 b0 = *reinterpret_cast<const float4*>(wr);
+            const float4 b1 =
+                *reinterpret_cast<const float4*>(wr + G::TN / 2);
+            const float bv[8] = {b0.x, b0.y, b0.z, b0.w,
+                                 b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+            for (int i = 0; i < G::BZ; ++i) {
+              const float ai = kk ? av[i + dz].y : av[i + dz].x;
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                acc[i][j] = fmaf(ai, bv[j], acc[i][j]);
+            }
+          }
       }
     }
   }
-  __syncthreads();
+  cp_async_wait<0>();
+  __syncthreads();   // the tile overwrites the ring
+
+  float* const tile = ring;
 #pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) tile[(mg * RT + i) * BN + ng * 8 + j] = acc[i][j];
+  for (int i = 0; i < G::BZ; ++i) {
+    float* const row = tile + (mt * G::BZ + i) * G::LD + 4 * tn;
+    *reinterpret_cast<float4*>(row) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(row + G::TN / 2) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
   __syncthreads();
-  epilogue<float, FX, FY, FZ, BN>(tile, bias, res, out, b, X, Y, Z, F, x0,
-                                  y0, z0, n0, act, post_act);
+  epilogue<float, G::BX, G::BY, G::BZ, G::LD, G::TN>(
+      tile, bias, res, out, b, X, Y, Z, F, x0, y0, z0, n0, act, post_act);
+}
+
+template <typename G>
+int launch_fma(const float* x, const float* w, const float* bias,
+               const float* a, const float* s, const float* res, float* out,
+               int B, int X, int Y, int Z, int C, int F, int act,
+               int post_act, int nxt, int nyt, int nzt, int ftiles,
+               int smem, cudaStream_t stream) {
+  if (nxt != (X + G::BX - 1) / G::BX || nyt != (Y + G::BY - 1) / G::BY ||
+      nzt != (Z + G::BZ - 1) / G::BZ || ftiles != (F + G::TN - 1) / G::TN ||
+      smem != G::SMEM)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)B * nxt * nyt * nzt * ftiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const bool affine = a != nullptr || s != nullptr;
+  const auto kernel =
+      affine ? conv_fma_kernel<G, true> : conv_fma_kernel<G, false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, NTHREADS, G::SMEM, stream>>>(
+      x, w, bias, a, s, res, out, X, Y, Z, C, F, act, post_act, nxt, nyt,
+      nzt, ftiles);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -557,24 +670,30 @@ extern "C" int gfe_conv3x3x3_bf16(const void* x, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
-// f32 variant: the same tensors in float32.  Returns a cudaError_t code.
+// f32 variant: the same tensors in float32, a and s (B,C) float32.  The
+// launch plan (conv_f32_plan): the brick (bx, by, bz) and output-channel
+// tile tn, which must be a compiled pair; the volume's nxt x nyt x nzt
+// bricks per batch item and ftiles tiles of tn channels; the ring's stages
+// and the dynamic shared memory, which must be what the tile needs.
+// Returns a cudaError_t code (0 on success).
 extern "C" int gfe_conv3x3x3_f32(const float* x, const float* w,
                                  const float* bias, const float* a,
                                  const float* s, const float* res,
                                  float* out, int B, int X, int Y, int Z,
-                                 int C, int F, int act, int post_act,
+                                 int C, int F, int act, int post_act, int bx,
+                                 int by, int bz, int tn, int nxt, int nyt,
+                                 int nzt, int ftiles, int stages, int smem,
                                  void* stream) {
-  const long long blocks = (long long)B * ((X + FX - 1) / FX) *
-                           ((Y + FY - 1) / FY) * ((Z + FZ - 1) / FZ);
-  if (blocks <= 0) return (int)cudaErrorInvalidValue;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_fma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      FMA_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)blocks, (F + BN - 1) / BN);
-  conv_fma_kernel<<<grid, NTHREADS, FMA_SMEM,
-                    static_cast<cudaStream_t>(stream)>>>(
-      x, w, bias, a, s, res, out, X, Y, Z, C, F, act, post_act);
-  return (int)cudaGetLastError();
+  if (B <= 0 || X <= 0 || Y <= 0 || Z <= 0 || C <= 0 || F <= 0 ||
+      C % 8 || F % 8 || bz != FBZ || stages != FSTAGES)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tn == FWide::TN && bx == FWide::BX && by == FWide::BY)
+    return launch_fma<FWide>(x, w, bias, a, s, res, out, B, X, Y, Z, C, F,
+                             act, post_act, nxt, nyt, nzt, ftiles, smem, st);
+  if (tn == FNarrow::TN && bx == FNarrow::BX && by == FNarrow::BY)
+    return launch_fma<FNarrow>(x, w, bias, a, s, res, out, B, X, Y, Z, C, F,
+                               act, post_act, nxt, nyt, nzt, ftiles, smem,
+                               st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -43,15 +43,28 @@
 // the kernel with and without it); forming zhat in registers per tap, or
 // in a producer warpgroup, measured slower.
 
-// f32 (dw_fma_kernel, for checks; TF32 would lose the 1e-4 parity): one
-// tap per block, a 64 x 64 tile, a voxel range, zhat and g1 staged as f32
-// per 32-voxel chunk and a 4 x 4 FMA tile per thread on the CUDA cores.
+// f32 (dw_fma_kernel): the segmentation UNets' weight gradients, which
+// JAX takes in f32 (TF32 would lose the 1e-4 parity with the CPU).  On the
+// H100 it is bound by FFMA issue (2 * V * 27 * C * F operations at 67
+// TFLOP/s against 4 * V * (C + F) bytes), so the design spends as few
+// instructions as it can on anything but FMAs.  It has dw_mma_kernel's
+// structure with FFMA in place of mma.sync: a block owns a 64 x 64 (c, f)
+// tile, the 9 taps of one dx and a run of 1 x 8 x 16 voxel bricks
+// (split-K).  Per brick it stages the raw x slab those 9 taps read (1 x 10
+// x 18 rows of 64 channels) and the brick's 128 g1 rows by 16-byte
+// cp.async, double-buffered, and forms zhat once per staged element (each
+// thread on the real rows it copied: __fmul_rn then __fadd_rn).  Each
+// thread keeps a 4 (c) x 4 (f) tile of all 9 taps in registers (144
+// accumulators) and walks each z run with a window of 3 slab rows per dy,
+// so a voxel costs one g1 and three slab float4 loads for 144 FFMAs.  The
+// plan (dw_fma_plan in ops/cuda/conv3d.py) splits the bricks so that the
+// blocks fill whole waves of one block per SM as nearly as it can.
 //
 // Both write one f32 partial per (split, tap, c, f), every element once;
 // the caller sums the splits in a fixed order, so dw is deterministic (no
 // atomics).  No TPU layout (z-pair packing, parity blocks) is kept.  The
-// TMA, mbarrier, ldmatrix / mma.sync and affine helpers come from
-// hopper.cuh, shared with K1.
+// TMA, mbarrier, ldmatrix / mma.sync, bf16 affine and cp.async helpers
+// come from hopper.cuh, shared with K1.
 
 #include "hopper.cuh"
 
@@ -81,14 +94,15 @@ struct Brick {
 };
 
 // brick i of the volume, z fastest: (b, xt, yt, zt) of a (B, nxt, nyt,
-// nzt) grid of BX x BY x BZ bricks
+// nzt) grid of BX_ x BY_ x BZ_ bricks
+template <int BX_ = BX, int BY_ = BY, int BZ_ = BZ>
 __device__ __forceinline__ Brick brick_at(int i, int nxt, int nyt, int nzt) {
   Brick r;
-  r.z0 = (i % nzt) * BZ;
+  r.z0 = (i % nzt) * BZ_;
   i /= nzt;
-  r.y0 = (i % nyt) * BY;
+  r.y0 = (i % nyt) * BY_;
   i /= nyt;
-  r.x0 = (i % nxt) * BX;
+  r.x0 = (i % nxt) * BX_;
   r.b = i / nxt;
   return r;
 }
@@ -259,99 +273,179 @@ dw_mma_kernel(const __grid_constant__ CUtensorMap xmap,
 
 // ---- f32: CUDA cores ------------------------------------------------------
 
-constexpr int KC = 32;   // voxels per shared-memory chunk
+constexpr int FBX = 1, FBY = 8, FBZ = 16;      // voxel brick
+constexpr int FBV = FBX * FBY * FBZ;           // 128 voxels, 8 z runs
+constexpr int FSY = FBY + 2, FSZ = FBZ + 2;    // slab of one dx
+constexpr int FSLAB = FBX * FSY * FSZ;         // 180 rows
+constexpr int FSTAGE = (FSLAB + FBV) * TILE;   // floats: slab, then g1
+constexpr int FSTAGES = 2;
+constexpr int FMA_SMEM = FSTAGES * FSTAGE * 4;   // 157,696 bytes
 
-__global__ void __launch_bounds__(NTHREADS)
+// Grid and splits as dw_mma_kernel's (x = (group, f tile, c tile), y = the
+// split), over FBX x FBY x FBZ bricks.  Per brick thread t copies the
+// 16-byte vector t % 16 (channels c0 + 4 (t % 16), or filters f0 + ...) of
+// slab rows and g1 rows t / 16 + 16 j, one brick ahead into the other
+// stage, then with the affine forms x * a + s on its real slab rows once
+// they land; one barrier per brick publishes the stage.  Thread (tc, tf) =
+// (t / 16, t % 16) owns channels c0 + 4 tc + [0, 4) and filters
+// f0 + 4 tf + [0, 4) of the 9 taps: 144 accumulators.  For each z run it
+// walks the 16 voxels keeping, per dy, the three slab rows z .. z + 2 that
+// the 3 dz taps read: per voxel one g1 float4 and three new slab float4
+// serve 144 FFMAs.  A warp reads two slab addresses (a broadcast) and 256
+// contiguous g1 bytes per step, so no read conflicts.
+template <bool AFFINE>
+__global__ void __launch_bounds__(NTHREADS, 1)
 dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
               const float* __restrict__ a, const float* __restrict__ s,
               float* __restrict__ part, int X, int Y, int Z, int C, int F,
-              int voxels, int chunk, int ctiles, int ftiles) {
-  constexpr int VEC = 4;
-  __shared__ __align__(16) float As[KC][TILE];  // zhat_t[v][c]
-  __shared__ __align__(16) float Bs[KC][TILE];  // g1[v][f]
+              int nxt, int nyt, int nzt, int nbricks, int per, int dxs,
+              int ngroups, int ftiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const stages = reinterpret_cast<float*>(smem);
+  int id = blockIdx.x;
+  const int dx = (dxs >> 2 * (id % ngroups)) & 3;
+  id /= ngroups;
+  const int f0 = (id % ftiles) * TILE, c0 = (id / ftiles) * TILE;
+  const int split = blockIdx.y;
+  const int begin = split * per, n = min(nbricks, begin + per) - begin;
+  const int vec = threadIdx.x & 15, row0 = threadIdx.x >> 4;
+  constexpr int RSTEP = NTHREADS / 16;
 
-  int tile = blockIdx.y;
-  const int ft = tile % ftiles;
-  tile /= ftiles;
-  const int ct = tile % ctiles;
-  const int tap = tile / ctiles;
-  const int di = tap / 9 - 1, dj = (tap / 3) % 3 - 1, dk = tap % 3 - 1;
-  const int c0 = ct * TILE, f0 = ft * TILE;
-  const int v_begin = blockIdx.x * chunk;
-  const int v_end = min(voxels, v_begin + chunk);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int v0 = v_begin; v0 < v_end; v0 += KC) {
-    // shifted zhat rows, VEC channels per 16-byte load (C % 8 == 0, so a
-    // vector is all in or all out of range)
-    for (int i = threadIdx.x; i < KC * (TILE / VEC); i += NTHREADS) {
-      const int r = i / (TILE / VEC), cv = (i % (TILE / VEC)) * VEC;
-      const int v = v0 + r, c = c0 + cv;
-      alignas(16) float vals[VEC] = {0.f, 0.f, 0.f, 0.f};
-      if (v < v_end && c < C) {
-        const int z = v % Z;
-        int rest = v / Z;
-        const int y = rest % Y;
-        rest /= Y;
-        const int xx = rest % X, b = rest / X;
-        const int sx = xx + di, sy = y + dj, sz = z + dk;
-        if (sx >= 0 && sx < X && sy >= 0 && sy < Y && sz >= 0 && sz < Z) {
-          const size_t off = ((((size_t)b * X + sx) * Y + sy) * Z + sz) * C + c;
-          *reinterpret_cast<float4*>(vals) =
-              __ldg(reinterpret_cast<const float4*>(x + off));
-          // rounded after the scale and after the shift, as the plain
-          // version does (no fma contraction)
-          const size_t ac = (size_t)b * C + c;
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) {
-            if (a != nullptr) vals[j] = __fmul_rn(vals[j], a[ac + j]);
-            if (s != nullptr) vals[j] = __fadd_rn(vals[j], s[ac + j]);
-          }
-        }
+  // slab row r of brick k is the voxel (x0 + sx + dx - 1, y0 + hy - 1,
+  // z0 + hz - 1)
+  auto slab_voxel = [&](const Brick& k, int r, size_t& off) {
+    const int hz = r % FSZ, q = r / FSZ;
+    const int hy = q % FSY, sx = q / FSY;
+    const int gx = k.x0 + sx + dx - 1, gy = k.y0 + hy - 1,
+              gz = k.z0 + hz - 1;
+    off = (((size_t)k.b * X + gx) * Y + gy) * Z + gz;
+    return (unsigned)gx < (unsigned)X && (unsigned)gy < (unsigned)Y &&
+           (unsigned)gz < (unsigned)Z;
+  };
+  // brick it's raw x slab (zeros outside the volume and beyond C) and g1
+  // rows (zeros outside and beyond F) into its stage
+  auto load = [&](int it) {
+    float* const st = stages + (it & 1) * FSTAGE;
+    const Brick k = brick_at<FBX, FBY, FBZ>(begin + it, nxt, nyt, nzt);
+    const int c = c0 + 4 * vec, f = f0 + 4 * vec;
+    for (int r = row0; r < FSLAB; r += RSTEP) {
+      size_t off;
+      const bool in = slab_voxel(k, r, off) && c < C;
+      cp_async16(smem_addr(st + r * TILE + 4 * vec), in ? x + off * C + c : x,
+                 in);
+    }
+    for (int r = row0; r < FBV; r += RSTEP) {
+      const int bz = r % FBZ, q = r / FBZ;
+      const int gx = k.x0 + q / FBY, gy = k.y0 + q % FBY, gz = k.z0 + bz;
+      const bool in = gx < X && gy < Y && gz < Z && f < F;
+      const size_t off = (((size_t)k.b * X + gx) * Y + gy) * Z + gz;
+      cp_async16(smem_addr(st + (FSLAB + r) * TILE + 4 * vec),
+                 in ? g + off * F + f : g, in);
+    }
+  };
+  // x * a + s on the real slab rows this thread copied for brick it, each
+  // step rounded as the plain version's
+  auto affine = [&](int it) {
+    float* const st = stages + (it & 1) * FSTAGE;
+    const Brick k = brick_at<FBX, FBY, FBZ>(begin + it, nxt, nyt, nzt);
+    const int c = c0 + 4 * vec;
+    if (c >= C) return;
+    const size_t ac = (size_t)k.b * C + c;
+    float4 sc = make_float4(1.f, 1.f, 1.f, 1.f);
+    float4 sh = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (a != nullptr) sc = __ldg(reinterpret_cast<const float4*>(a + ac));
+    if (s != nullptr) sh = __ldg(reinterpret_cast<const float4*>(s + ac));
+    for (int r = row0; r < FSLAB; r += RSTEP) {
+      size_t off;
+      if (!slab_voxel(k, r, off)) continue;
+      float4 v = *reinterpret_cast<float4*>(st + r * TILE + 4 * vec);
+      if (a != nullptr) {
+        v.x = __fmul_rn(v.x, sc.x);
+        v.y = __fmul_rn(v.y, sc.y);
+        v.z = __fmul_rn(v.z, sc.z);
+        v.w = __fmul_rn(v.w, sc.w);
       }
-      *reinterpret_cast<float4*>(&As[r][cv]) =
-          *reinterpret_cast<const float4*>(vals);
+      if (s != nullptr) {
+        v.x = __fadd_rn(v.x, sh.x);
+        v.y = __fadd_rn(v.y, sh.y);
+        v.z = __fadd_rn(v.z, sh.z);
+        v.w = __fadd_rn(v.w, sh.w);
+      }
+      *reinterpret_cast<float4*>(st + r * TILE + 4 * vec) = v;
     }
-    // g1 rows (unshifted)
-    for (int i = threadIdx.x; i < KC * (TILE / VEC); i += NTHREADS) {
-      const int r = i / (TILE / VEC), fv = (i % (TILE / VEC)) * VEC;
-      const int v = v0 + r, f = f0 + fv;
-      float4 vals = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (v < v_end && f < F)
-        vals = __ldg(reinterpret_cast<const float4*>(g + (size_t)v * F + f));
-      *reinterpret_cast<float4*>(&Bs[r][fv]) = vals;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < KC; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+  };
+
+  const int tc = threadIdx.x >> 4, tf = threadIdx.x & 15;
+  float acc[GROUP_TAPS][4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int t = 0; t < GROUP_TAPS; ++t)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[t][i][j] = 0.f;
+
+  if (n > 0) load(0);
+  cp_async_commit();
+  for (int it = 0; it < n; ++it) {
+    cp_async_wait<0>();   // this thread's copies of brick it
+    if (AFFINE) affine(it);
+    // brick it is whole for every thread, and every thread is done with
+    // brick it - 1, whose stage the load below refills
     __syncthreads();
+    if (it + 1 < n) load(it + 1);
+    cp_async_commit();
+    const float* const st = stages + (it & 1) * FSTAGE;
+#pragma unroll 1
+    for (int col = 0; col < FBX * FBY; ++col) {   // one 16-voxel z run
+      const float* const sp =
+          st + ((col / FBY) * FSY + col % FBY) * FSZ * TILE + 4 * tc;
+      const float* const gp = st + (FSLAB + col * FBZ) * TILE + 4 * tf;
+      float4 av[3][3];   // [dy][hz % 3]: the slab rows the dz taps read
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int hz = 0; hz < 2; ++hz)
+          av[dy][hz] =
+              *reinterpret_cast<const float4*>(sp + (dy * FSZ + hz) * TILE);
+#pragma unroll
+      for (int z = 0; z < FBZ; ++z) {
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+          av[dy][(z + 2) % 3] = *reinterpret_cast<const float4*>(
+              sp + (dy * FSZ + z + 2) * TILE);
+        const float4 gv = *reinterpret_cast<const float4*>(gp + z * TILE);
+        const float gr[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+        for (int dz = 0; dz < 3; ++dz)
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+            const float4 zv = av[dy][(z + dz) % 3];
+            const float zr[4] = {zv.x, zv.y, zv.z, zv.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                acc[dy * 3 + dz][i][j] =
+                    fmaf(zr[i], gr[j], acc[dy * 3 + dz][i][j]);
+          }
+      }
+    }
   }
 
   // partial[split][tap][c][f]; F % 8 == 0 keeps each float4 in or out
-  const int f = f0 + tx * 4;
+  const int f = f0 + 4 * tf;
   if (f >= F) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = c0 + ty * 4 + i;
-    if (c >= C) continue;
-    float* row = part + (((size_t)blockIdx.x * 27 + tap) * C + c) * F + f;
-    *reinterpret_cast<float4*>(row) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  for (int t = 0; t < GROUP_TAPS; ++t) {
+    float* const out = part + ((size_t)split * 27 + dx * 9 + t) * C * F;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = c0 + 4 * tc + i;
+      if (c < C)
+        *reinterpret_cast<float4*>(out + (size_t)c * F + f) =
+            make_float4(acc[t][i][0], acc[t][i][1], acc[t][i][2],
+                        acc[t][i][3]);
+    }
   }
 }
 
@@ -403,23 +497,39 @@ extern "C" int gfe_conv3x3x3_dw_bf16(const void* x, const void* g,
 
 // f32 variant.  x (B,X,Y,Z,C) and g (B,X,Y,Z,F) float32, contiguous and
 // 16-byte aligned; a, s (B,C) float32 or null; part (splits,27,C,F)
-// float32, every element written.  C and F are multiples of 8.  Returns a
-// cudaError_t code (0 on success).
+// float32, splits = ceil(nbricks / per) with nbricks = B * ceil(X/bx) *
+// ceil(Y/by) * ceil(Z/bz); the taps of the ngroups dx in dxs written, as
+// for bf16.  The plan (dw_fma_plan): the brick (bx, by, bz), the ring's
+// stages and the dynamic shared memory, which must be the compiled ones.
+// C and F are multiples of 8.  Returns a cudaError_t code (0 on success).
 extern "C" int gfe_conv3x3x3_dw_f32(const float* x, const float* g,
                                     const float* a, const float* s,
                                     float* part, int B, int X, int Y, int Z,
-                                    int C, int F, int splits, void* stream) {
-  const long long voxels = (long long)B * X * Y * Z;
-  if (voxels <= 0 || voxels > 0x7fffffffLL || splits <= 0)
+                                    int C, int F, int bx, int by, int bz,
+                                    int per, int dxs, int ngroups, int stages,
+                                    int smem, void* stream) {
+  if (B <= 0 || X <= 0 || Y <= 0 || Z <= 0 || C <= 0 || F <= 0 || per <= 0 ||
+      C % 8 || F % 8 || ngroups <= 0 || ngroups > 15 || bx != FBX ||
+      by != FBY || bz != FBZ || stages != FSTAGES || smem != FMA_SMEM)
     return (int)cudaErrorInvalidValue;
-  long long chunk = (voxels + splits - 1) / splits;
-  chunk = (chunk + KC - 1) / KC * KC;
+  for (int i = 0; i < ngroups; ++i)
+    if (((dxs >> 2 * i) & 3) > 2) return (int)cudaErrorInvalidValue;
+  const int nxt = (X + FBX - 1) / FBX, nyt = (Y + FBY - 1) / FBY,
+            nzt = (Z + FBZ - 1) / FBZ;
+  const long long nbricks = (long long)B * nxt * nyt * nzt;
+  const long long splits = (nbricks + per - 1) / per;
   const int ctiles = (C + TILE - 1) / TILE, ftiles = (F + TILE - 1) / TILE;
-  const long long tiles = 27LL * ctiles * ftiles;
-  if (tiles > 65535) return (int)cudaErrorInvalidConfiguration;
-  dim3 grid((unsigned)splits, (unsigned)tiles);
-  dw_fma_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, g, a, s, part, X, Y, Z, C, F, (int)voxels, (int)chunk, ctiles,
-      ftiles);
+  const long long tiles = (long long)ngroups * ctiles * ftiles;
+  if (nbricks > 0x7fffffffLL || splits > 65535 || tiles > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  const bool affine = a != nullptr || s != nullptr;
+  const auto kernel = affine ? dw_fma_kernel<true> : dw_fma_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FMA_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)tiles, (unsigned)splits);
+  kernel<<<grid, NTHREADS, FMA_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      x, g, a, s, part, X, Y, Z, C, F, nxt, nyt, nzt, (int)nbricks, per, dxs,
+      ngroups, ftiles);
   return (int)cudaGetLastError();
 }

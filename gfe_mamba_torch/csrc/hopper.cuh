@@ -1,7 +1,8 @@
 // Hopper building blocks shared by K1 (conv3d.cu) and K3 (conv3d_dw.cu):
 // TMA tensor maps and box loads completing on mbarriers, ldmatrix and
-// mma.sync m16n8k16 on bf16, and the in-place bf16 affine pass that forms
-// zhat = x * a + s on staged rows.
+// mma.sync m16n8k16 on bf16, the in-place bf16 affine pass that forms
+// zhat = x * a + s on staged rows, and the 16-byte cp.async copies that
+// stage the f32 variants' operands.
 //
 // A staged row is a run of channels of one voxel, cut in 16-byte slots.
 // The TMA's swizzles move the slots inside each row so that ldmatrix reads
@@ -102,6 +103,27 @@ __device__ __forceinline__ void tma_load_3d(unsigned dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(i0), "r"(i1), "r"(i2),
       "r"(bar)
       : "memory");
+}
+
+// 16 bytes from global to shared memory, asynchronously, bypassing L1;
+// without `full` the 16 bytes land as zeros and nothing is read
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// close this thread's group of cp.async copies issued since the last one
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's groups are still in flight; the
+// bytes of the others are then visible to this thread
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {

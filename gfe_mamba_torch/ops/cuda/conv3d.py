@@ -36,18 +36,27 @@ _CONV_BN = 64
 _CONV_CK = 16
 _CONV_STAGES = 2
 SMEM_LIMIT = 232448
-# K3's launch shapes (csrc/conv3d_dw.cu).  Both variants: the (c, f) tile.
-# f32 (CUDA cores): voxels per shared chunk and the number of blocks the
-# voxel split aims for.  bf16 (tensor cores): the voxel brick; the tap
-# groups, as the dx of each (the blocks of group g serve the 9 (dy, dz)
-# taps of dx DW_GROUP_DX[g] from one staged slab; the kernel reads this
-# table); and the waves of one block per SM the brick split aims for.
+# K1's f32 launch (csrc/conv3d.cu, CUDA cores): the brick (x, y, z) of a
+# block by its tile of output channels, which the kernel must have
+# compiled (32 where F <= 32, else 64); the input channels of one staged
+# chunk; and the stages of the cp.async ring.
+CONV_F32_BRICKS = {32: (8, 8, 8), 64: (4, 8, 8)}
+_CONV_F32_CK = 8
+_CONV_F32_STAGES = 2
+# K3's launch shapes (csrc/conv3d_dw.cu).  Both variants: the (c, f) tile;
+# the tap groups, as the dx of each (the blocks of group g serve the 9
+# (dy, dz) taps of dx DW_GROUP_DX[g] from one staged slab; the kernels
+# read this table).  bf16 (tensor cores): the voxel brick and the waves of
+# one block per SM the brick split aims for.  f32 (CUDA cores): its voxel
+# brick, the stages of its cp.async ring, and the most waves of one block
+# per SM its split weighs.
 _DW_TILE = 64
-_DW_CHUNK = 32
-_DW_BLOCKS = 2048
 DW_BRICK = (4, 4, 16)
 DW_GROUP_DX = (0, 1, 2)
 _DW_WAVES = 4
+DW_F32_BRICK = (1, 8, 16)
+_DW_F32_STAGES = 2
+_DW_F32_MAX_WAVES = 8
 
 # kernel launches since the counters were last set to 0: K1; K3 in all,
 # and by variant (bf16 on tensor cores, f32 on CUDA cores)
@@ -187,12 +196,44 @@ def conv_plan(B, X, Y, Z, C, F) -> ConvPlan:
         weight_strides=(2 * F, 2 * F * C))
 
 
+class ConvF32Plan(NamedTuple):
+    """The f32 K1 launch.  ``blocks`` = B x ``tiles``: the bricks of the
+    volume along x, y and z and the tiles of ``tile`` output channels,
+    decoded by the kernel as the bf16 launch's are (channel tile fastest,
+    then z, y, x and the batch)."""
+    brick: tuple[int, int, int]
+    tile: int
+    tiles: tuple[int, int, int, int]
+    blocks: int
+    stages: int
+    smem_bytes: int
+
+
+def conv_f32_plan(B, X, Y, Z, C, F) -> ConvF32Plan:
+    """K1's f32 launch for x ``(B, X, Y, Z, C)`` and F output channels:
+    one block per (brick, channel tile), the tile 32 wide where F <= 32
+    (no FMA on a channel beyond F) and 64 wide otherwise.  A ring stage
+    holds an 8-channel chunk's weights (27 x 8 rows of ``tile`` floats)
+    and its halo (rows of 8 floats); the f32 output tile (rows of
+    ``tile`` + 4 floats) reuses the ring."""
+    tile = 32 if F <= 32 else 64
+    bx, by, bz = CONV_F32_BRICKS[tile]
+    tiles = (-(-X // bx), -(-Y // by), -(-Z // bz), -(-F // tile))
+    halo = (bx + 2) * (by + 2) * (bz + 2)
+    stage = 4 * _CONV_F32_CK * (27 * tile + halo)
+    smem = max(_CONV_F32_STAGES * stage, bx * by * bz * (tile + 4) * 4)
+    return ConvF32Plan(
+        brick=(bx, by, bz), tile=tile, tiles=tiles,
+        blocks=B * tiles[0] * tiles[1] * tiles[2] * tiles[3],
+        stages=_CONV_F32_STAGES, smem_bytes=smem)
+
+
 def conv3x3x3_cuda(x, w, bias=None, pre_scale=None, pre_shift=None,
                    residual=None, act="none", post_act="none"):
     """Launch K1.  Takes f32 or bf16 CUDA tensors with C and F multiples
     of 8; raises on anything else.  bf16 takes the tensor-core variant
-    with ``conv_plan``'s launch, f32 the CUDA-core one; neither falls back
-    to the other."""
+    with ``conv_plan``'s launch, f32 the CUDA-core one with
+    ``conv_f32_plan``'s; neither falls back to the other."""
     from gfe_mamba_torch.ops.cuda.build import library
 
     global launches
@@ -226,7 +267,9 @@ def conv3x3x3_cuda(x, w, bias=None, pre_scale=None, pre_shift=None,
         plan_args = (*plan.brick, *plan.tiles, plan.stages, plan.smem_bytes)
         fn = lib.gfe_conv3x3x3_bf16
     else:
-        plan_args = ()
+        plan = conv_f32_plan(B, X, Y, Z, C, Fo)
+        plan_args = (*plan.brick, plan.tile, *plan.tiles, plan.stages,
+                     plan.smem_bytes)
         fn = lib.gfe_conv3x3x3_f32
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 \
@@ -250,16 +293,58 @@ class DwPlan(NamedTuple):
     splits: int
 
 
+def _bricks(B, X, Y, Z, brick) -> int:
+    return B * -(-X // brick[0]) * -(-Y // brick[1]) * -(-Z // brick[2])
+
+
+def _dw_tiles(C, F) -> int:
+    """The blocks of one split: tap groups x c tiles x f tiles."""
+    return len(DW_GROUP_DX) * -(-C // _DW_TILE) * -(-F // _DW_TILE)
+
+
 def dw_plan(B, X, Y, Z, C, F, sms) -> DwPlan:
     """Split the bricks so that the blocks fill ``_DW_WAVES`` waves of one
     block per SM on a card of ``sms`` SMs (at least; fewer where the
     volume has fewer bricks)."""
-    bricks = B * -(-X // DW_BRICK[0]) * -(-Y // DW_BRICK[1]) \
-        * -(-Z // DW_BRICK[2])
-    blocks = len(DW_GROUP_DX) * -(-C // _DW_TILE) * -(-F // _DW_TILE)
-    want = -(-_DW_WAVES * sms // blocks)
+    bricks = _bricks(B, X, Y, Z, DW_BRICK)
+    want = -(-_DW_WAVES * sms // _dw_tiles(C, F))
     per = -(-bricks // max(1, min(want, bricks)))
     return DwPlan(per, -(-bricks // per))
+
+
+class DwFmaPlan(NamedTuple):
+    """The f32 K3 launch: split s takes bricks ``[s * per, min(bricks,
+    (s + 1) * per))`` of the volume's ``brick`` bricks; a block stages a
+    brick's x slab and g1 rows into each of ``stages`` stages."""
+    brick: tuple[int, int, int]
+    per: int
+    splits: int
+    stages: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def dw_fma_plan(B, X, Y, Z, C, F, sms) -> DwFmaPlan:
+    """Split the bricks for the least makespan on a card of ``sms`` SMs
+    holding one block each: waves x (bricks per block + a quarter brick,
+    the first load that no compute hides), over splits that fill at most
+    ``_DW_F32_MAX_WAVES`` waves; the fewest splits among equals.  Blocks
+    of equal work in whole waves waste nothing, where a fixed wave count
+    can leave its last wave nearly empty."""
+    bx, by, bz = DW_F32_BRICK
+    bricks = _bricks(B, X, Y, Z, DW_F32_BRICK)
+    tiles = _dw_tiles(C, F)
+    best = None
+    for want in range(1, min(bricks, -(-_DW_F32_MAX_WAVES * sms // tiles))
+                      + 1):
+        per = -(-bricks // want)
+        splits = -(-bricks // per)
+        cost = -(-splits * tiles // sms) * (4 * per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, per, splits)
+    rows = bx * (by + 2) * (bz + 2) + bx * by * bz
+    return DwFmaPlan(DW_F32_BRICK, best[1], best[2], _DW_F32_STAGES,
+                     _DW_F32_STAGES * rows * _DW_TILE * 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -274,9 +359,10 @@ def conv3x3x3_dw_cuda(x, g1, pre_scale=None, pre_shift=None):
     f32.  Raises on anything else.
 
     bf16 takes the tensor-core variant (``dw_plan``), f32 the CUDA-core
-    one; neither falls back to the other.  Each splits the voxels over
-    blocks and writes one f32 partial per split; the sum over splits runs
-    here, in a fixed order, so the result is deterministic."""
+    one (``dw_fma_plan``); neither falls back to the other.  Each splits
+    the voxels over blocks and writes one f32 partial per split; the sum
+    over splits runs here, in a fixed order, so the result is
+    deterministic."""
     from gfe_mamba_torch.ops.cuda.build import library
 
     global dw_launches, dw_mma_launches, dw_fma_launches
@@ -300,16 +386,19 @@ def conv3x3x3_dw_cuda(x, g1, pre_scale=None, pre_shift=None):
     pre_scale, pre_shift = _affine_for_kernel(x.dtype, pre_scale, pre_shift)
     lib = library("conv3d_dw")
     mma = x.dtype == torch.bfloat16
+    sms = _sm_count(x.device.index)
+    # the group table, two bits per group's dx
+    groups = (sum(dx << 2 * g for g, dx in enumerate(DW_GROUP_DX)),
+              len(DW_GROUP_DX))
     if mma:
-        per, splits = dw_plan(B, X, Y, Z, C, Fo, _sm_count(x.device.index))
-        # the group table, two bits per group's dx
-        dxs = sum(dx << 2 * g for g, dx in enumerate(DW_GROUP_DX))
-        plan_args = (per, dxs, len(DW_GROUP_DX))
+        per, splits = dw_plan(B, X, Y, Z, C, Fo, sms)
+        plan_args = (per, *groups)
         fn = lib.gfe_conv3x3x3_dw_bf16
     else:
-        tiles = 27 * -(-C // _DW_TILE) * -(-Fo // _DW_TILE)
-        splits = max(1, min(-(-_DW_BLOCKS // tiles), -(-voxels // _DW_CHUNK)))
-        plan_args = (splits,)
+        plan = dw_fma_plan(B, X, Y, Z, C, Fo, sms)
+        splits = plan.splits
+        plan_args = (*plan.brick, plan.per, *groups, plan.stages,
+                     plan.smem_bytes)
         fn = lib.gfe_conv3x3x3_dw_f32
     part = torch.empty(splits, 27, C, Fo, dtype=torch.float32,
                        device=x.device)

@@ -1,10 +1,12 @@
-"""The launch plan of K1's bf16 tensor-core variant (``conv_plan`` in
+"""The launch plans of K1 (``conv_plan`` for the bf16 tensor-core variant,
+``conv_f32_plan`` for the f32 CUDA-core one, in
 ``gfe_mamba_torch/ops/cuda/conv3d.py``), on the CPU: the blocks, decoded
 in the kernel's order, put every output voxel and channel in exactly one
 block; a ring stage and the epilogue tile fit one block's shared memory
-on an H100 (232,448 bytes); every TMA box dimension is at most 256 and
-its innermost extent fits its swizzle; and the tensors' byte strides are
-multiples of 16, as the TMA requires.
+on an H100 (232,448 bytes); the f32 plan takes its narrow tile where F <= 32; every
+TMA box dimension is at most 256 and its innermost extent fits its
+swizzle; and the tensors' byte strides are multiples of 16, as the TMA
+requires.
 """
 
 import numpy as np
@@ -90,3 +92,91 @@ def test_conv_plan_pads_nothing_at_the_generator_levels(shape, C, F):
     plan = k1.conv_plan(*shape, C, F)
     voxels = np.prod(shape)
     assert plan.blocks * np.prod(plan.brick) * 64 == voxels * F
+
+
+# K1's f32 launch (``conv_f32_plan``).  The segmentation UNet3D's 13 K1
+# convs (f_maps 64, a 64x128x128 patch, batch 1) as forwards and as input
+# gradients (C and F swapped: the 64 -> 32 of the first conv's dz takes
+# the narrow tile), the generator's three levels at batch 1 and 4, and
+# ragged volumes (X, Y, Z not multiples of either brick, C != F)
+UNET3D_CONVS = [((64, 128, 128), 32, 64), ((32, 64, 64), 64, 64),
+                ((32, 64, 64), 64, 128), ((16, 32, 32), 128, 128),
+                ((16, 32, 32), 128, 256), ((8, 16, 16), 256, 256),
+                ((8, 16, 16), 256, 512), ((16, 32, 32), 768, 256),
+                ((16, 32, 32), 256, 256), ((32, 64, 64), 384, 128),
+                ((32, 64, 64), 128, 128), ((64, 128, 128), 192, 64),
+                ((64, 128, 128), 64, 64)]
+F32_SHAPES = [((1, *sp), C, F) for sp, C, F in UNET3D_CONVS] \
+    + [((1, *sp), F, C) for sp, C, F in UNET3D_CONVS] \
+    + [((b, *sp), C, C) for b in (1, 4)
+       for sp, C in (((160, 160, 96), 64), ((80, 80, 48), 128),
+                     ((40, 40, 24), 256))] \
+    + [((2, 5, 7, 19), 24, 40), ((1, 9, 13, 24), 24, 40),
+       ((3, 11, 6, 24), 128, 64), ((1, 9, 12, 13), 64, 32),
+       ((2, 3, 17, 5), 8, 8)]
+
+
+def _decode_f32(plan):
+    """Each block's (batch, x, y, z, channel) origin in the f32 kernel's
+    order: channel tile fastest, then z, y, x and the batch."""
+    nxt, nyt, nzt, ftiles = plan.tiles
+    ids = np.arange(plan.blocks)
+    ft, ids = ids % ftiles, ids // ftiles
+    zt, ids = ids % nzt, ids // nzt
+    yt, ids = ids % nyt, ids // nyt
+    xt, b = ids % nxt, ids // nxt
+    bx, by, bz = plan.brick
+    return b, xt * bx, yt * by, zt * bz, ft * plan.tile
+
+
+@pytest.mark.parametrize("shape,C,F", F32_SHAPES)
+def test_conv_f32_plan_puts_every_output_in_one_block(shape, C, F):
+    B, X, Y, Z = shape
+    plan = k1.conv_f32_plan(B, X, Y, Z, C, F)
+    b, x0, y0, z0, n0 = _decode_f32(plan)
+    assert plan.blocks == B * np.prod(plan.tiles)
+    origins = np.stack([b, x0, y0, z0, n0], 1)
+    assert len(np.unique(origins, axis=0)) == plan.blocks
+    # count, for every output voxel and channel, the blocks whose brick
+    # and channel tile hold it
+    bx, by, bz = plan.brick
+    owners = np.zeros((B, X, Y, Z), int)
+    per_block = np.zeros(plan.blocks, int)
+    tiles_of = np.zeros((B, X, Y, Z, F), int) if B * X * Y * Z * F \
+        <= 2_000_000 else None
+    for i in range(plan.blocks):
+        cut = (b[i], slice(x0[i], x0[i] + bx), slice(y0[i], y0[i] + by),
+               slice(z0[i], z0[i] + bz))
+        if n0[i] == 0:
+            owners[cut] += 1
+        per_block[i] = owners[cut].size
+        if tiles_of is not None:
+            tiles_of[cut + (slice(n0[i], n0[i] + plan.tile),)] += 1
+    assert (owners == 1).all()
+    assert (per_block > 0).all()          # no block starts outside
+    if tiles_of is not None:
+        assert (tiles_of == 1).all()
+    assert sorted(set(n0.tolist())) == list(range(0, F, plan.tile))
+
+
+@pytest.mark.parametrize("shape,C,F", F32_SHAPES)
+def test_conv_f32_plan_fits_the_card(shape, C, F):
+    plan = k1.conv_f32_plan(*shape, C, F)
+    bx, by, bz = plan.brick
+    assert plan.brick == k1.CONV_F32_BRICKS[plan.tile]
+    assert bx * by * plan.tile // 8 == 256       # a thread per column, slot
+    assert plan.smem_bytes <= k1.SMEM_LIMIT
+    halo = (bx + 2) * (by + 2) * (bz + 2)
+    stage = 4 * 8 * (27 * plan.tile + halo)       # 8-channel chunks
+    assert plan.stages >= 2 and plan.stages * stage <= plan.smem_bytes
+    assert bx * by * bz * (plan.tile + 4) * 4 <= plan.smem_bytes
+    assert C % 8 == 0                             # whole 8-channel chunks
+
+
+@pytest.mark.parametrize("shape,C,F", F32_SHAPES)
+def test_conv_f32_plan_takes_the_narrow_tile_at_f32(shape, C, F):
+    """A 32-wide channel tile where F <= 32 (no FMA on a channel beyond F),
+    64 wide above."""
+    plan = k1.conv_f32_plan(*shape, C, F)
+    assert plan.tile == (32 if F <= 32 else 64)
+    assert plan.tiles[3] * plan.tile - F < plan.tile

@@ -58,14 +58,18 @@ def _randn(gen, *shape, scale=1.0):
                                        ((1, 8, 12, 16), 32, 64),
                                        ((1, 6, 8, 8), 192, 64),
                                        ((1, 4, 8, 8), 384, 128),
-                                       ((1, 4, 4, 8), 768, 256)])
+                                       ((1, 4, 4, 8), 768, 256),
+                                       ((1, 9, 12, 13), 64, 32),
+                                       ((2, 6, 9, 11), 32, 64)])
 def test_conv_kernel_matches_plain(cuda, dtype, rel, act, with_res,
                                    post_act, shape, C, F):
     """Ragged shapes: X and Y not multiples of the brick, Z = 24 (the
     256-channel level's depth) and 19, C and F multiples of 8 but not of
-    16, and more input channels than one 64-wide output tile; and the
+    16, and more input channels than one 64-wide output tile; the
     segmentation UNet3D's widths: its first K1 conv (32 -> 64) and its
-    decoders' concat-joined inputs (192, 384, 768 channels)."""
+    decoders' concat-joined inputs (192, 384, 768 channels); and that
+    conv's input gradient (64 -> 32, the f32 variant's narrow tile), with
+    Z = 13 and 11, not multiples of the f32 bricks' 8."""
     gen = np.random.RandomState(0)
     x = _randn(gen, *shape, C).to(cuda, dtype)
     w = _randn(gen, 3, 3, 3, C, F, scale=(27 * C) ** -0.5).to(cuda, dtype)

@@ -198,6 +198,22 @@ def test_dw_kernel_is_deterministic_and_counts_its_variant(cuda):
         == (3, 2, 1)
 
 
+def test_dw_f32_kernel_is_deterministic(cuda):
+    """Two f32 calls on the same inputs give bitwise-identical dw: each
+    block sums its bricks in a fixed order, the split partials are summed
+    in a fixed order, no atomics.  The volume has several splits at a
+    segmentation width (192 -> 64)."""
+    gen = np.random.RandomState(5)
+    x, g1, a, s = _dw_args(gen, (1, 16, 32, 48), 192, 64, True,
+                           torch.float32, cuda)
+    assert k1.dw_fma_plan(1, 16, 32, 48, 192, 64,
+                          k1._sm_count(cuda.index or 0)).splits > 1
+    first = k1.conv3x3x3_dw_cuda(x, g1, a, s)
+    second = k1.conv3x3x3_dw_cuda(x, g1, a, s)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("act,with_res,post_act", [
     ("elu", False, "none"), ("none", True, "elu")])
 def test_conv_function_matches_autograd_of_plain(cuda, act, with_res,
