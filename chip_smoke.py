@@ -135,7 +135,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    times per forward; (c) ``seg_train`` at batch 1: 3 steps with one
    validation and both checkpoints, a resume to step 4, ``seg_predict``
    from the best checkpoint; every step K1 13 forward + 13 dz and K3 13
-   (f32).
+   (f32);
+16. the modules outside the main paths, f32 with TF32 off, each part's
+   times, errors and peak memory logged: (a) ResNet3D-101 (Kinetics
+   widths, one input channel, one logit) and (b) MVCSNet at its defaults,
+   eval, card against CPU within 1e-4 at batch 1 on 64x64x48, each
+   forward timed at batch 4 on 160x160x96; (c) a ``JambaLM`` at phase
+   13's widths and layer pattern with a 65,536-token vocabulary, its
+   weights drawn from a seed and handed over under HF Jamba's names to
+   ``import_jamba_hf`` on the card and the CPU: logits of a 64-token
+   prompt at batch 2 within 1e-4, ``generate`` of 16 tokens (top_k 1 is
+   the greedy argmax), K2 11 times per forward, and K2 against its plain
+   version on that model's first Mamba layer (1e-5); (d) 8 RGBA PNGs of
+   256x256 and their masks through ``DSB2018Dataset`` into ``UNet2D`` at
+   the JAX defaults on the card, ``dsb_predict``'s files read back by
+   ``data/h5.py`` within 1e-4 of the CPU's predictions; (e)
+   ``adaptive_normal``, ``foreground_bbox_jax`` and ``crop_resize`` to
+   160x160x96 (no host sync: CUDA's sync debug mode raises) and
+   ``resize_volume`` on a 256x256x170 volume, within 1e-5 of the CPU;
+   (f) the legacy combiners at the generator's skip shapes and
+   ``PatchDiscriminator(dims=2)`` on 256x256, within 1e-4 of the CPU.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  K1's ``ms``, ``plain_ms``,
@@ -151,7 +170,9 @@ Stage-1 step (10 calls); K5a's and K5b's per pass over the three widths
 path it serves: K1 and K2 the 3 requests of phase 5, K4 the 3 steps of
 phase 8, K3 (and K1's ``dz_launches``) the 3 steps of phase 9, K5a and
 K5b the 3 calls of phase 10; K2's ``jamba_launches`` the 3 Jamba
-requests of phase 13(b), K4's the 3 Jamba Stage-2 steps of 13(c);
+requests of phase 13(b), K4's the 3 Jamba Stage-2 steps of 13(c), K2's
+``hf_jamba_launches`` the forward and ``generate`` of phase 16(c), with
+its check and times on that model's first layer as ``hf_jamba``;
 ``dp_launches`` (K1-K4) rank 0's launches in phase 14(a), K1's summed
 over its Stage-2 and Stage-1 steps; K1's and K3's ``seg_launches``
 their launches over phase 15(b) and (c), and ``seg`` their f32 times
@@ -166,6 +187,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -2918,6 +2940,423 @@ def drive_parallel(card: str, root: str, phase12: dict) -> dict:
     return launches
 
 
+# phase 16: the modules no main path builds, f32 with TF32 off.  (a) and
+# (b) hold card against CPU at batch 1 on a reduced volume and time the
+# forward at batch 4 on the canonical one
+P16_BATCH = 4
+P16_PARITY_VOLUME = (64, 64, 48)
+# (c): phase 13's Jamba-head widths and layer pattern (layer 4 attention,
+# the odd layers 16 experts top-2, so 11 Mamba layers) with Jamba-v0.1's
+# vocabulary and untied head
+HF_JAMBA = dict(d_model=CANONICAL["dim"], n_layers=2 * CANONICAL["depth"],
+                mlp_size=2 * CANONICAL["dim"],
+                num_attention_heads=CANONICAL["heads"], vocab_size=65536,
+                tie_lm_weights=False)
+HF_PROMPT = (2, 64)
+HF_NEW_TOKENS = 16
+# the port's JambaLM names -> HF's, applied in order (experts unstacked
+# apart)
+HF_NAMES = ((r"^embedding\.", "model.embed_tokens."),
+            (r"^final_layernorm\.", "model.final_layernorm."),
+            (r"^jamba\.layers\.", "model.layers."),
+            (r"\.pre_moe_layernorm\.", ".pre_ff_layernorm."),
+            (r"\.moe\.router\.", ".feed_forward.router."),
+            (r"\.moe\.expert\.", ".feed_forward."),
+            (r"\.B_layernorm\.", ".b_layernorm."),
+            (r"\.C_layernorm\.", ".c_layernorm."))
+# (d): DSB2018 stage 1's most common image size
+DSB_IMAGES, DSB_SIZE = 8, (256, 256)
+# (e), (f)
+VOLUMETRIC_SHAPE = (256, 256, 170)
+# the canonical generator's skips: (spatial, channels) of encoder 1 and 2
+# (the decoder's match them)
+SKIP_SHAPES = ((IMG, 64), (tuple(n // 2 for n in IMG), 128))
+DISC2D_SHAPE = (4, 256, 256, 1)
+
+
+def forward_ms_and_peak(model, x, reps: int = 3) -> tuple[float, float]:
+    """``model(x)``'s device time (CUDA events, after a warm-up) and the
+    peak of allocated memory over the calls, in GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = time_ms(lambda: model(x), reps)
+    return ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def check_close(tag: str, got, want, tol: float) -> tuple[float, float]:
+    err, rel = rel_err(got, want)
+    log(f"phase 16{tag}: card vs CPU max_abs_err={err:.3e} rel={rel:.3e} "
+        f"(tol {tol:g})")
+    if not rel <= tol:
+        raise AssertionError(f"phase 16{tag}: card and CPU differ: rel "
+                             f"{rel}")
+    return err, rel
+
+
+def p16_baselines(card: str) -> dict:
+    """Phase 16(a) and (b): ResNet3D-101 (Kinetics widths, conv1_t_size 7,
+    max pool; a T1 volume in, one logit out) and MVCSNet at its defaults
+    (base 64, heads 16/8/4/2, one class), eval, weights from a seed: the
+    card against the CPU at batch 1 on a reduced volume, then the forward
+    timed at batch 4 on the canonical volume with its FLOPs (counted by
+    ``torch.utils.flop_counter`` on the meta device) and peak memory."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from gfe_mamba_torch.models.mvcs import MVCSNet
+    from gfe_mamba_torch.models.resnet3d import generate_model
+
+    out = {}
+    for tag, name, make, seed in (
+            ("(a)", "ResNet3D-101",
+             lambda: generate_model(101, n_input_channels=1, n_classes=1),
+             161),
+            ("(b)", "MVCSNet", MVCSNet, 162)):
+        model = materialized(make, seed).eval()
+        x = torch.randn(1, *P16_PARITY_VOLUME, 1,
+                        generator=torch.Generator().manual_seed(seed))
+        with torch.inference_mode():
+            want = model(x)
+        model.cuda()
+        with torch.inference_mode():
+            got = model(x.cuda())
+        err = check_close(f"{tag} {name} (1, {P16_PARITY_VOLUME})", got,
+                          want, 1e-4)
+        xb = torch.randn(P16_BATCH, *IMG, 1, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(seed))
+        ms, peak = forward_ms_and_peak(model, xb)
+        with torch.device("meta"), torch.no_grad(), \
+                FlopCounterMode(display=False) as flops:
+            make().eval()(torch.empty(xb.shape))
+        tflop = flops.get_total_flops() / 1e12
+        with torch.inference_mode():
+            logits = model(xb)
+        if logits.shape != (P16_BATCH, 1) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"phase 16{tag} {name}: logits "
+                                 f"{tuple(logits.shape)} not finite")
+        log(f"phase 16{tag} {name}: forward at batch {P16_BATCH} on {IMG} "
+            f"f32 {ms:.2f} ms, {tflop:.4f} TFLOP ({tflop / ms * 1e3:.1f} "
+            f"TFLOP/s, {tflop * 1e12 / PEAK_F32 / ms * 1e3:.1%} of the f32 "
+            f"peak), peak memory {peak:.2f} GiB [{card}]; TFLOP by op "
+            + ", ".join(f"{op} {n / 1e12:.4f}" for op, n in
+                        flops.get_flop_counts()["Global"].items()))
+        out[name] = dict(ms=ms, tflop=tflop, peak_gib=peak,
+                         max_abs_err=err[0], rel_err=err[1])
+        del model, xb, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def hf_state_dict(model) -> dict:
+    """A ``JambaLM``'s weights under HF Jamba's names, the stacked experts
+    as one ``(f, d)`` / ``(d, f)`` tensor per expert, on the CPU."""
+    out = {}
+    for key, value in model.state_dict().items():
+        m = re.fullmatch(r"jamba\.layers\.(\d+)\.moe\.experts_(\w+)", key)
+        if m:
+            for e, w in enumerate(value):
+                out[f"model.layers.{m[1]}.feed_forward.experts.{e}."
+                    f"{m[2]}_proj.weight"] = w.T.contiguous()
+            continue
+        for pattern, repl in HF_NAMES:
+            key = re.sub(pattern, repl, key)
+        out[key] = value
+    return out
+
+
+def p16_hf_jamba(card: str) -> dict:
+    """Phase 16(c): an HF-keyed Jamba state dict drawn from a seed, loaded
+    by ``import_jamba_hf`` onto the card and the CPU: the logits of a
+    prompt of 64 tokens at batch 2, card against CPU; ``generate`` of 16
+    tokens (top_k 1, the greedy argmax of the forward); K2's launches over
+    both (11 per forward, none in the recurrent steps), then K2 against
+    its plain version on the first Mamba layer's operands of this prompt,
+    timed beside its bound."""
+    from gfe_mamba_torch.models.jamba import JambaConfig, JambaLM, generate
+    from gfe_mamba_torch.ops.cuda import selective_scan as k2
+    from gfe_mamba_torch.utils.torch_import import import_jamba_hf
+
+    cfg = JambaConfig(**HF_JAMBA)
+    source = materialized(lambda: JambaLM(cfg), seed=163)
+    state = hf_state_dict(source)
+    cpu = import_jamba_hf(state, JambaLM(cfg)).eval()
+    for key, value in source.state_dict().items():
+        if not torch.equal(cpu.state_dict()[key], value):
+            raise AssertionError(f"phase 16(c): {key} did not come back")
+    del source
+    t = time.perf_counter()
+    lm = import_jamba_hf(state, JambaLM(cfg).cuda()).eval()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    prompt = torch.randint(0, cfg.vocab_size, HF_PROMPT,
+                           generator=torch.Generator().manual_seed(164))
+    with torch.inference_mode():
+        want = cpu(prompt)[0]
+    k2.launches = 0
+    with torch.inference_mode():
+        got = lm(prompt.cuda())[0]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tokens = generate(lm, prompt.cuda(), HF_NEW_TOKENS,
+                      torch.Generator(device="cuda").manual_seed(165),
+                      top_k=1)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t) * 1e3
+    launches = k2.launches
+    err = check_close(f"(c) JambaLM from HF keys, logits {tuple(got.shape)}",
+                      got, want, 1e-4)
+    scans = sum(not cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    if launches != scans:
+        raise AssertionError(f"phase 16(c): {launches} K2 launches, expected "
+                             f"{scans} (one per Mamba layer of the forward)")
+    with torch.inference_mode():
+        greedy = lm(tokens)[0][:, HF_PROMPT[1] - 1:-1].argmax(-1)
+        forward_ms = time_ms(lambda: lm(prompt.cuda()))
+    if not torch.equal(greedy, tokens[:, HF_PROMPT[1]:]):
+        raise AssertionError("phase 16(c): generate(top_k=1) is not greedy")
+    # K2 at this path's shapes: layer 0's operands
+    layer = lm.jamba.layers[0]
+    with torch.inference_mode():
+        args = layer.mamba.scan_operands(
+            layer.input_layernorm(lm.embedding(prompt.cuda())))
+        y = k2.selective_scan_cuda(*args, delta_softplus=True)
+        ref = k2.selective_scan_plain(*args, delta_softplus=True)
+        torch.cuda.synchronize()
+        k2_err = rel_err(y, ref)
+        ms = time_ms(lambda: k2.selective_scan_cuda(*args,
+                                                    delta_softplus=True),
+                     reps=50)
+        plain = time_ms(lambda: k2.selective_scan_plain(
+            *args, delta_softplus=True))
+    bound, bound_by = scan_bound_ms(args, y)
+    shape = tuple(args[0].shape) + (args[2].shape[1],)
+    log(f"phase 16(c) K2 on the HF-imported model's layer 0 {shape} f32: "
+        f"max_abs_err={k2_err[0]:.3e} rel={k2_err[1]:.3e} (tol 1e-5); "
+        f"{ms:.4f} ms per call through the wrapper, plain {plain:.4f} ms, "
+        f"bound {bound:.5f} ms ({bound_by})")
+    if not k2_err[1] <= 1e-5:
+        raise AssertionError("phase 16(c): K2 disagrees with its plain "
+                             "version")
+    log(f"phase 16(c): checkpoint loaded onto the card in {load_s:.2f} s; "
+        f"forward {forward_ms:.2f} ms at {HF_PROMPT}; generate "
+        f"{HF_NEW_TOKENS} tokens {gen_ms:.1f} ms (host clock); K2 launches "
+        f"{launches} [{card}]")
+    del lm, cpu
+    torch.cuda.empty_cache()
+    return dict(launches=launches, logits_max_abs_err=err[0],
+                logits_rel_err=err[1], forward_ms=forward_ms,
+                generate_ms=gen_ms,
+                k2=dict(per=f"one call at {shape} f32 (batch, L, ED, N), "
+                            f"through the wrapper",
+                        max_abs_err=k2_err[0], rel_err=k2_err[1], ms=ms,
+                        plain_ms=plain, bound_ms=bound, bound_by=bound_by))
+
+
+def p16_dsb(card: str, root: str) -> dict:
+    """Phase 16(d): 8 RGBA PNGs of 256x256 and their masks through
+    ``DSB2018Dataset``, ``UNet2D`` at the JAX package's defaults (f_maps
+    64, gcr, 4 levels, sigmoid) on the card, ``dsb_predict``'s files read
+    back by ``data/h5.py``: predictions against the CPU's within 1e-4, each
+    file's segmentation that of its own predictions."""
+    import numpy as np
+
+    from gfe_mamba_torch.data import h5
+    from gfe_mamba_torch.data.png import write_png
+    from gfe_mamba_torch.segmentation.dsb import DSB2018Dataset
+    from gfe_mamba_torch.segmentation.predictor import (dsb_predict,
+                                                        pmaps_to_segmentation)
+
+    rng = np.random.default_rng(166)
+    for sub in ("images", "masks"):
+        os.makedirs(os.path.join(root, sub))
+    yy, xx = np.mgrid[:DSB_SIZE[0], :DSB_SIZE[1]]
+    for i in range(DSB_IMAGES):
+        blobs = np.zeros(DSB_SIZE, bool)
+        for cy, cx, r in zip(*(rng.integers(0, n, 12) for n in DSB_SIZE),
+                             rng.integers(6, 20, 12)):
+            blobs |= (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+        rgba = rng.integers(0, 60, DSB_SIZE + (4,))
+        rgba[blobs, :3] += 150
+        rgba[..., 3] = 255
+        write_png(os.path.join(root, "images", f"{i:02d}.png"), rgba)
+        write_png(os.path.join(root, "masks", f"{i:02d}.png"),
+                  blobs.astype(np.uint8) * 255)
+    data = DSB2018Dataset(root, "train")
+    items = [data[i] for i in range(len(data))]
+    batch = np.stack([item["raw"] for item in items])
+    if batch.shape != (DSB_IMAGES, *DSB_SIZE, 1) or not all(
+            "label" in item for item in items):
+        raise AssertionError(f"phase 16(d): dataset gave {batch.shape}")
+    model = seg_model(dict(name="UNet2D", in_channels=1, out_channels=1),
+                      seed=167)
+    with torch.inference_mode():
+        want = model(torch.from_numpy(batch)).numpy()
+    model.cuda()
+
+    def predict(images):
+        with torch.inference_mode():
+            return model(torch.from_numpy(images).cuda()).cpu().numpy()
+
+    out_dir = os.path.join(root, "predictions")
+    os.makedirs(out_dir)
+    t = time.perf_counter()
+    files = dsb_predict(predict, [(batch, [os.path.join(
+        root, "images", item["name"]) for item in items])], out_dir)
+    predict_s = time.perf_counter() - t
+    preds = np.stack([h5.read(f, "predictions") for f in files])
+    err = check_close("(d) UNet2D over DSB2018 PNGs, dsb_predict's files",
+                      torch.from_numpy(preds), torch.from_numpy(want[..., 0]),
+                      1e-4)
+    flips = 0
+    for f, pred, cpu_pred in zip(files, preds, want[..., 0]):
+        seg = h5.read(f, "segmentation")
+        if seg.dtype != np.uint16 or not np.array_equal(
+                seg, pmaps_to_segmentation(pred)):
+            raise AssertionError(f"phase 16(d): {f}: segmentation is not "
+                                 f"that of its predictions")
+        flips += int(((pred > 0.5) != (cpu_pred > 0.5)).sum())
+    ms, peak = forward_ms_and_peak(
+        model, torch.from_numpy(batch).cuda())
+    log(f"phase 16(d): {len(files)} files in {predict_s:.2f} s (host clock, "
+        f"forward and writes); UNet2D forward at {batch.shape} {ms:.2f} ms, "
+        f"peak {peak:.2f} GiB; {flips} pixels thresholded otherwise than on "
+        f"the CPU [{card}]")
+    del model
+    torch.cuda.empty_cache()
+    return dict(ms=ms, peak_gib=peak, max_abs_err=err[0], rel_err=err[1])
+
+
+def p16_volumetric(card: str) -> dict:
+    """Phase 16(e): on a 256x256x170 volume made from a seed (an ellipsoid
+    of tissue in noise with negatives), ``adaptive_normal``,
+    ``foreground_bbox_jax`` and ``crop_resize`` to 160x160x96 (the box
+    and the crop under CUDA's sync debug mode set to raise: no host sync)
+    and a downsampling ``resize_volume``, each card against CPU, each
+    timed."""
+    from gfe_mamba_torch.ops import volumetric as vol
+
+    g = torch.Generator().manual_seed(168)
+    grid = torch.meshgrid(*(torch.linspace(-1.0, 1.0, n)
+                            for n in VOLUMETRIC_SHAPE), indexing="ij")
+    head = (grid[0] / 0.7) ** 2 + (grid[1] / 0.8) ** 2 \
+        + (grid[2] / 0.6) ** 2 < 1.0
+    img = torch.where(head, 400.0 + 400.0 * torch.rand(
+        VOLUMETRIC_SHAPE, generator=g), 0.0) \
+        + 5.0 * torch.randn(VOLUMETRIC_SHAPE, generator=g)
+
+    def pipeline(x):
+        norm = vol.adaptive_normal(x)
+        start, stop = vol.foreground_bbox_jax(x, 100.0)
+        return (norm, start, stop,
+                vol.crop_resize(norm, start, stop, IMG),
+                vol.resize_volume(norm, IMG))
+
+    want = pipeline(img)
+    x = img.cuda()
+    got = pipeline(x)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start, stop = vol.foreground_bbox_jax(x, 100.0)
+        vol.crop_resize(got[0], start, stop, IMG)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for name, a, b in (("start", got[1], want[1]), ("stop", got[2], want[2])):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"phase 16(e): box {name} {a.tolist()} != "
+                                 f"{b.tolist()}")
+    errors = {name: check_close(f"(e) {name} {tuple(a.shape)}", a, b, 1e-5)
+              for name, a, b in (("adaptive_normal", got[0], want[0]),
+                                 ("crop_resize", got[3], want[3]),
+                                 ("resize_volume", got[4], want[4]))}
+    times = {"adaptive_normal": time_ms(lambda: vol.adaptive_normal(x)),
+             "foreground_bbox_jax": time_ms(
+                 lambda: vol.foreground_bbox_jax(x, 100.0)),
+             "crop_resize": time_ms(lambda: vol.crop_resize(
+                 got[0], got[1], got[2], IMG)),
+             "resize_volume": time_ms(lambda: vol.resize_volume(got[0], IMG)),
+             "pipeline": time_ms(lambda: pipeline(x))}
+    log(f"phase 16(e): box {got[1].tolist()}..{got[2].tolist()}; ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" [{card}]")
+    return dict(times=times, errors=errors)
+
+
+def p16_combiners(card: str) -> dict:
+    """Phase 16(f): the legacy combiners at the canonical generator's skip
+    shapes (batch 1) and ``PatchDiscriminator(dims=2)`` (3 layers, 32
+    channels) on 256x256 at batch 4, card against CPU within 1e-4, each
+    forward timed on the card."""
+    from gfe_mamba_torch.models import combiners as comb
+    from gfe_mamba_torch.models.discriminator import PatchDiscriminator
+
+    g = torch.Generator().manual_seed(169)
+    enc = [torch.randn(1, *s, c, generator=g) for s, c in SKIP_SHAPES]
+    dec = [torch.randn(1, *s, c, generator=g) for s, c in SKIP_SHAPES]
+    # the fused head's external token, as wide as the pyramid descriptor
+    width = comb.CombineClassifierFused(spatial=IMG).fully_con.in_features
+    ft = torch.randn(1, 1, width // 2, generator=g)
+    cases = (("CombineClassifier",
+              lambda: comb.CombineClassifier(spatial=IMG), ()),
+             ("CombineClassifierFused",
+              lambda: comb.CombineClassifierFused(spatial=IMG), (ft,)),
+             ("CombineClassifier2", comb.CombineClassifier2, ()),
+             ("CombineClassifier3", comb.CombineClassifier3, ()),
+             ("CombineClassifierCross", comb.CombineClassifierCross, ()),
+             ("CombineClassifierEmb", comb.CombineClassifierEmb, ()))
+    enc_c, dec_c = [t.cuda() for t in enc], [t.cuda() for t in dec]
+    out = {}
+    for i, (name, make, extra) in enumerate(cases):
+        model = materialized(make, seed=170 + i).eval()
+        with torch.inference_mode():
+            want = model(enc, dec, *extra)
+        model.cuda()
+        extra_c = [t.cuda() for t in extra]
+        with torch.inference_mode():
+            got = model(enc_c, dec_c, *extra_c)
+            ms = time_ms(lambda: model(enc_c, dec_c, *extra_c))
+        out[name] = dict(ms=ms, err=check_close(
+            f"(f) {name} {tuple(got.shape)}", got, want, 1e-4))
+        del model
+    disc = PatchDiscriminator(3, 32, dims=2)
+    disc.reset_parameters(torch.Generator().manual_seed(176))
+    x = torch.randn(*DISC2D_SHAPE, generator=g)
+    with torch.inference_mode():
+        want = disc(x)
+        disc.cuda()
+        got = disc(x.cuda())
+        ms = time_ms(lambda: disc(x.cuda()))
+    for i, (a, b) in enumerate(zip(got, want)):
+        check_close(f"(f) PatchDiscriminator(dims=2) feature {i} "
+                    f"{tuple(a.shape)}", a, b, 1e-4)
+    out["PatchDiscriminator2D"] = dict(ms=ms)
+    log("phase 16(f): forward ms " + ", ".join(
+        f"{k} {v['ms']:.2f}" for k, v in out.items()) + f" [{card}]")
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_other_modules(card: str) -> dict:
+    """Phase 16: what the JAX package holds outside the main paths, on the
+    card in f32 with TF32 off."""
+    t0 = time.perf_counter()
+    out = {}
+    with tf32_settings(False, False), \
+            tempfile.TemporaryDirectory(prefix="gfe_dsb_") as root:
+        for part, name, run in (
+                ("(a), (b)", "baselines", p16_baselines),
+                ("(c)", "hf_jamba", p16_hf_jamba),
+                ("(d)", "dsb", lambda c: p16_dsb(c, root)),
+                ("(e)", "volumetric", p16_volumetric),
+                ("(f)", "combiners", p16_combiners)):
+            torch.cuda.reset_peak_memory_stats()
+            out[name] = run(card)
+            log(f"phase 16{part}: peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s of wall [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -2969,6 +3408,7 @@ def main() -> int:
         other = drive_other_mixers(card, root, phase12)
         dp = drive_parallel(card, root, phase12)
     seg = drive_segmentation(card)
+    other_modules = drive_other_modules(card)
     kernels[0]["seg_launches"] = seg["launches"]["K1"]
     kernels[0]["seg"] = dict(per="UNet3D forward, 64x128x128, batch 1, f32",
                              version=K1_F32_VERSION,
@@ -2992,6 +3432,8 @@ def main() -> int:
                      bound_ms=seg["times"]["step"]["dw_bound_ms"],
                      max_abs_err=errors["K3"][0], rel_err=errors["K3"][1])
     kernels[1]["jamba_launches"] = other["k2"]
+    kernels[1]["hf_jamba_launches"] = other_modules["hf_jamba"]["launches"]
+    kernels[1]["hf_jamba"] = other_modules["hf_jamba"]["k2"]
     k4["jamba_launches"] = other["k4"]
     for k, name in zip(kernels[:2] + [k4, k3], ("K1", "K2", "K4", "K3")):
         k["dp_launches"] = dp[name]

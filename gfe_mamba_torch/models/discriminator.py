@@ -1,5 +1,6 @@
-"""3D PatchGAN discriminator of the Stage-1 GAN (counterpart of
-``gfe_mamba_tpu/models/discriminator.py``), channels-last at its boundary.
+"""PatchGAN discriminator of the Stage-1 GAN (counterpart of
+``gfe_mamba_tpu/models/discriminator.py``), 3D or, with ``dims=2``, 2D,
+channels-last at its boundary.
 
   conv(k4, s2) + LeakyReLU(0.2)                          [no norm]
   x (num_layers_d - 1): conv(k4, s2) + InstanceNorm + LeakyReLU(0.2)
@@ -26,28 +27,34 @@ NORM_EPS = 1e-6   # flax nn.GroupNorm default
 
 
 class InstanceNorm(nn.Module):
-    """Per-(sample, channel) normalisation of a channels-first volume
-    with a per-channel affine (``weight``, ``bias``)."""
+    """Per-(sample, channel) normalisation of a channels-first map (or,
+    with ``channels_last``, a channels-last one) with a per-channel affine
+    (``weight``, ``bias``)."""
 
-    def __init__(self, channels: int, eps: float = NORM_EPS):
+    def __init__(self, channels: int, eps: float = NORM_EPS,
+                 channels_last: bool = False):
         super().__init__()
-        self.eps = eps
+        self.eps, self.channels_last = eps, channels_last
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dims = tuple(range(2, x.dim()))
+        if self.channels_last:
+            dims = tuple(range(1, x.dim() - 1))
+            shape = (1,) * (x.dim() - 1) + (-1,)
+        else:
+            dims = tuple(range(2, x.dim()))
+            shape = (1, -1) + (1,) * len(dims)
         mean = x.mean(dims, keepdim=True)
         var = torch.clamp((x * x).mean(dims, keepdim=True) - mean * mean,
                           min=0.0)
-        shape = (1, -1) + (1,) * len(dims)
         return (x - mean) * torch.rsqrt(var + self.eps) \
             * self.weight.reshape(shape) + self.bias.reshape(shape)
 
 
 def _pad(x: torch.Tensor, kernel: int) -> torch.Tensor:
     """(1, max(1, kernel - n - 1)) per spatial dim of a channels-first
-    volume."""
+    map."""
     pads = []
     for n in reversed(x.shape[2:]):
         pads += [1, max(1, kernel - n - 1)]
@@ -57,39 +64,42 @@ def _pad(x: torch.Tensor, kernel: int) -> torch.Tensor:
 class PatchDiscriminator(nn.Module):
     def __init__(self, num_layers_d: int = 3, num_channels: int = 32,
                  in_channels: int = 1, out_channels: int = 1,
-                 kernel_size: int = 4):
+                 kernel_size: int = 4, dims: int = 3):
         super().__init__()
+        if dims not in (2, 3):
+            raise ValueError(f"dims must be 2 or 3, got {dims}")
         self.num_layers_d = num_layers_d
         self.kernel_size = kernel_size
+        conv = nn.Conv3d if dims == 3 else nn.Conv2d
         k = kernel_size
         ch = num_channels
-        self.conv_0 = nn.Conv3d(in_channels, ch, k, stride=2)
+        self.conv_0 = conv(in_channels, ch, k, stride=2)
         for i in range(1, num_layers_d):
-            self.add_module(f"conv_{i}", nn.Conv3d(ch, 2 * ch, k, stride=2,
-                                                   bias=False))
+            self.add_module(f"conv_{i}", conv(ch, 2 * ch, k, stride=2,
+                                              bias=False))
             ch *= 2
             self.add_module(f"norm_{i}", InstanceNorm(ch))
-        self.conv_pre = nn.Conv3d(ch, 2 * ch, k, bias=False)
+        self.conv_pre = conv(ch, 2 * ch, k, bias=False)
         ch *= 2
         self.norm_pre = InstanceNorm(ch)
-        self.conv_out = nn.Conv3d(ch, out_channels, k)
+        self.conv_out = conv(ch, out_channels, k)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """MONAI's DCGAN init, drawn from ``generator``: convs N(0, 0.02),
         norm scales N(1, 0.02), biases 0."""
         for mod in self.modules():
-            if isinstance(mod, nn.Conv3d):
+            if isinstance(mod, (nn.Conv2d, nn.Conv3d)):
                 nn.init.normal_(mod.weight, 0.0, 0.02, generator=generator)
             elif isinstance(mod, InstanceNorm):
                 nn.init.normal_(mod.weight, 1.0, 0.02, generator=generator)
-            if isinstance(mod, (nn.Conv3d, InstanceNorm)) \
+            if isinstance(mod, (nn.Conv2d, nn.Conv3d, InstanceNorm)) \
                     and mod.bias is not None:
                 mod.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         k = self.kernel_size
-        x = x.permute(0, 4, 1, 2, 3)
+        x = x.movedim(-1, 1)
         features = []
         x = F.leaky_relu(self.conv_0(_pad(x, k)), 0.2)
         features.append(x)
@@ -100,4 +110,4 @@ class PatchDiscriminator(nn.Module):
         x = F.leaky_relu(self.norm_pre(self.conv_pre(_pad(x, k))), 0.2)
         features.append(x)
         features.append(self.conv_out(_pad(x, k)))
-        return [f.permute(0, 2, 3, 4, 1) for f in features]
+        return [f.movedim(1, -1) for f in features]

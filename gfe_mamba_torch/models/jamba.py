@@ -329,6 +329,49 @@ class JambaLM(nn.Module):
         x, caches = self.jamba.step(self.embedding(token)[:, None], caches)
         return self._logits(self.final_layernorm(x))[:, 0], caches
 
+    @classmethod
+    def from_pretrained(cls, path: str, device=None) -> "JambaLM":
+        """An HF Jamba checkpoint saved at the local directory ``path``
+        (``save_pretrained``'s; ai21labs/Jamba-v0.1's structure) as a
+        ``JambaLM`` in eval mode on ``device`` (the card unless 'cpu'):
+        the config from the checkpoint's ``config.json``, the weights by
+        ``utils/torch_import.py::import_jamba_hf``.  Needs
+        ``transformers``, imported here; hub names are refused."""
+        import os
+
+        from transformers import AutoModelForCausalLM
+
+        from gfe_mamba_torch import resolve_device
+        from gfe_mamba_torch.utils.torch_import import import_jamba_hf
+
+        if not os.path.isdir(path):
+            raise ValueError(f"from_pretrained takes a local checkpoint "
+                             f"directory, got {path!r}")
+        device = resolve_device(device)
+        hf = AutoModelForCausalLM.from_pretrained(
+            path, local_files_only=True, use_mamba_kernels=False)
+        c = hf.config
+        config = JambaConfig(
+            vocab_size=c.vocab_size, d_model=c.hidden_size,
+            n_layers=c.num_hidden_layers, rms_norm_eps=c.rms_norm_eps,
+            mlp_size=c.intermediate_size, inner_layernorms=True,
+            expand_factor=c.mamba_expand, dt_rank=c.mamba_dt_rank,
+            d_state=c.mamba_d_state, d_conv=c.mamba_d_conv,
+            conv_bias=c.mamba_conv_bias, bias=c.mamba_proj_bias,
+            initializer_range=c.initializer_range,
+            num_experts=c.num_experts,
+            num_experts_per_tok=c.num_experts_per_tok,
+            attn_layer_offset=c.attn_layer_offset,
+            attn_layer_period=c.attn_layer_period,
+            expert_layer_offset=c.expert_layer_offset,
+            expert_layer_period=c.expert_layer_period,
+            num_key_value_heads=c.num_key_value_heads,
+            num_attention_heads=c.num_attention_heads,
+            attention_dropout=c.attention_dropout,
+            tie_lm_weights=c.tie_word_embeddings)
+        model = import_jamba_hf(hf.state_dict(), cls(config))
+        return model.to(device).eval()
+
 
 @torch.no_grad()
 def generate(model: JambaLM, prompt: torch.Tensor, num_tokens: int,

@@ -89,11 +89,14 @@ class ConvWeights(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """Parameters of a GroupNorm (eps 1e-5, 1 group when C < num_groups);
-    ``affine`` folds it into per-(batch, channel) scale and shift."""
+    """Parameters of a GroupNorm (eps 1e-5 unless given, 1 group when
+    C < num_groups); ``affine`` folds it into per-(batch, channel) scale
+    and shift."""
 
-    def __init__(self, num_channels: int, num_groups: int):
+    def __init__(self, num_channels: int, num_groups: int,
+                 eps: float = 1e-5):
         super().__init__()
+        self.eps = eps
         self.groups = num_groups if num_channels >= num_groups else 1
         if num_channels % self.groups:
             raise ValueError(
@@ -103,7 +106,7 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(num_channels))
 
     def affine(self, x: torch.Tensor):
-        mu, rstd = group_norm_stats(x, self.groups, eps=1e-5)
+        mu, rstd = group_norm_stats(x, self.groups, eps=self.eps)
         scale = rstd * self.weight.float()
         return scale, self.bias.float() - mu * scale
 
@@ -136,7 +139,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            xf = x.float()
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xf.mean(axes)
             var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
             with torch.no_grad():

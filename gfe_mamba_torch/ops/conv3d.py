@@ -26,7 +26,8 @@ from gfe_mamba_torch.ops.cuda.conv3d import (apply_act, conv3x3x3_cuda,
 
 __all__ = ["Conv3x3x3Fn", "apply_act", "conv3x3x3", "conv_nd",
            "deconv3x3x3_s2", "deconv_nd", "group_norm_stats",
-           "interpolate_to", "pool_nd", "resize_nearest"]
+           "interpolate_to", "on_channels_first", "pool_nd",
+           "resize_nearest"]
 
 
 class _SumOfSquares(torch.autograd.Function):
@@ -97,6 +98,12 @@ def resize_nearest(x: torch.Tensor, spatial) -> torch.Tensor:
 
 def _channels_first(x: torch.Tensor) -> torch.Tensor:
     return x.movedim(-1, 1)
+
+
+def on_channels_first(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of a channels-first tensor (a torch conv or pool) applied
+    to channels-last ``x``; the result channels-last again."""
+    return fn(x.movedim(-1, 1)).movedim(1, -1)
 
 
 def _channels_last(y: torch.Tensor) -> torch.Tensor:

@@ -11,12 +11,16 @@ output (the JAX package keeps them in the output HDF5 file, which needs
 h5py's in-place chunk updates), normalize in 1/27-volume chunks, and
 stream into the gzip-chunked output dataset through ``data/h5.py``.
 The predictions file holds what JAX's holds.
+
+``dsb_predict`` runs a 2D model over DSB2018 images and writes each
+one's predictions and instance segmentation (reference
+predictor.py:233-290).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable
+from typing import Callable, Iterable
 
 import numpy as np
 
@@ -138,3 +142,44 @@ def pmaps_to_segmentation(pred: np.ndarray, threshold: float = 0.5
     structure = np.ones((3,) * mask.ndim, dtype=bool)
     lab, _ = label(mask, structure=structure)
     return lab.astype("uint16")
+
+
+def dsb_predict(predict_fn: Callable[[np.ndarray], np.ndarray],
+                items: Iterable, output_dir: str | None = None, *,
+                save_segmentation: bool = True,
+                threshold: float = 0.5) -> list[str]:
+    """DSB2018Predictor (reference predictor.py:233-290): run
+    ``predict_fn`` on each image and write its ``predictions`` (squeezed)
+    and, unless ``save_segmentation`` is off, their
+    :func:`pmaps_to_segmentation` as ``segmentation`` to
+    ``<stem>_predictions.h5`` beside the source path (or in
+    ``output_dir``), gzip through ``data/h5.py``.
+
+    ``items``: pairs ``(image, source path)``, the image ``(X, Y[, C])``,
+    or a batch ``(B, X, Y[, C])`` paired with a list of one path per
+    image.  Returns the files written."""
+    written = []
+    for img, path in items:
+        img = np.asarray(img)
+        paths = [path] if isinstance(path, (str, os.PathLike)) \
+            else list(path)
+        batch = img if len(paths) > 1 or img.ndim == 4 else img[None]
+        preds = np.asarray(predict_fn(batch))
+        if len(preds) != len(paths):
+            raise ValueError(
+                f"dsb_predict: {len(preds)} predictions for {len(paths)} "
+                f"output path(s) -- a batched image must be paired with a "
+                f"list of one path per batch item")
+        for pred, source in zip(preds, paths):
+            pred = np.squeeze(pred)
+            out_file = os.path.splitext(source)[0] + "_predictions.h5"
+            if output_dir is not None:
+                out_file = os.path.join(output_dir,
+                                        os.path.basename(out_file))
+            datasets = {"predictions": pred}
+            if save_segmentation:
+                datasets["segmentation"] = pmaps_to_segmentation(pred,
+                                                                 threshold)
+            h5.write(out_file, datasets)
+            written.append(out_file)
+    return written

@@ -56,6 +56,10 @@ _RENAMES = [
     (r"(^|/)final_feed/Dense_1/", r"\1final_feed/4/"),
     (r"(^|/)dt_proj_kernel$", r"\1dt_proj/kernel"),
     (r"(^|/)dt_proj_bias$", r"\1dt_proj/bias"),
+    # ResNet3D: the reference's stage lists and downsample Sequentials
+    (r"(^|/)layer(\d+)_(\d+)/", r"\1layer\2/\3/"),
+    (r"(^|/)downsample/", r"\1downsample/0/"),
+    (r"(^|/)downsample_bn/", r"\1downsample/1/"),
     # leaves
     (r"/(kernel|scale|embedding)$", "/weight"),
     (r"^(kernel|scale|embedding)$", "weight"),
@@ -102,7 +106,12 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     ``PatchDiscriminator`` (``conv_i``, ``norm_i``, ``conv_pre``,
     ``norm_pre``, ``conv_out``) and the perceptual loss's
     ``SqueezeFeatures`` (``conv1``, ``fire1..8``), and on the segmentation
-    UNets', whose flax names the port keeps too; flax variables
+    UNets', whose flax names the port keeps too, and on the baselines
+    and leftovers of ``models/``: ``ResNet3D`` (the flax ``layer<s>_<b>``,
+    ``downsample`` and ``downsample_bn`` become the reference's
+    ``layer<s>.<b>``, ``downsample.0`` and ``downsample.1``),
+    ``MVCSNet``, the legacy combiners and the 2D ``PatchDiscriminator``
+    (flax names kept); flax variables
     ``{"params": ..., "batch_stats": ...}`` give the BatchNorms' running
     statistics as well.  ``group_norm_act``
     (``ops/group_norm.py``) needs nothing here: its scale and bias are
@@ -165,6 +174,9 @@ _INVERSE_RENAMES = [
     (r"(^|/)final_feed/4/", r"\1final_feed/Dense_1/"),
     (r"(^|/)dt_proj/weight$", r"\1dt_proj_kernel"),
     (r"(^|/)dt_proj/bias$", r"\1dt_proj_bias"),
+    (r"(^|/)layer(\d+)/(\d+)/", r"\1layer\2_\3/"),
+    (r"(^|/)downsample/0/", r"\1downsample/"),
+    (r"(^|/)downsample/1/", r"\1downsample_bn/"),
 ]
 
 

@@ -8,8 +8,8 @@ config snapshots (copy_yaml_to_folder_auto, common.py:99-124),
 (see_mri_pet, common.py:42-53) used for validation visualization
 (main_gan_vit.py:113-116).  TensorBoard scalars go through
 tensorboardX when available (the reference logs via Accelerate
-trackers, main_gan_vit.py:52-53,102).  The PNG is written with ``zlib``
-and ``struct``: an 8-bit greyscale image, one filter byte of 0 per row.
+trackers, main_gan_vit.py:52-53,102).  The PNG is written by
+``data/png.py``: an 8-bit greyscale image.
 """
 
 from __future__ import annotations
@@ -17,14 +17,14 @@ from __future__ import annotations
 import math
 import os
 import shutil
-import struct
 import sys
 import time
-import zlib
 from datetime import datetime
 from os.path import basename, join, splitext
 
 import numpy as np
+
+from gfe_mamba_torch.data.png import write_png
 
 
 def count_parameters(module) -> int:
@@ -124,23 +124,6 @@ def volume_grid(volume: np.ndarray, normalize: bool = True) -> np.ndarray:
     return np.clip(grid, 0.0, 1.0)
 
 
-def _png_chunk(kind: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + kind + data
-            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-
-def write_png_gray(path: str, image: np.ndarray) -> None:
-    """An (H, W) uint8 array as an 8-bit greyscale PNG."""
-    image = np.ascontiguousarray(image, np.uint8)
-    h, w = image.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), image], axis=1)
-    header = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
-                + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-                + _png_chunk(b"IEND", b""))
-
-
 def save_volume_grid(volume, path: str, normalize: bool = True) -> None:
     grid = (volume_grid(volume, normalize) * 255).astype(np.uint8)
-    write_png_gray(path, grid)
+    write_png(path, grid)
