@@ -137,16 +137,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    from the best checkpoint; every step K1 13 forward + 13 dz and K3 13
    (f32);
 16. the modules outside the main paths, f32 with TF32 off, each part's
-   times, errors and peak memory logged: (a) ResNet3D-101 (Kinetics
-   widths, one input channel, one logit) and (b) MVCSNet at its defaults,
-   eval, card against CPU within 1e-4 at batch 1 on 64x64x48, each
-   forward timed at batch 4 on 160x160x96; (c) a ``JambaLM`` at phase
-   13's widths and layer pattern with a 65,536-token vocabulary, its
-   weights drawn from a seed and handed over under HF Jamba's names to
-   ``import_jamba_hf`` on the card and the CPU: logits of a 64-token
-   prompt at batch 2 within 1e-4, ``generate`` of 16 tokens (top_k 1 is
-   the greedy argmax), K2 11 times per forward, and K2 against its plain
-   version on that model's first Mamba layer (1e-5); (d) 8 RGBA PNGs of
+   times, errors and peak memory logged; every card-against-CPU error is
+   relative to the CPU result's own largest magnitude, which is logged:
+   (a) ResNet3D-101 (Kinetics widths, one input channel, one logit) and
+   (b) MVCSNet at its defaults, eval, their pooled features (2048 and
+   512) card against CPU within 1e-4 at batch 1 on 64x64x48, each
+   forward timed at batch 4 on 160x160x96; (c) Jamba-v0.1 at its
+   published widths cut to one period of its layers (8: attention at
+   4, 16 experts top-2 on the odd ones; 13.3e9 parameters, 53 GB in
+   f32), its weights drawn on the card from a seed and handed over
+   from the host under HF Jamba's names to ``import_jamba_hf`` on the
+   card: every tensor back bitwise, logits of a 64-token prompt at batch
+   2 within 1e-4 of the same weights' CPU forward, ``generate`` of 16
+   tokens (top_k 1 is the greedy argmax), K2 7 times per forward, and K2
+   against its plain version on the first Mamba layer's operands, (2,
+   64, 8192, 16) (1e-5); (d) 8 RGBA PNGs of
    256x256 and their masks through ``DSB2018Dataset`` into ``UNet2D`` at
    the JAX defaults on the card, ``dsb_predict``'s files read back by
    ``data/h5.py`` within 1e-4 of the CPU's predictions; (e)
@@ -2945,13 +2950,17 @@ def drive_parallel(card: str, root: str, phase12: dict) -> dict:
 # forward at batch 4 on the canonical one
 P16_BATCH = 4
 P16_PARITY_VOLUME = (64, 64, 48)
-# (c): phase 13's Jamba-head widths and layer pattern (layer 4 attention,
-# the odd layers 16 experts top-2, so 11 Mamba layers) with Jamba-v0.1's
-# vocabulary and untied head
-HF_JAMBA = dict(d_model=CANONICAL["dim"], n_layers=2 * CANONICAL["depth"],
-                mlp_size=2 * CANONICAL["dim"],
-                num_attention_heads=CANONICAL["heads"], vocab_size=65536,
-                tie_lm_weights=False)
+# (c): Jamba-v0.1's published config (ai21labs/Jamba-v0.1 config.json:
+# hidden 4096, intermediate 14336, 32 query and 8 key-value heads, 16
+# experts top-2, d_state 16, d_conv 4, expand 2, dt_rank 256, vocabulary
+# 65536, RMSNorm eps 1e-6, untied head), cut in depth from 32 layers to
+# one period of its pattern: 8, attention at layer 4, experts on the odd
+# layers, 7 Mamba layers
+HF_JAMBA = dict(d_model=4096, n_layers=8, mlp_size=14336,
+                num_attention_heads=32, num_key_value_heads=8,
+                num_experts=16, num_experts_per_tok=2, d_state=16, d_conv=4,
+                expand_factor=2, dt_rank=256, vocab_size=65536,
+                rms_norm_eps=1e-6, tie_lm_weights=False)
 HF_PROMPT = (2, 64)
 HF_NEW_TOKENS = 16
 # the port's JambaLM names -> HF's, applied in order (experts unstacked
@@ -2985,9 +2994,13 @@ def forward_ms_and_peak(model, x, reps: int = 3) -> tuple[float, float]:
 
 
 def check_close(tag: str, got, want, tol: float) -> tuple[float, float]:
-    err, rel = rel_err(got, want)
-    log(f"phase 16{tag}: card vs CPU max_abs_err={err:.3e} rel={rel:.3e} "
-        f"(tol {tol:g})")
+    """max |got - want| and that over max |want| (no floor), which must
+    be within ``tol``; both logged with max |want|."""
+    err, _ = rel_err(got, want)
+    scale = want.detach().abs().max().item()
+    rel = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+    log(f"phase 16{tag}: card vs CPU max_abs_err={err:.3e} max|CPU|="
+        f"{scale:.3e} rel={rel:.3e} (tol {tol:g})")
     if not rel <= tol:
         raise AssertionError(f"phase 16{tag}: card and CPU differ: rel "
                              f"{rel}")
@@ -2998,9 +3011,11 @@ def p16_baselines(card: str) -> dict:
     """Phase 16(a) and (b): ResNet3D-101 (Kinetics widths, conv1_t_size 7,
     max pool; a T1 volume in, one logit out) and MVCSNet at its defaults
     (base 64, heads 16/8/4/2, one class), eval, weights from a seed: the
-    card against the CPU at batch 1 on a reduced volume, then the forward
-    timed at batch 4 on the canonical volume with its FLOPs (counted by
-    ``torch.utils.flop_counter`` on the meta device) and peak memory."""
+    pooled features the head reads (2048 and 512 wide), card against CPU
+    at batch 1 on a reduced volume (the logit, one number, only logged
+    beside them), then the forward timed at batch 4 on the canonical
+    volume with its FLOPs (counted by ``torch.utils.flop_counter`` on the
+    meta device) and peak memory."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from gfe_mamba_torch.models.mvcs import MVCSNet
@@ -3016,12 +3031,15 @@ def p16_baselines(card: str) -> dict:
         x = torch.randn(1, *P16_PARITY_VOLUME, 1,
                         generator=torch.Generator().manual_seed(seed))
         with torch.inference_mode():
-            want = model(x)
+            want = model.features(x), model(x)
         model.cuda()
         with torch.inference_mode():
-            got = model(x.cuda())
-        err = check_close(f"{tag} {name} (1, {P16_PARITY_VOLUME})", got,
-                          want, 1e-4)
+            got = model.features(x.cuda()), model(x.cuda())
+        err = check_close(f"{tag} {name} pooled features "
+                          f"{tuple(got[0].shape)} at (1, "
+                          f"{P16_PARITY_VOLUME})", got[0], want[0], 1e-4)
+        log(f"phase 16{tag} {name}: logit card {got[1].item():.6e} CPU "
+            f"{want[1].item():.6e}")
         xb = torch.randn(P16_BATCH, *IMG, 1, device="cuda",
                          generator=torch.Generator(device="cuda")
                          .manual_seed(seed))
@@ -3049,16 +3067,58 @@ def p16_baselines(card: str) -> dict:
     return out
 
 
-def hf_state_dict(model) -> dict:
-    """A ``JambaLM``'s weights under HF Jamba's names, the stacked experts
-    as one ``(f, d)`` / ``(d, f)`` tensor per expert, on the CPU."""
+@torch.no_grad()
+def jamba_on_card(cfg, seed: int):
+    """A ``JambaLM`` of ``cfg`` built on the card and drawn there from
+    ``seed`` at the torch law's scales (``init_weights`` draws on the
+    CPU, one thread, minutes at 13e9 parameters): U(-s, s), s = fan_in
+    ^ -0.5, for every matrix, conv and bias (the stacked experts over
+    their in axis), the embedding N(0, init_std), the norms 1, then the
+    Mamba dt, A and D laws (``reset_ssm_parameters``, from a CPU
+    generator)."""
+    from gfe_mamba_torch.models.jamba import JambaLM
+    from gfe_mamba_torch.models.mamba import MambaBlock, RMSNorm
+    from gfe_mamba_torch.utils.initializers import kernel_fan_in
+
+    with torch.device("meta"):
+        lm = JambaLM(cfg)
+    lm.to_empty(device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    drawn = set()
+    for mod in lm.modules():
+        for name, p in mod.named_parameters(recurse=False):
+            if isinstance(mod, RMSNorm):
+                p.fill_(1.0)
+            elif isinstance(mod, torch.nn.Embedding):
+                p.normal_(0.0, mod.init_std, generator=gen)
+            elif name.startswith("experts_") or name in ("weight", "bias"):
+                s = (p.shape[1] if name.startswith("experts_")
+                     else kernel_fan_in(mod)) ** -0.5
+                p.uniform_(-s, s, generator=gen)
+            elif not isinstance(mod, MambaBlock):
+                raise AssertionError(f"{name} of {type(mod).__name__} has "
+                                     f"no law here")
+            drawn.add(id(p))
+    cpu_gen = torch.Generator().manual_seed(seed)
+    for mod in lm.modules():
+        if isinstance(mod, MambaBlock):
+            mod.reset_ssm_parameters(cpu_gen)
+    if len(drawn) != len(list(lm.parameters())):
+        raise AssertionError("phase 16(c): a parameter was not drawn")
+    return lm
+
+
+def hf_state_dict(state: dict) -> dict:
+    """A ``JambaLM`` state dict under HF Jamba's names, each stacked
+    expert tensor split into one ``(f, d)`` / ``(d, f)`` view per expert
+    (no copy)."""
     out = {}
-    for key, value in model.state_dict().items():
+    for key, value in state.items():
         m = re.fullmatch(r"jamba\.layers\.(\d+)\.moe\.experts_(\w+)", key)
         if m:
             for e, w in enumerate(value):
                 out[f"model.layers.{m[1]}.feed_forward.experts.{e}."
-                    f"{m[2]}_proj.weight"] = w.T.contiguous()
+                    f"{m[2]}_proj.weight"] = w.T
             continue
         for pattern, repl in HF_NAMES:
             key = re.sub(pattern, repl, key)
@@ -3067,33 +3127,52 @@ def hf_state_dict(model) -> dict:
 
 
 def p16_hf_jamba(card: str) -> dict:
-    """Phase 16(c): an HF-keyed Jamba state dict drawn from a seed, loaded
-    by ``import_jamba_hf`` onto the card and the CPU: the logits of a
-    prompt of 64 tokens at batch 2, card against CPU; ``generate`` of 16
-    tokens (top_k 1, the greedy argmax of the forward); K2's launches over
-    both (11 per forward, none in the recurrent steps), then K2 against
-    its plain version on the first Mamba layer's operands of this prompt,
-    timed beside its bound."""
+    """Phase 16(c): Jamba-v0.1's widths at one period of its layers
+    (``HF_JAMBA``), drawn on the card from a seed and copied to the host
+    (53 GB), handed under HF's names to ``import_jamba_hf`` into a
+    ``JambaLM`` built on the card: every tensor back bitwise; the logits
+    of a prompt of 64 tokens at batch 2 against a CPU ``JambaLM`` that
+    holds the host copy itself (no second copy); ``generate`` of 16
+    tokens (top_k 1, the greedy argmax of the forward); K2's launches
+    over both (7 per forward, none in the recurrent steps), then K2
+    against its plain version on the first Mamba layer's operands of
+    this prompt, timed beside its bound."""
+    import gc
+
     from gfe_mamba_torch.models.jamba import JambaConfig, JambaLM, generate
     from gfe_mamba_torch.ops.cuda import selective_scan as k2
     from gfe_mamba_torch.utils.torch_import import import_jamba_hf
 
     cfg = JambaConfig(**HF_JAMBA)
-    source = materialized(lambda: JambaLM(cfg), seed=163)
-    state = hf_state_dict(source)
-    cpu = import_jamba_hf(state, JambaLM(cfg)).eval()
-    for key, value in source.state_dict().items():
-        if not torch.equal(cpu.state_dict()[key], value):
-            raise AssertionError(f"phase 16(c): {key} did not come back")
-    del source
     t = time.perf_counter()
-    lm = import_jamba_hf(state, JambaLM(cfg).cuda()).eval()
+    source = jamba_on_card(cfg, seed=163)
+    n_params = sum(p.numel() for p in source.parameters())
+    host = {k: v.cpu() for k, v in source.state_dict().items()}
+    del source
+    torch.cuda.empty_cache()
+    draw_s = time.perf_counter() - t
+    with torch.device("meta"):
+        lm = JambaLM(cfg)
+    lm.to_empty(device="cuda")
+    t = time.perf_counter()
+    import_jamba_hf(hf_state_dict(host), lm).eval()
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t
+    for key, value in lm.state_dict().items():
+        if not torch.equal(value, host[key].cuda()):
+            raise AssertionError(f"phase 16(c): {key} did not come back")
+    with torch.device("meta"):
+        cpu = JambaLM(cfg)
+    cpu.load_state_dict(host, assign=True)
+    cpu.eval()
     prompt = torch.randint(0, cfg.vocab_size, HF_PROMPT,
                            generator=torch.Generator().manual_seed(164))
+    t = time.perf_counter()
     with torch.inference_mode():
         want = cpu(prompt)[0]
+    cpu_s = time.perf_counter() - t
+    del cpu, host
+    gc.collect()
     k2.launches = 0
     with torch.inference_mode():
         got = lm(prompt.cuda())[0]
@@ -3111,9 +3190,11 @@ def p16_hf_jamba(card: str) -> dict:
     if launches != scans:
         raise AssertionError(f"phase 16(c): {launches} K2 launches, expected "
                              f"{scans} (one per Mamba layer of the forward)")
+    torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         greedy = lm(tokens)[0][:, HF_PROMPT[1] - 1:-1].argmax(-1)
         forward_ms = time_ms(lambda: lm(prompt.cuda()))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if not torch.equal(greedy, tokens[:, HF_PROMPT[1]:]):
         raise AssertionError("phase 16(c): generate(top_k=1) is not greedy")
     # K2 at this path's shapes: layer 0's operands
@@ -3139,15 +3220,18 @@ def p16_hf_jamba(card: str) -> dict:
     if not k2_err[1] <= 1e-5:
         raise AssertionError("phase 16(c): K2 disagrees with its plain "
                              "version")
-    log(f"phase 16(c): checkpoint loaded onto the card in {load_s:.2f} s; "
-        f"forward {forward_ms:.2f} ms at {HF_PROMPT}; generate "
-        f"{HF_NEW_TOKENS} tokens {gen_ms:.1f} ms (host clock); K2 launches "
-        f"{launches} [{card}]")
-    del lm, cpu
+    log(f"phase 16(c): {n_params} parameters drawn on the card and copied "
+        f"to the host in {draw_s:.2f} s, imported onto the card in "
+        f"{load_s:.2f} s (host clock); CPU forward {cpu_s:.2f} s; card "
+        f"forward {forward_ms:.2f} ms at {HF_PROMPT}, peak memory "
+        f"{peak:.2f} GiB; generate {HF_NEW_TOKENS} tokens {gen_ms:.1f} ms "
+        f"(host clock); K2 launches {launches} [{card}]")
+    del lm, args, y, ref
     torch.cuda.empty_cache()
-    return dict(launches=launches, logits_max_abs_err=err[0],
-                logits_rel_err=err[1], forward_ms=forward_ms,
-                generate_ms=gen_ms,
+    return dict(launches=launches, parameters=n_params,
+                logits_max_abs_err=err[0], logits_rel_err=err[1],
+                forward_ms=forward_ms, peak_gib=peak, generate_ms=gen_ms,
+                load_s=load_s,
                 k2=dict(per=f"one call at {shape} f32 (batch, L, ED, N), "
                             f"through the wrapper",
                         max_abs_err=k2_err[0], rel_err=k2_err[1], ms=ms,

@@ -95,14 +95,12 @@ class StridedConv(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, order: str = "cge",
-                 num_groups: int = 8, padding: int = 1, stride: int = 1,
-                 dims: int = 3):
+                 num_groups: int = 8, padding: int = 1, stride: int = 1):
         super().__init__()
         self.order = order
-        conv = nn.Conv3d if dims == 3 else nn.Conv2d
-        self.conv = conv(in_channels, out_channels, kernel_size,
-                         stride=stride, padding=padding,
-                         bias=not ("g" in order or "b" in order))
+        self.conv = nn.Conv3d(in_channels, out_channels, kernel_size,
+                              stride=stride, padding=padding,
+                              bias=not ("g" in order or "b" in order))
         c_pos = order.index("c")
         for i, char in enumerate(order):
             if char == "g":

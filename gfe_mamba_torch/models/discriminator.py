@@ -23,33 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-NORM_EPS = 1e-6   # flax nn.GroupNorm default
-
-
-class InstanceNorm(nn.Module):
-    """Per-(sample, channel) normalisation of a channels-first map (or,
-    with ``channels_last``, a channels-last one) with a per-channel affine
-    (``weight``, ``bias``)."""
-
-    def __init__(self, channels: int, eps: float = NORM_EPS,
-                 channels_last: bool = False):
-        super().__init__()
-        self.eps, self.channels_last = eps, channels_last
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.channels_last:
-            dims = tuple(range(1, x.dim() - 1))
-            shape = (1,) * (x.dim() - 1) + (-1,)
-        else:
-            dims = tuple(range(2, x.dim()))
-            shape = (1, -1) + (1,) * len(dims)
-        mean = x.mean(dims, keepdim=True)
-        var = torch.clamp((x * x).mean(dims, keepdim=True) - mean * mean,
-                          min=0.0)
-        return (x - mean) * torch.rsqrt(var + self.eps) \
-            * self.weight.reshape(shape) + self.bias.reshape(shape)
+from gfe_mamba_torch.ops.blocks import InstanceNorm
 
 
 def _pad(x: torch.Tensor, kernel: int) -> torch.Tensor:

@@ -369,8 +369,11 @@ class JambaLM(nn.Module):
             num_attention_heads=c.num_attention_heads,
             attention_dropout=c.attention_dropout,
             tie_lm_weights=c.tie_word_embeddings)
-        model = import_jamba_hf(hf.state_dict(), cls(config))
-        return model.to(device).eval()
+        # built on the device, filled there from the checkpoint
+        with torch.device("meta"):
+            model = cls(config)
+        model.to_empty(device=device)
+        return import_jamba_hf(hf.state_dict(), model).eval()
 
 
 @torch.no_grad()

@@ -24,9 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gfe_mamba_torch.models.discriminator import InstanceNorm
 from gfe_mamba_torch.models.dropout import Dropout
-from gfe_mamba_torch.ops.blocks import DotConv1x1
+from gfe_mamba_torch.ops.blocks import DotConv1x1, InstanceNorm
 from gfe_mamba_torch.ops.conv3d import on_channels_first, pool_nd
 
 
@@ -180,8 +179,13 @@ class MVCSNet(nn.Module):
         self.head1 = nn.Linear(bc * 8, bc * 4)
         self.head2 = nn.Linear(bc * 4, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """The globally pooled features ``(B, 8 * base_channel)`` that the
+        head reads."""
         x = gelu(self.input_norm(on_channels_first(self.input, x)))
         for level in (self.conv0, self.conv1, self.conv2):
             x = level(pool_nd(x, "avg", 2))
-        return self.head2(gelu(self.head1(x.mean((1, 2, 3)))))
+        return x.mean((1, 2, 3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head2(gelu(self.head1(self.features(x))))

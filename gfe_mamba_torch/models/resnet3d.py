@@ -112,13 +112,17 @@ class ResNet3D(nn.Module):
         self.n_stages = len(layers)
         self.fc = None if feature_only else nn.Linear(in_planes, n_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """The globally pooled features ``(B, C)`` that ``fc`` reads."""
         x = F.relu(self.bn1(_conv(self.conv1, x)))
         if not self.no_max_pool:
             x = _conv(lambda t: F.max_pool3d(t, 3, 2, 1), x)
         for stage in range(self.n_stages):
             x = getattr(self, f"layer{stage + 1}")(x)
-        x = x.mean((1, 2, 3))
+        return x.mean((1, 2, 3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.features(x)
         return x if self.fc is None else self.fc(x)
 
 

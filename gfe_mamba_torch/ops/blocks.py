@@ -107,12 +107,40 @@ class GroupNorm(nn.Module):
 
     def affine(self, x: torch.Tensor):
         mu, rstd = group_norm_stats(x, self.groups, eps=self.eps)
-        scale = rstd * self.weight.float()
-        return scale, self.bias.float() - mu * scale
+        scale = rstd * self.weight.to(rstd.dtype)
+        return scale, self.bias.to(rstd.dtype) - mu * scale
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         scale, shift = self.affine(x)
         return x * _spread(scale, x) + _spread(shift, x)
+
+
+class InstanceNorm(nn.Module):
+    """flax's ``GroupNorm(group_size=1)``: per-(sample, channel)
+    normalisation of a channels-first map (or, with ``channels_last``, a
+    channels-last one), eps 1e-6 and var = E[x^2] - E[x]^2, with a
+    per-channel affine (``weight``, ``bias``).  The PatchGAN
+    discriminator's and MVCSNet's instance norms."""
+
+    def __init__(self, channels: int, eps: float = 1e-6,
+                 channels_last: bool = False):
+        super().__init__()
+        self.eps, self.channels_last = eps, channels_last
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.channels_last:
+            dims = tuple(range(1, x.dim() - 1))
+            shape = (1,) * (x.dim() - 1) + (-1,)
+        else:
+            dims = tuple(range(2, x.dim()))
+            shape = (1, -1) + (1,) * len(dims)
+        mean = x.mean(dims, keepdim=True)
+        var = torch.clamp((x * x).mean(dims, keepdim=True) - mean * mean,
+                          min=0.0)
+        return (x - mean) * torch.rsqrt(var + self.eps) \
+            * self.weight.reshape(shape) + self.bias.reshape(shape)
 
 
 class BatchNorm(nn.Module):

@@ -31,15 +31,17 @@ __all__ = ["Conv3x3x3Fn", "apply_act", "conv3x3x3", "conv_nd",
 
 
 class _SumOfSquares(torch.autograd.Function):
-    """Per-(batch, channel) sum of x^2 over dim 1 in f32, reading x once
-    in its own dtype.  The backward is 2 x g: finite where a channel is
-    all zeros, where the gradient of ``vector_norm(x) ** 2`` is 0/0."""
+    """Per-(batch, channel) sum of x^2 over dim 1 in f32 (f64 for f64
+    x), reading x once in its own dtype.  The backward is 2 x g: finite
+    where a channel is all zeros, where the gradient of
+    ``vector_norm(x) ** 2`` is 0/0."""
 
     @staticmethod
     def forward(ctx, xv):
         ctx.save_for_backward(xv)
-        return torch.linalg.vector_norm(xv, 2, dim=1,
-                                        dtype=torch.float32).square()
+        return torch.linalg.vector_norm(
+            xv, 2, dim=1,
+            dtype=torch.promote_types(xv.dtype, torch.float32)).square()
 
     @staticmethod
     def backward(ctx, g):
@@ -49,15 +51,17 @@ class _SumOfSquares(torch.autograd.Function):
 
 def group_norm_stats(x: torch.Tensor, num_groups: int, eps: float = 1e-5):
     """Per-(batch, channel) ``(mu, rstd)`` of each channel's group, both
-    ``(B, C)`` f32: per-channel means of x and x^2 first, then averaged
-    within each group, var = E[x^2] - mu^2.
+    ``(B, C)`` f32 (f64 for f64 x): per-channel means of x and x^2 first,
+    then averaged within each group, var = E[x^2] - mu^2.
 
-    Both sums read x once in its own dtype and accumulate in f32; an f32
-    copy of a full-resolution bf16 volume would cost 4x the traffic."""
+    Both sums read x once in its own dtype and accumulate in f32 (f64);
+    an f32 copy of a full-resolution bf16 volume would cost 4x the
+    traffic."""
     B, C = x.shape[0], x.shape[-1]
     xv = x.reshape(B, -1, C)
     n = xv.shape[1]
-    mu_c = torch.sum(xv, dim=1, dtype=torch.float32) / n
+    mu_c = torch.sum(xv, dim=1,
+                     dtype=torch.promote_types(x.dtype, torch.float32)) / n
     ex2_c = _SumOfSquares.apply(xv) / n
     per = C // num_groups
     mu = mu_c.reshape(B, num_groups, per).mean(-1)
@@ -96,18 +100,11 @@ def resize_nearest(x: torch.Tensor, spatial) -> torch.Tensor:
     return x
 
 
-def _channels_first(x: torch.Tensor) -> torch.Tensor:
-    return x.movedim(-1, 1)
-
-
 def on_channels_first(fn, x: torch.Tensor) -> torch.Tensor:
     """``fn`` of a channels-first tensor (a torch conv or pool) applied
-    to channels-last ``x``; the result channels-last again."""
+    to channels-last ``x``; the result channels-last again, a view of
+    ``fn``'s channels-first output."""
     return fn(x.movedim(-1, 1)).movedim(1, -1)
-
-
-def _channels_last(y: torch.Tensor) -> torch.Tensor:
-    return y.movedim(1, -1).contiguous()
 
 
 def conv_nd(x: torch.Tensor, weight: torch.Tensor, bias=None,
@@ -120,9 +117,10 @@ def conv_nd(x: torch.Tensor, weight: torch.Tensor, bias=None,
     conv = F.conv3d if x.dim() == 5 else F.conv2d
     if isinstance(padding, str):
         padding = padding.lower()
-    y = conv(_channels_first(x), weight.to(x.dtype),
-             None if bias is None else bias.to(x.dtype), padding=padding)
-    return _channels_last(y)
+    bias = None if bias is None else bias.to(x.dtype)
+    return on_channels_first(
+        lambda t: conv(t, weight.to(x.dtype), bias, padding=padding),
+        x).contiguous()
 
 
 def deconv_nd(x: torch.Tensor, weight: torch.Tensor,
@@ -133,10 +131,11 @@ def deconv_nd(x: torch.Tensor, weight: torch.Tensor,
     *k)``, the flax kernel flipped spatially."""
     conv = F.conv_transpose3d if x.dim() == 5 else F.conv_transpose2d
     k = weight.shape[-1]
-    y = conv(_channels_first(x), weight.to(x.dtype), stride=stride)
     # the full transposed conv pads the dilated input by k - 1 per side,
     # flax's by 1: take k - 2 off each side (or add zeros when k = 1)
-    return _channels_last(F.pad(y, [2 - k] * (2 * (x.dim() - 2))))
+    return on_channels_first(
+        lambda t: F.pad(conv(t, weight.to(x.dtype), stride=stride),
+                        [2 - k] * (2 * (x.dim() - 2))), x).contiguous()
 
 
 def pool_nd(x: torch.Tensor, kind: str, k: int) -> torch.Tensor:
@@ -145,7 +144,7 @@ def pool_nd(x: torch.Tensor, kind: str, k: int) -> torch.Tensor:
     dims = x.dim() - 2
     fn = {("max", 2): F.max_pool2d, ("max", 3): F.max_pool3d,
           ("avg", 2): F.avg_pool2d, ("avg", 3): F.avg_pool3d}[kind, dims]
-    return _channels_last(fn(_channels_first(x), k, k))
+    return on_channels_first(lambda t: fn(t, k, k), x).contiguous()
 
 
 def _triangle(d):

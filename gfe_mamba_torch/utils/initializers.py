@@ -70,9 +70,8 @@ def init_weights(model: nn.Module, generator: torch.Generator,
     """Fill every parameter of ``model`` from ``generator`` (a CPU
     generator: the draws are made on the CPU and copied, so a seed gives
     the same weights on every device) under ``law``."""
-    from gfe_mamba_torch.models.discriminator import InstanceNorm
     from gfe_mamba_torch.models.mamba import MambaBlock, RMSNorm
-    from gfe_mamba_torch.ops.blocks import BatchNorm, GroupNorm
+    from gfe_mamba_torch.ops.blocks import BatchNorm, GroupNorm, InstanceNorm
 
     check_law(law)
     norms = (nn.LayerNorm, GroupNorm, BatchNorm, RMSNorm, InstanceNorm)

@@ -1,14 +1,15 @@
 """The port's legacy pyramid combiners and the 2D PatchGAN
-discriminator against the JAX package's, on the CPU in f32.
+discriminator against the JAX package's, on the CPU in f64.
 
 Each port module draws its weights (flax's law; every 1-D parameter moved
 off its init), is carried to JAX with ``utils/convert.py``
 (``jax_tree_from_state_dict``: the tree JAX's ``init`` builds, names and
-shapes), and both run the same numpy skips.  Tolerance: 1e-4 relative to
-max(1, max |JAX|), JAX at matmul precision 'highest': the GroupNorms of
-the pyramid's last, small maps cost f32 digits on both sides (at
-``CombineClassifier3`` below, JAX's f32 output lies 1.7e-5 from its f64
-one, the port's 1.4e-5, the two 2.1e-5 apart).
+shapes), and both run the same numpy skips, both sides in f64: in f32 the
+GroupNorms of the pyramid's last, small maps cost digits on both sides
+(JAX's own f32 output lies 1.7e-5 from its f64 one at
+``CombineClassifier3``), which would hide a norm's eps (1e-6 against
+torch's 1e-5 moves a unit-variance map by ~5e-6).  Tolerance: 1e-6
+relative to max(1, max |JAX|).
 """
 
 import jax
@@ -26,7 +27,7 @@ from gfe_mamba_torch.utils.convert import jax_tree_from_state_dict
 from gfe_mamba_torch.utils.initializers import init_weights
 
 torch.set_num_threads(2)
-REL = 1e-4
+REL = 1e-6
 SPATIAL = (64, 72, 64)
 
 
@@ -39,8 +40,9 @@ def _close(got, want, tag=""):
 
 
 def _params(port, jmod, *args, draw=True):
-    """The port's weights (drawn unless ``draw`` is off) as the JAX
-    params, after checking their tree against JAX's ``init``."""
+    """The port's weights (drawn unless ``draw`` is off), the port moved
+    to f64, as the JAX params in f64, after checking their tree against
+    JAX's ``init``; call under ``jax.enable_x64``."""
     if draw:
         gen = torch.Generator().manual_seed(0)
         init_weights(port, gen, "flax")
@@ -48,6 +50,7 @@ def _params(port, jmod, *args, draw=True):
             for p in port.parameters():
                 if p.dim() == 1:
                     p.add_(0.2 * torch.randn(p.shape, generator=gen))
+    port.double()
     params = jax_tree_from_state_dict(port.state_dict())
     like = jax.eval_shape(jmod.init, jax.random.key(0), *args)["params"]
     assert jax.tree_util.tree_structure(params) == \
@@ -55,7 +58,9 @@ def _params(port, jmod, *args, draw=True):
     for got, want in zip(jax.tree_util.tree_leaves(params),
                          jax.tree_util.tree_leaves(like)):
         assert got.shape == want.shape
-    return {"params": jax.tree_util.tree_map(jnp.asarray, params)}
+    # ``convert`` gives f32 arrays: the f32 draws, which f64 holds exactly
+    return {"params": jax.tree_util.tree_map(
+        lambda a: jnp.asarray(np.asarray(a, np.float64)), params)}
 
 
 def _skips(batch=1, seed=0):
@@ -63,18 +68,22 @@ def _skips(batch=1, seed=0):
     half = tuple(n // 2 for n in SPATIAL)
     enc = [rng.randn(batch, *SPATIAL, 8), rng.randn(batch, *half, 16)]
     dec = [rng.randn(batch, *SPATIAL, 8), rng.randn(batch, *half, 16)]
-    return ([a.astype(np.float32) for a in enc],
-            [a.astype(np.float32) for a in dec])
+    return enc, dec
 
 
 def _run(port, jmod, *args):
-    variables = _params(port, jmod, *[jax.tree_util.tree_map(jnp.asarray, a)
-                                      for a in args])
+    """``port`` and ``jmod`` on the same weights and f64 inputs, in
+    f64."""
+    with jax.enable_x64(True):
+        jargs = [jax.tree_util.tree_map(jnp.asarray, a) for a in args]
+        variables = _params(port, jmod, *jargs)
+        want = jax.jit(jmod.apply)(variables, *jargs)
+        assert all(a.dtype == jnp.float64
+                   for a in jax.tree_util.tree_leaves(want))
+        want = jax.tree_util.tree_map(np.asarray, want)
     with torch.no_grad():
         got = port(*[jax.tree_util.tree_map(torch.from_numpy, a)
                      for a in args])
-    want = jax.jit(jmod.apply)(variables, *[
-        jax.tree_util.tree_map(jnp.asarray, a) for a in args])
     return got, want
 
 
@@ -96,7 +105,7 @@ def test_legacy_combiner_matches_jax(name):
 
 def test_fused_combiner_matches_jax():
     enc, dec = _skips(seed=1)
-    ft = np.random.RandomState(2).randn(1, 2, 4).astype(np.float32)
+    ft = np.random.RandomState(2).randn(1, 2, 4)
     jmod = jax_comb.CombineClassifierFused(latent_dim=4)
     port = combiners.CombineClassifierFused(4, (16, 32), SPATIAL,
                                             ft_tokens=2).eval()
@@ -105,7 +114,7 @@ def test_fused_combiner_matches_jax():
 
 
 def test_strided_conv_orders_and_patch_embed_match_jax():
-    x = np.random.RandomState(3).randn(2, 11, 9, 7, 12).astype(np.float32)
+    x = np.random.RandomState(3).randn(2, 11, 9, 7, 12)
     for order, stride, groups in (("cge", 2, 8), ("gcr", 1, 4),
                                   ("cl", 3, 8)):
         jmod = jax_comb.StridedConv(16, 3, order, groups, 1, stride)
@@ -124,8 +133,8 @@ def test_pool_refuses_inputs_below_its_window():
     dec = [dec[0][:, :40, :40, :40], dec[1][:, :20, :20, :20]]
     port = combiners.CombinePyramid(latent_dim=4, in_channels=(16, 32))
     with pytest.raises(ValueError, match="exceeds spatial dims"):
-        port([torch.from_numpy(a) for a in enc],
-             [torch.from_numpy(a) for a in dec])
+        port([torch.from_numpy(a).float() for a in enc],
+             [torch.from_numpy(a).float() for a in dec])
     assert combiners.CombinePyramid is combiners.CombineClassifier3
 
 
@@ -133,7 +142,7 @@ def test_pool_refuses_inputs_below_its_window():
 def test_patch_discriminator_2d_matches_jax(shape):
     """dims=2 through the kernel, the strides, the widened padding on
     small maps and the instance norms; every feature compared."""
-    x = np.random.RandomState(4).randn(*shape).astype(np.float32)
+    x = np.random.RandomState(4).randn(*shape)
     jmod = JaxPatchDiscriminator(num_layers_d=3, num_channels=4, dims=2)
     port = PatchDiscriminator(3, 4, in_channels=shape[-1], dims=2)
     port.reset_parameters(torch.Generator().manual_seed(1))
@@ -141,11 +150,14 @@ def test_patch_discriminator_2d_matches_jax(shape):
         for p in port.parameters():
             if p.dim() == 1:
                 p.add_(0.1)
-    variables = _params(port, jmod, jnp.asarray(x), draw=False)
+    with jax.enable_x64(True):
+        variables = _params(port, jmod, jnp.asarray(x), draw=False)
+        want = [np.asarray(w) for w in
+                jax.jit(jmod.apply)(variables, jnp.asarray(x))]
     with torch.no_grad():
         got = port(torch.from_numpy(x))
-    want = jax.jit(jmod.apply)(variables, jnp.asarray(x))
     assert len(got) == len(want) == 5
+    assert all(w.dtype == np.float64 for w in want)
     for i, (g, w) in enumerate(zip(got, want)):
         _close(g, w, f"feature {i}")
     with pytest.raises(ValueError, match="dims"):

@@ -111,8 +111,8 @@ def test_mapping_covers_every_key_and_stacks_experts():
     port = JambaLM(_port_config(hf))
     assert set(mapping.values()) | set(stacked) | {"lm_head.weight"} \
         == set(port.state_dict())
-    gate = stacked["jamba.layers.1.moe.experts_gate"]
-    down = stacked["jamba.layers.1.moe.experts_down"]
+    gate = torch.stack(stacked["jamba.layers.1.moe.experts_gate"])
+    down = torch.stack(stacked["jamba.layers.1.moe.experts_down"])
     assert gate.shape == (2, 32, 64) and down.shape == (2, 64, 32)
     torch.testing.assert_close(
         gate[1], state["model.layers.1.feed_forward.experts.1.gate_proj."
@@ -135,6 +135,16 @@ def test_import_refuses_a_foreign_or_short_checkpoint():
     with pytest.raises(KeyError, match="no place"):
         import_jamba_hf({**state, "model.extra.weight": torch.zeros(1)},
                         JambaLM(_port_config(hf)))
+    # a wrong shape is refused before any tensor is copied
+    port = JambaLM(_port_config(hf))
+    before = {k: v.clone() for k, v in port.state_dict().items()}
+    key = "model.layers.1.feed_forward.experts.1.down_proj.weight"
+    with pytest.raises(ValueError, match="experts' shapes differ"):
+        import_jamba_hf({**state, key: state[key][:, :-1]}, port)
+    for k, v in port.state_dict().items():
+        # the unfilled model's memory may hold NaNs
+        torch.testing.assert_close(v, before[k], rtol=0, atol=0,
+                                   equal_nan=True, msg=k)
     del state["model.layers.0.mamba.D"]
     with pytest.raises(KeyError, match="lacks"):
         import_jamba_hf(state, JambaLM(_port_config(hf)))
