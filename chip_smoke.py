@@ -159,7 +159,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    160x160x96 (no host sync: CUDA's sync debug mode raises) and
    ``resize_volume`` on a 256x256x170 volume, within 1e-5 of the CPU;
    (f) the legacy combiners at the generator's skip shapes and
-   ``PatchDiscriminator(dims=2)`` on 256x256, within 1e-4 of the CPU.
+   ``PatchDiscriminator(dims=2)`` on 256x256, within 1e-4 of the CPU;
+17. the ViT zoo (``models/vit_zoo*.py``) at the widths of upstream
+   vit-pytorch's README examples, f32 with TF32 off, no kernel: each
+   model's weights drawn on the CPU from a seed, its pooled features and
+   logits card against CPU within 1e-4 of the CPU's largest magnitude,
+   its forward timed with its FLOPs and peak memory; (a)-(d) the 2D and
+   1D members (ViT-B-like at 256/32, dim 1024, depth 6; CaiT, the patch
+   merger and EfficientViT deeper; PiT, T2T, CrossViT, CvT-13, NesT-T,
+   MobileViT, CCT-14/7x2 at their own widths), the CPU at batch 2, the
+   card timed at batch 32 (SimpleViTPatchDropout in train mode, the
+   parity's scores shared); (e) ViT3D, SimpleViT3D, ViViT and CCT3D,
+   each CPU model's state_dict (the reference's names) loaded onto the
+   card by its importer and checked at 48x64x64 (batch 1), then timed at
+   batch 4 on GFE-Mamba's 96x160x160 volume; (f) MAE, MPP and DINO's head
+   with ``dino_loss``: the loss and every gradient within 1e-4 of the
+   CPU's at batch 4 with the masking draws shared, ``ema_update`` within
+   1e-6, then loss + backward timed at batch 32; (g) ``augment2d`` on 32
+   images of 256x256x3: each op and ``ssl_views_batch`` (224 and 96)
+   within 1e-5 of the CPU with the CPU's draws replayed on the card under
+   CUDA's sync debug mode set to raise, each timed.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  K1's ``ms``, ``plain_ms``,
@@ -2993,17 +3012,18 @@ def forward_ms_and_peak(model, x, reps: int = 3) -> tuple[float, float]:
     return ms, torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def check_close(tag: str, got, want, tol: float) -> tuple[float, float]:
+def check_close(tag: str, got, want, tol: float,
+                phase: int = 16) -> tuple[float, float]:
     """max |got - want| and that over max |want| (no floor), which must
     be within ``tol``; both logged with max |want|."""
     err, _ = rel_err(got, want)
     scale = want.detach().abs().max().item()
     rel = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
-    log(f"phase 16{tag}: card vs CPU max_abs_err={err:.3e} max|CPU|="
+    log(f"phase {phase}{tag}: card vs CPU max_abs_err={err:.3e} max|CPU|="
         f"{scale:.3e} rel={rel:.3e} (tol {tol:g})")
     if not rel <= tol:
-        raise AssertionError(f"phase 16{tag}: card and CPU differ: rel "
-                             f"{rel}")
+        raise AssertionError(f"phase {phase}{tag}: card and CPU differ: "
+                             f"rel {rel}")
     return err, rel
 
 
@@ -3441,6 +3461,527 @@ def drive_other_modules(card: str) -> dict:
     return out
 
 
+# phase 17: the ViT zoo at the widths of upstream vit-pytorch's README
+# usage examples (lucidrains/vit-pytorch, which the reference vendors as
+# vit_pytorch_diy), f32 with TF32 off; the card-against-CPU checks at a
+# smaller batch (and, for volumes, a smaller volume), never at smaller
+# widths or depths
+P17_BATCH = 32
+P17_PARITY_BATCH = 2
+P17_SSL_PARITY_BATCH = 4
+P17_VOLUME = (96, 160, 160)          # GFE-Mamba's volume, depth axis first
+P17_VOLUME_BATCH = 4
+P17_PARITY_VOLUME = (48, 64, 64)
+P17_AUG_SHAPE = (32, 256, 256, 3)
+
+
+@contextlib.contextmanager
+def no_default_init():
+    """torch's own init of Linear, conv and LayerNorm skipped while a model
+    is built (its weights are drawn afterwards)."""
+    from torch.nn.modules.conv import _ConvNd
+
+    classes = (torch.nn.Linear, _ConvNd, torch.nn.LayerNorm)
+    saved = [c.reset_parameters for c in classes]
+    for c in classes:
+        c.reset_parameters = lambda self: None
+    try:
+        yield
+    finally:
+        for c, fn in zip(classes, saved):
+            c.reset_parameters = fn
+
+
+def zoo_model(make, seed: int):
+    """``make()`` on the CPU, its weights drawn from ``seed``
+    (``init_zoo``)."""
+    from gfe_mamba_torch.models.vit_zoo import init_zoo
+
+    with no_default_init():
+        model = make()
+    return init_zoo(model, torch.Generator().manual_seed(seed))
+
+
+def p17_image_models() -> list:
+    """(part, name, make, input shape without the batch, train mode) of
+    the 2D and 1D members; widths of each README example, mapped onto the
+    JAX fields (the JAX default where a field has none)."""
+    from gfe_mamba_torch.models import vit_zoo as z
+    from gfe_mamba_torch.models import vit_zoo_extra as x
+    from gfe_mamba_torch.models import vit_zoo_simple as s
+    from gfe_mamba_torch.models.vit import Transformer
+
+    vitb = dict(image_size=256, patch_size=32, num_classes=1000, dim=1024,
+                depth=6, heads=16, mlp_dim=2048)
+    p16 = dict(vitb, patch_size=16)
+    i256, i224 = (256, 256, 3), (224, 224, 3)
+    cct = dict(embedding_dim=384, n_conv_layers=2, kernel_size=7, stride=2,
+               num_layers=14, num_heads=6, mlp_ratio=3.0)
+    return [
+        ("(a)", "ClassifierViT", lambda: z.ClassifierViT(**vitb), i256),
+        ("(a)", "SimpleViT", lambda: z.SimpleViT(**vitb), i256),
+        ("(a)", "DeepViT", lambda: x.DeepViT(**vitb), i256),
+        ("(a)", "SimpleViTQKNorm", lambda: s.SimpleViTQKNorm(**vitb), i256),
+        ("(a)", "SimpleViTRegisterTokens",
+         lambda: s.SimpleViTRegisterTokens(**vitb, num_register_tokens=4),
+         i256),
+        ("(a)", "SimpleViTFFT",
+         lambda: s.SimpleViTFFT(**vitb, freq_patch_size=32), i256),
+        ("(a)", "SimpleFlashAttnViT", lambda: s.SimpleFlashAttnViT(**vitb),
+         i256),
+        ("(a)", "SimpleViTPatchDropout",
+         lambda: s.SimpleViTPatchDropout(**vitb, patch_dropout=0.5), i256,
+         True),
+        ("(a)", "ViTPatchDropout",
+         lambda: s.ViTPatchDropout(**vitb, patch_dropout=0.25), i256),
+        ("(a)", "ParallelViT",
+         lambda: s.ParallelViT(**dict(vitb, heads=8),
+                               num_parallel_branches=2), i256),
+        ("(a)", "ViTForSmallDataset", lambda: s.ViTForSmallDataset(**p16),
+         i256),
+        ("(a)", "LocalViT", lambda: s.LocalViT(**p16), i256),
+        ("(b)", "CaiT", lambda: x.CaiT(**dict(vitb, depth=12), cls_depth=2),
+         i256),
+        ("(b)", "ViTWithPatchMerger",
+         lambda: s.ViTWithPatchMerger(**dict(p16, depth=12, heads=8),
+                                      patch_merge_layer=6,
+                                      patch_merge_num_tokens=8), i256),
+        ("(b)", "EfficientViT",
+         lambda: s.EfficientViT(224, 32, 1000, 512,
+                                Transformer(512, 12, 8, 64, 2048)), i224),
+        ("(c)", "PiT", lambda: x.PiT(224, 14, 1000, 256, (3, 3, 3),
+                                     (16, 16, 16), 2048), i224),
+        ("(c)", "T2TViT", lambda: x.T2TViT(224, 1000, 512, 5, 8, 512),
+         i224),
+        ("(c)", "CrossViT",
+         lambda: x.CrossViT(256, 1000, sm_patch_size=16, lg_patch_size=64,
+                            sm_dim=192, lg_dim=384, sm_enc_depth=2,
+                            lg_enc_depth=3, cross_attn_depth=2,
+                            multi_scale_enc_depth=4, heads=8, dim_head=64),
+         i256),
+        ("(c)", "CvT", lambda: x.CvT(1000, depths=(1, 2, 10)), i224),
+        ("(c)", "NesT", lambda: x.NesT(224, 4, 1000, 96, 3, 3, (2, 2, 8)),
+         i224),
+        ("(c)", "MobileViT",
+         lambda: x.MobileViT((256, 256), (96, 120, 144),
+                             (16, 32, 48, 48, 64, 64, 80, 80, 96, 96, 384),
+                             1000), i256),
+        ("(c)", "CCT", lambda: x.CCT(1000, **cct, image_size=224), i224),
+        ("(d)", "SimpleViT1D",
+         lambda: s.SimpleViT1D(256, 16, 1000, 1024, 6, 8, 2048), (256, 3)),
+        ("(d)", "ViT1D", lambda: s.ViT1D(256, 16, 1000, 1024, 6, 8, 2048),
+         (256, 3)),
+    ]
+
+
+def p17_volume_models(volume) -> list:
+    """(name, make, whether it reads (B, H, W, D, C) rather than (B, D,
+    H, W, C), its importer) of the 3D members over a ``volume`` (D, H, W)
+    with one channel."""
+    from gfe_mamba_torch.models import vit_zoo as z
+    from gfe_mamba_torch.models import vit_zoo_extra as x
+    from gfe_mamba_torch.utils import torch_import as imp
+
+    d, h, w = volume
+    return [
+        ("ViT3D", lambda: z.ViT3D((h, w), d, 16, 16, 1000, 1024, 6, 8, 2048,
+                                  channels=1), True, imp.import_vit3d),
+        ("SimpleViT3D", lambda: x.SimpleViT3D(
+            (d, h, w), (16, 16, 16), 1000, 1024, 6, 8, 2048, channels=1),
+         False, imp.import_simple_vit3d),
+        ("ViViT", lambda: x.ViViT((h, w), (16, 16), d, 16, 1000, 1024, 6, 6,
+                                  8, 2048, channels=1), False,
+         imp.import_vivit),
+        ("CCT3D", lambda: x.CCT3D(
+            num_classes=1000, embedding_dim=384, n_conv_layers=2,
+            kernel_size=7, stride=2, num_layers=14, num_heads=6,
+            mlp_ratio=3.0, frame_kernel_size=3, image_size=(h, w), frames=d,
+            channels=1), False, imp.import_cct),
+    ]
+
+
+def p17_check(tag: str, name: str, got, want) -> float:
+    """Pooled features (each of a tuple) and logits, card against CPU
+    within 1e-4 of the CPU's own largest magnitude; the worst ratio."""
+    feats_g, feats_w = got[0], want[0]
+    if not isinstance(feats_g, tuple):
+        feats_g, feats_w = (feats_g,), (feats_w,)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(feats_g, feats_w)):
+        worst = max(worst, check_close(
+            f"{tag} {name} pooled features {i} {tuple(a.shape)}", a, b,
+            1e-4, phase=17)[1])
+    return max(worst, check_close(f"{tag} {name} logits "
+                                  f"{tuple(got[1].shape)}", got[1], want[1],
+                                  1e-4, phase=17)[1])
+
+
+def p17_timed(card: str, tag: str, name: str, model, xb) -> dict:
+    """The forward at the timed batch: ms, FLOPs (``torch.utils.
+    flop_counter``), peak memory; the logits finite."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    ms, peak = forward_ms_and_peak(model, xb)
+    # the counter's module hooks fail on a view of a parameter that
+    # requires grad made outside grad mode: the parameters stop requiring
+    # it while they count
+    model.requires_grad_(False)
+    with torch.inference_mode(), FlopCounterMode(display=False) as flops:
+        logits = model(xb)
+    model.requires_grad_(True)
+    if logits.shape != (xb.shape[0], 1000) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"phase 17{tag} {name}: logits "
+                             f"{tuple(logits.shape)} not finite")
+    tflop = flops.get_total_flops() / 1e12
+    log(f"phase 17{tag} {name}: forward at {tuple(xb.shape)} f32 "
+        f"{ms:.3f} ms, {tflop:.4f} TFLOP ({tflop / ms * 1e3:.1f} TFLOP/s, "
+        f"{tflop * 1e12 / PEAK_F32 / ms * 1e3:.1%} of the f32 peak), peak "
+        f"memory {peak:.2f} GiB [{card}]")
+    return dict(ms=ms, tflops=tflop / ms * 1e3, peak_gib=peak)
+
+
+def p17_classifier(card: str, tag: str, name: str, make, shape,
+                   seed: int, train: bool = False) -> dict:
+    """(i) weights from ``seed`` on the CPU, copied to the card; (ii) pooled
+    features and logits card against CPU at ``P17_PARITY_BATCH``; (iii),
+    (iv) the forward timed at ``P17_BATCH``.  ``train``: patch dropout
+    active, the parity's scores drawn once on the CPU and shared, the
+    timed run drawing from a CUDA generator."""
+    from gfe_mamba_torch.models.dropout import seed_dropout
+
+    model = zoo_model(make, seed)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(P17_PARITY_BATCH, *shape, generator=g)
+    if train:
+        drop = model.train().patch_dropout
+        scores = torch.randn(P17_PARITY_BATCH, model.pos.shape[0],
+                             generator=g)
+        drop.scores = lambda rows, n, device: scores.to(device)
+        seed_dropout(model, g)
+    else:
+        model.eval()
+    with torch.inference_mode():
+        want = model.features(x), model(x)
+    model.cuda()
+    xc = x.cuda()
+    with torch.inference_mode():
+        got = model.features(xc), model(xc)
+    err = p17_check(tag, name, got, want)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(seed)
+    if train:
+        del drop.scores
+        seed_dropout(model, cuda_gen)
+    xb = torch.rand(P17_BATCH, *shape, device="cuda", generator=cuda_gen)
+    out = dict(p17_timed(card, tag, name, model, xb), rel=err)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def p17_volumes(card: str, seed: int = 185) -> dict:
+    """(e) and the importers: each 3D member at ``P17_PARITY_VOLUME``
+    (batch 1) drawn on the CPU, its state_dict (the reference's names)
+    loaded onto a model on the card by its importer, features and logits
+    card against CPU; then a model at ``P17_VOLUME`` timed at batch
+    ``P17_VOLUME_BATCH``."""
+    out = {}
+    small = p17_volume_models(P17_PARITY_VOLUME)
+    full = p17_volume_models(P17_VOLUME)
+    for i, ((name, make, hwd, importer), (_, make_full, _, _)) in \
+            enumerate(zip(small, full)):
+        model = zoo_model(make, seed + i).eval()
+        g = torch.Generator().manual_seed(seed + i)
+        x = torch.rand(1, *P17_PARITY_VOLUME, 1, generator=g)
+        if hwd:
+            x = x.permute(0, 2, 3, 1, 4)
+        with torch.inference_mode():
+            want = model.features(x), model(x)
+        with no_default_init():
+            card_model = make().cuda().eval()
+        t = time.perf_counter()
+        importer(model.state_dict(), card_model)
+        import_s = time.perf_counter() - t
+        with torch.inference_mode():
+            got = card_model.features(x.cuda()), card_model(x.cuda())
+        err = p17_check("(e)", f"{name} imported", got, want)
+        del model, card_model
+        cuda_gen = torch.Generator(device="cuda").manual_seed(seed + i)
+        xb = torch.rand(P17_VOLUME_BATCH, *P17_VOLUME, 1, device="cuda",
+                        generator=cuda_gen)
+        if hwd:
+            xb = xb.permute(0, 2, 3, 1, 4)
+        model = zoo_model(make_full, seed + i).cuda().eval()
+        out[name] = dict(p17_timed(card, "(e)", name, model, xb), rel=err,
+                         import_s=import_s)
+        log(f"phase 17(e) {name}: import onto the card {import_s:.2f} s")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def p17_loss_and_grads(card: str, name: str, model, step, x, xb,
+                       share, unshare, batch: int = P17_BATCH) -> dict:
+    """A loss and its backward on the CPU and on the card from the same
+    weights, inputs and draws (``share``): the loss and every gradient
+    within 1e-4 of the CPU's own largest magnitude; then (``unshare``:
+    draws from a CUDA generator) the forward and backward timed at the
+    batch of ``xb``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    share()
+    loss = step(model, x)
+    loss.backward()
+    want = {k: p.grad.clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    model.cuda()
+    got_loss = step(model, x.cuda())
+    got_loss.backward()
+    check_close(f"(f) {name} loss", got_loss, loss, 1e-4, phase=17)
+    worst, where = 0.0, ""
+    for key, p in model.named_parameters():
+        err, _ = rel_err(p.grad, want[key])
+        scale = want[key].abs().max().item()
+        rel = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+        if not rel <= 1e-4:
+            raise AssertionError(f"phase 17(f) {name}: gradient of {key} "
+                                 f"rel {rel} from the CPU's")
+        if rel >= worst:
+            worst, where = rel, key
+    log(f"phase 17(f) {name}: {len(want)} gradients card vs CPU, worst "
+        f"rel {worst:.3e} ({where}; tol 1e-4)")
+    unshare()
+    model.zero_grad(set_to_none=True)
+
+    def train_step():
+        step(model, xb).backward()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(train_step, reps=3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with FlopCounterMode(display=False) as flops:
+        train_step()
+    tflop = flops.get_total_flops() / 1e12
+    log(f"phase 17(f) {name}: loss + backward at batch {batch} f32 "
+        f"{ms:.3f} ms, {tflop:.4f} TFLOP ({tflop / ms * 1e3:.1f} TFLOP/s), "
+        f"peak memory {peak:.2f} GiB [{card}]")
+    return dict(ms=ms, tflops=tflop / ms * 1e3, peak_gib=peak,
+                grad_rel=worst)
+
+
+def p17_ssl(card: str, seed: int = 190) -> dict:
+    """(f) MAE and MPP (the ViT-1024 trunk of (a); MAE's decoder 512 wide,
+    6 deep) and DINO's head (hidden 256, out 65536) with ``dino_loss``
+    and ``ema_update``: loss and backward card against CPU at batch
+    ``P17_SSL_PARITY_BATCH`` with the masking draws shared, then timed at
+    ``P17_BATCH``."""
+    from gfe_mamba_torch.models import vit_zoo as z
+    from gfe_mamba_torch.models import vit_zoo_extra as x
+
+    out = {}
+    g = torch.Generator().manual_seed(seed)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.rand(P17_SSL_PARITY_BATCH, 256, 256, 3, generator=g)
+    imgb = torch.rand(P17_BATCH, 256, 256, 3, device="cuda",
+                      generator=cuda_gen)
+
+    mae = zoo_model(lambda: z.MAE(256, 32, 1024, 6, 16, 2048,
+                                  masking_ratio=0.75, decoder_dim=512,
+                                  decoder_depth=6, decoder_heads=8), seed)
+    perm = z.MAE.permutation(P17_SSL_PARITY_BATCH, 64, g, "cpu")
+
+    def mae_share():
+        mae.permutation = lambda b, n, gen, device: perm.to(device)
+
+    def mae_unshare():
+        del mae.permutation
+
+    out["MAE"] = p17_loss_and_grads(
+        card, "MAE", mae, lambda m, v: m(v, cuda_gen if v.is_cuda else g),
+        img, imgb, mae_share, mae_unshare)
+    del mae
+
+    mpp = zoo_model(lambda: x.MPP(256, 32, 1024, 6, 8, 2048, channels=3,
+                                  mask_prob=0.15, replace_prob=0.5,
+                                  random_patch_prob=0.3), seed + 1)
+    draws = x.MPP.draws(P17_SSL_PARITY_BATCH, 64, g, "cpu")
+
+    def mpp_share():
+        mpp.draws = lambda b, n, gen, device: tuple(d.to(device)
+                                                    for d in draws)
+
+    def mpp_unshare():
+        del mpp.draws
+
+    out["MPP"] = p17_loss_and_grads(
+        card, "MPP", mpp, lambda m, v: m(v, cuda_gen if v.is_cuda else g),
+        img, imgb, mpp_share, mpp_unshare)
+    del mpp
+
+    student = zoo_model(lambda: z.DinoHead(256, 65536, dim=1024), seed + 2)
+    teacher = zoo_model(lambda: z.DinoHead(256, 65536, dim=1024), seed + 3)
+    feats = torch.randn(2, P17_SSL_PARITY_BATCH, 1024, generator=g)
+    featsb = torch.randn(2, P17_BATCH, 1024, device="cuda",
+                         generator=cuda_gen)
+
+    def dino_step(m, v):
+        with torch.no_grad():
+            t = teacher.to(v.device)(v[1])
+        return z.dino_loss(m(v[0]), t)
+
+    out["DINO"] = p17_loss_and_grads(card, "DinoHead + dino_loss", student,
+                                     dino_step, feats, featsb, lambda: None,
+                                     lambda: None)
+    cpu_teacher = copy.deepcopy(teacher).cpu()
+    cpu_student = copy.deepcopy(student).cpu()
+    z.ema_update(cpu_teacher, cpu_student)
+    z.ema_update(teacher, student)
+    for (key, a), b in zip(teacher.named_parameters(),
+                           cpu_teacher.parameters()):
+        check_close(f"(f) ema_update {key}", a, b, 1e-6, phase=17)
+    out["ema_update_ms"] = time_ms(lambda: z.ema_update(teacher, student))
+    count = sum(p.numel() for p in student.parameters())
+    log(f"phase 17(f) ema_update over {count} parameters "
+        f"{out['ema_update_ms']:.3f} ms [{card}]")
+    del student, teacher
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def draw_tape(aug, tape: list, replay: bool):
+    """``augment2d``'s two draw functions recording into ``tape``, or
+    handing its tensors back in order (each checked against the shape
+    asked for)."""
+    saved = aug._uniform, aug._permutation
+    if replay:
+        it = iter(tape)
+
+        def take(shape):
+            value = next(it)
+            if value.shape != torch.Size(shape):
+                raise AssertionError(f"phase 17(g): replayed draw "
+                                     f"{tuple(value.shape)} != {shape}")
+            return value
+
+        aug._uniform = lambda shape, gen, device: take(shape)
+        aug._permutation = lambda rows, n, gen, device: take((rows, n))
+    else:
+        def recorded(fn):
+            def draw(*args):
+                tape.append(fn(*args))
+                return tape[-1]
+            return draw
+
+        aug._uniform, aug._permutation = map(recorded, saved)
+    try:
+        yield
+    finally:
+        aug._uniform, aug._permutation = saved
+
+
+def p17_augment(card: str, seed: int = 195) -> dict:
+    """(g) ``data/augment2d.py`` on 32 images of 256x256x3: each op and
+    ``ssl_views_batch`` (views of 224 and of 96), card against CPU within
+    1e-5 with the CPU's draws replayed on the card, the card's run under
+    CUDA's sync debug mode set to raise (no host sync); each timed on the
+    card drawing from a CUDA generator."""
+    from gfe_mamba_torch.data import augment2d as aug
+
+    g = torch.Generator().manual_seed(seed)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(seed)
+    imgs = torch.rand(*P17_AUG_SHAPE, generator=g)
+    b = imgs.shape[0]
+    factors = torch.linspace(0.2, 1.8, b)
+    shifts = torch.linspace(-0.5, 0.5, b)
+    sigmas = torch.linspace(1.0, 2.0, b)
+    boxes = aug.sample_crop_box(g, (256, 256), (0.08, 1.0), batch=b)
+    fixed = {
+        "rgb_to_hsv": lambda x, a: aug.rgb_to_hsv(x),
+        "hsv_to_rgb": lambda x, a: aug.hsv_to_rgb(x),
+        "grayscale": lambda x, a: aug.grayscale(x),
+        "adjust_brightness": lambda x, a: aug.adjust_brightness(x, a[0]),
+        "adjust_contrast": lambda x, a: aug.adjust_contrast(x, a[0]),
+        "adjust_saturation": lambda x, a: aug.adjust_saturation(x, a[0]),
+        "adjust_hue": lambda x, a: aug.adjust_hue(x, a[1]),
+        "gaussian_blur": lambda x, a: aug.gaussian_blur(x, a[2]),
+        "normalize": lambda x, a: aug.normalize(x),
+        "crop_and_resize": lambda x, a: aug.crop_and_resize(x, a[3],
+                                                            (224, 224)),
+    }
+    drawn = {
+        "color_jitter": aug.color_jitter,
+        "random_grayscale": aug.random_grayscale,
+        "random_hflip": aug.random_hflip,
+        "random_gaussian_blur": lambda x, gen: aug.random_gaussian_blur(
+            x, gen, 0.5),
+        "random_resized_crop": lambda x, gen: aug.random_resized_crop(
+            x, gen, 224, (0.08, 1.0)),
+        "byol_augment": aug.byol_augment,
+        "ssl_views_batch 224": lambda x, gen: aug.ssl_views_batch(x, gen,
+                                                                  224),
+        "ssl_views_batch 96": lambda x, gen: aug.ssl_views_batch(x, gen, 96),
+    }
+    args = (factors, shifts, sigmas, boxes)
+    args_c = tuple(a.cuda() for a in args)
+    xc = imgs.cuda()
+    out = {}
+    for name, op in [*fixed.items(), *drawn.items()]:
+        tape = []
+        with draw_tape(aug, tape, replay=False):
+            want = op(imgs, args) if name in fixed else op(imgs, g)
+        tape = [t.cuda() for t in tape]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with draw_tape(aug, tape, replay=True):
+                got = op(xc, args_c) if name in fixed else op(xc, None)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        rel = max(check_close(f"(g) {name} {i} {tuple(a.shape)}", a, w,
+                              1e-5, phase=17)[1]
+                  for i, (a, w) in enumerate(zip(got, want)))
+        ms = time_ms(lambda: op(xc, args_c) if name in fixed
+                     else op(xc, cuda_gen))
+        out[name] = dict(ms=ms, rel=rel)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        aug.ssl_views_batch(xc, cuda_gen, 224)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"phase 17(g): ms per batch of {b} " + ", ".join(
+        f"{k} {v['ms']:.3f}" for k, v in out.items()) + f" [{card}]")
+    return out
+
+
+def drive_zoo(card: str) -> dict:
+    """Phase 17: the ViT zoo (``models/vit_zoo*.py``), its importers and
+    ``data/augment2d.py`` on the card, f32 with TF32 off."""
+    t0 = time.perf_counter()
+    out = {}
+    with tf32_settings(False, False):
+        for i, (tag, name, make, shape, *train) in \
+                enumerate(p17_image_models()):
+            out[name] = p17_classifier(card, tag, name, make, shape, 180 + i,
+                                       *train)
+        out.update(p17_volumes(card))
+        out.update(p17_ssl(card))
+        out["augment2d"] = p17_augment(card)
+    models = {k: v for k, v in out.items() if isinstance(v, dict)
+              and "tflops" in v}
+    log("phase 17 summary: " + json.dumps(
+        {k: {m: float(f"{n:.4g}") for m, n in v.items()}
+         for k, v in models.items()}))
+    worst = max(v.get("rel", v.get("grad_rel", 0.0))
+                for v in models.values())
+    log(f"phase 17: {len(models)} models, worst card-vs-CPU rel "
+        f"{worst:.3e}; {time.perf_counter() - t0:.1f} s of wall [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -3493,6 +4034,7 @@ def main() -> int:
         dp = drive_parallel(card, root, phase12)
     seg = drive_segmentation(card)
     other_modules = drive_other_modules(card)
+    drive_zoo(card)
     kernels[0]["seg_launches"] = seg["launches"]["K1"]
     kernels[0]["seg"] = dict(per="UNet3D forward, 64x128x128, batch 1, f32",
                              version=K1_F32_VERSION,

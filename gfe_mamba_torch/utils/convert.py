@@ -93,9 +93,15 @@ def _transform(path: str, value: np.ndarray) -> np.ndarray:
     return value
 
 
-def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+def state_dict_from_jax(params: Mapping[str, Any],
+                        model: torch.nn.Module | None = None
+                        ) -> dict[str, torch.Tensor]:
     """Convert a flax parameter tree (nested dicts of arrays, optionally
     under a ``'params'`` key) into the port's state_dict, as float32.
+
+    Given ``model``, a ViT-zoo model of ``models/vit_zoo*.py``, the tree is
+    its flax variables and ``utils/convert_zoo.py`` maps them onto that
+    model's state_dict.
 
     Works on the whole ``GFEMamba`` tree (keys under ``generator.``,
     ``combiner.`` and ``classifier.``, any mixer), on the tree of any
@@ -116,6 +122,9 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     statistics as well.  ``group_norm_act``
     (``ops/group_norm.py``) needs nothing here: its scale and bias are
     arguments, and no model holds it."""
+    if model is not None:
+        from gfe_mamba_torch.utils.convert_zoo import zoo_state_dict_from_jax
+        return zoo_state_dict_from_jax(params, model)
     stats = {}
     if set(params) <= {"params", "batch_stats"} and "params" in params:
         params, stats = params["params"], params.get("batch_stats", {})

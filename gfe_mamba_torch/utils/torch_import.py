@@ -141,3 +141,75 @@ def import_jamba_hf(state_dict: Mapping, model: torch.nn.Module
         for target, value in zip(want[key], views):
             target.copy_(value)
     return model
+
+
+# ---------------------------------------------------------------------------
+# The vendored ViT zoo's 3D-capable members (vit_pytorch_diy's vit_3d.py,
+# simple_vit_3d.py, vivit.py, cct.py / cct_3d.py) -> models/vit_zoo*.py.
+# Those port models carry the reference's keys and layouts (ViT3D its
+# (f h w) position rows, SimpleViT3D its (p1 p2 pf c) patches, CCT its
+# channels-first convs), so an import is a strict load_state_dict plus
+# what the JAX mappings do beyond renaming.
+
+# simple_vit_3d.py's keys -> the port's ``Transformer``'s: its bias-free
+# plain ``to_out`` Linear and its dropout-free feed-forward, whose second
+# Linear is ``net.3``
+_SIMPLE_FLAVOUR = ((re.compile(r"(\.layers\.\d+\.0\.to_out)\.weight$"),
+                    r"\1.0.weight"),
+                   (re.compile(r"(\.layers\.\d+\.1\.net)\.3\."), r"\1.4."))
+
+
+@torch.no_grad()
+def _load(model: torch.nn.Module, state_dict: Mapping) -> torch.nn.Module:
+    """A strict ``load_state_dict`` (every tensor of the model filled, no
+    key left over, shapes equal), onto the model's device and dtypes."""
+    model.load_state_dict({k: _tensor(v) for k, v in state_dict.items()})
+    return model
+
+
+def import_vit3d(state_dict: Mapping, model: torch.nn.Module
+                 ) -> torch.nn.Module:
+    """vit_3d.py ``ViT`` checkpoint -> the port's ``ViT3D`` ``model``, in
+    place; returns it."""
+    return _load(model, state_dict)
+
+
+def import_simple_vit3d(state_dict: Mapping, model: torch.nn.Module
+                        ) -> torch.nn.Module:
+    """simple_vit_3d.py ``SimpleViT`` checkpoint -> the port's
+    ``SimpleViT3D``: its keys renamed to the port's, a zero bias for each
+    bias-free attention output (as JAX's importer zero-fills)."""
+    sd = {}
+    for key, value in state_dict.items():
+        for pattern, repl in _SIMPLE_FLAVOUR:
+            key = pattern.sub(repl, key)
+        sd[key] = _tensor(value)
+        if key.endswith("to_out.0.weight") and \
+                key[:-len("weight")] + "bias" not in state_dict:
+            sd[key[:-len("weight")] + "bias"] = torch.zeros(
+                sd[key].shape[0])
+    return _load(model, sd)
+
+
+def import_vivit(state_dict: Mapping, model: torch.nn.Module
+                 ) -> torch.nn.Module:
+    """vivit.py ``ViT`` (factorized) checkpoint -> the port's ``ViViT``."""
+    return _load(model, state_dict)
+
+
+def import_cct(state_dict: Mapping, model: torch.nn.Module
+               ) -> torch.nn.Module:
+    """cct.py / cct_3d.py ``CCT`` checkpoint -> the port's ``CCT`` (2D or
+    3D, as the model was built).  A 'sine' position table is recomputed,
+    not read: the checkpoint's copy is checked against it and dropped."""
+    sd = dict(state_dict)
+    key = "classifier.positional_emb"
+    table = getattr(model.classifier, "positional_emb", None)
+    if key in sd and table is not None and \
+            key not in model.state_dict():
+        if not torch.allclose(_tensor(sd[key]).float(), table.float().cpu(),
+                              atol=1e-5):
+            raise ValueError(f"{key}: not the sine table the model "
+                             f"recomputes")
+        del sd[key]
+    return _load(model, sd)
