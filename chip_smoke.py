@@ -178,7 +178,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    1e-6, then loss + backward timed at batch 32; (g) ``augment2d`` on 32
    images of 256x256x3: each op and ``ssl_views_batch`` (224 and 96)
    within 1e-5 of the CPU with the CPU's draws replayed on the card under
-   CUDA's sync debug mode set to raise, each timed.
+   CUDA's sync debug mode set to raise, each timed;
+18. the ViT zoo's second half (``models/vit_zoo_hier.py``,
+   ``models/vit_zoo_final.py``) at the README examples' widths, f32 with
+   TF32 off, eval mode, no kernel: weights drawn on the CPU from a seed,
+   each output card against CPU at batch 2 within 1e-4 of the CPU's
+   largest magnitude, then timed at batch 32 with its FLOPs and peak
+   memory: (a) LeViT, MaxViT, TwinsSVT, XCiT, CrossFormer, RegionViT,
+   ScalableViT, SepViT; (b) MaxViT with 4 registers, RvT, the memory
+   adapter (5 memories per layer, 2 classes); (c) ATSViT with the CPU's
+   Gumbel uniforms handed to the card, its sampled ids exactly the CPU's
+   before its logits are compared; (d) NaViT over the README's five
+   images packed by the port's packer, timed over 32 images of mixed
+   sides packed at ``max_seq_len`` 256; (e) SimMIM, MP3, DistillWrapper
+   and EsViT's projector with both losses: loss and every gradient
+   against the CPU with the draws shared, loss + backward timed;
+   (f) ``extract`` and ``record_attention`` on phase 17(a)'s ViT-B-like
+   ClassifierViT: maps against the CPU, rows summing to 1, the logits
+   with the hooks bitwise those without them.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  K1's ``ms``, ``plain_ms``,
@@ -3721,34 +3738,44 @@ def p17_volumes(card: str, seed: int = 185) -> dict:
 
 
 def p17_loss_and_grads(card: str, name: str, model, step, x, xb,
-                       share, unshare, batch: int = P17_BATCH) -> dict:
+                       share, unshare, batch: int = P17_BATCH,
+                       phase: str = "17(f)") -> dict:
     """A loss and its backward on the CPU and on the card from the same
     weights, inputs and draws (``share``): the loss and every gradient
     within 1e-4 of the CPU's own largest magnitude; then (``unshare``:
     draws from a CUDA generator) the forward and backward timed at the
-    batch of ``xb``."""
+    batch of ``xb``.  ``phase`` labels the log lines."""
     from torch.utils.flop_counter import FlopCounterMode
 
     share()
     loss = step(model, x)
     loss.backward()
-    want = {k: p.grad.clone() for k, p in model.named_parameters()}
+    # a parameter the loss does not reach (MP3's ViT head) has no
+    # gradient on either side
+    want = {k: p.grad.clone() for k, p in model.named_parameters()
+            if p.grad is not None}
     model.zero_grad(set_to_none=True)
     model.cuda()
     got_loss = step(model, x.cuda())
     got_loss.backward()
-    check_close(f"(f) {name} loss", got_loss, loss, 1e-4, phase=17)
+    check_close(f"{phase[2:]} {name} loss", got_loss, loss, 1e-4,
+                phase=int(phase[:2]))
     worst, where = 0.0, ""
     for key, p in model.named_parameters():
+        if (key in want) != (p.grad is not None):
+            raise AssertionError(f"phase {phase} {name}: {key} has a "
+                                 f"gradient on one side only")
+        if key not in want:
+            continue
         err, _ = rel_err(p.grad, want[key])
         scale = want[key].abs().max().item()
         rel = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
         if not rel <= 1e-4:
-            raise AssertionError(f"phase 17(f) {name}: gradient of {key} "
+            raise AssertionError(f"phase {phase} {name}: gradient of {key} "
                                  f"rel {rel} from the CPU's")
         if rel >= worst:
             worst, where = rel, key
-    log(f"phase 17(f) {name}: {len(want)} gradients card vs CPU, worst "
+    log(f"phase {phase} {name}: {len(want)} gradients card vs CPU, worst "
         f"rel {worst:.3e} ({where}; tol 1e-4)")
     unshare()
     model.zero_grad(set_to_none=True)
@@ -3763,7 +3790,7 @@ def p17_loss_and_grads(card: str, name: str, model, step, x, xb,
     with FlopCounterMode(display=False) as flops:
         train_step()
     tflop = flops.get_total_flops() / 1e12
-    log(f"phase 17(f) {name}: loss + backward at batch {batch} f32 "
+    log(f"phase {phase} {name}: loss + backward at batch {batch} f32 "
         f"{ms:.3f} ms, {tflop:.4f} TFLOP ({tflop / ms * 1e3:.1f} TFLOP/s), "
         f"peak memory {peak:.2f} GiB [{card}]")
     return dict(ms=ms, tflops=tflop / ms * 1e3, peak_gib=peak,
@@ -3982,6 +4009,414 @@ def drive_zoo(card: str) -> dict:
     return out
 
 
+# phase 18: the ViT zoo's second half (``models/vit_zoo_hier.py``,
+# ``models/vit_zoo_final.py``) at the widths of upstream vit-pytorch's
+# README usage examples, f32 with TF32 off, eval mode, no kernel; the
+# card-against-CPU checks at batch 2, the timing at batch 32, never at
+# smaller widths or depths
+P18_BATCH = 32
+P18_PARITY_BATCH = 2
+P18_NAVIT_SIDES = (64, 128, 256)
+P18_NAVIT_IMAGES = 32
+P18_NAVIT_SEQ = 256
+
+
+def p18_image_models() -> list:
+    """(part, name, make, input shape without the batch) of the image
+    classifiers; widths of each README example, mapped onto the JAX fields
+    (the JAX default where a field has none, or where the README gives a
+    sequence for one value: XCiT's layer_dropout, ScalableViT's per-stage
+    ssa_dim_key, RvT's emb_dropout)."""
+    from gfe_mamba_torch.models import vit_zoo_final as f
+    from gfe_mamba_torch.models import vit_zoo_hier as h
+
+    i224, i256 = (224, 224, 3), (256, 256, 3)
+    maxvit = dict(num_classes=1000, dim_conv_stem=64, dim=96, dim_head=32,
+                  depth=(2, 2, 5, 2), window_size=7,
+                  mbconv_expansion_rate=4, mbconv_shrinkage_rate=0.25)
+    vit1024 = dict(image_size=256, num_classes=1000, dim=1024, depth=6,
+                   heads=16, mlp_dim=2048)
+    return [
+        ("(a)", "LeViT", lambda: h.LeViT(224, 1000, (256, 384, 512), 4,
+                                         (4, 6, 8), mlp_mult=2), i224),
+        ("(a)", "MaxViT", lambda: h.MaxViT(**maxvit), i224),
+        ("(a)", "TwinsSVT", lambda: h.TwinsSVT(1000), i224),
+        ("(a)", "XCiT",
+         lambda: h.XCiT(256, 32, 1000, 1024, 12, 2, 16, 2048), i256),
+        ("(a)", "CrossFormer", lambda: h.CrossFormer(1000), i224),
+        ("(a)", "RegionViT", lambda: h.RegionViT(1000), i224),
+        ("(a)", "ScalableViT",
+         lambda: h.ScalableViT(1000, 64, (2, 2, 20, 2), (2, 4, 8, 16),
+                               (8, 4, 2, 1), (64, 32, None, None)), i256),
+        ("(a)", "SepViT",
+         lambda: h.SepViT(1000, 32, (1, 2, 6, 2), (1, 2, 4, 8), 7, 32,
+                          image_size=224), i224),
+        ("(b)", "MaxViTWithRegisters",
+         lambda: f.MaxViTWithRegisters(**maxvit, num_register_tokens=4),
+         i224),
+        ("(b)", "RvT", lambda: f.RvT(patch_size=32, **vit1024), i256),
+        ("(b)", "MemoryAdapter",
+         lambda: f.MemoryAdapter(f.MemoryViT(
+             256, 16, 1000, 1024, 6, 8, 2048), 5, 2), i256),
+    ]
+
+
+def p18_outputs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def p18_forward(card: str, tag: str, name: str, model, call, inputs,
+                timed_inputs) -> dict:
+    """``call(model, *inputs)`` card against CPU (each output within 1e-4
+    of the CPU's largest magnitude, integer and boolean ones equal), then
+    :func:`p18_time` at ``timed_inputs``."""
+    with torch.inference_mode():
+        want = p18_outputs(call(model, *inputs))
+    model.cuda()
+    with torch.inference_mode():
+        got = p18_outputs(call(model, *(t.cuda() for t in inputs)))
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.dtype == torch.bool or not a.is_floating_point():
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"phase 18{tag} {name}: output {i} "
+                                     f"differs from the CPU's")
+            continue
+        worst = max(worst, check_close(
+            f"{tag} {name} output {i} {tuple(a.shape)}", a, b, 1e-4,
+            phase=18)[1])
+    return dict(p18_time(card, tag, name, model, call, timed_inputs),
+                rel=worst)
+
+
+def p18_time(card: str, tag: str, name: str, model, call,
+             timed_inputs) -> dict:
+    """``call(model, *timed_inputs)`` on the card timed by CUDA events,
+    its FLOPs (``torch.utils.flop_counter``) and peak memory; the outputs
+    finite."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = time_ms(lambda: call(model, *timed_inputs), reps=3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model.requires_grad_(False)
+    with torch.inference_mode(), FlopCounterMode(display=False) as flops:
+        out = p18_outputs(call(model, *timed_inputs))
+    model.requires_grad_(True)
+    if not all(torch.isfinite(t).all() for t in out
+               if t.is_floating_point()):
+        raise AssertionError(f"phase 18{tag} {name}: outputs not finite")
+    tflop = flops.get_total_flops() / 1e12
+    shape = tuple(timed_inputs[0].shape)
+    log(f"phase 18{tag} {name}: forward at {shape} f32 {ms:.3f} ms, "
+        f"{tflop:.4f} TFLOP ({tflop / ms * 1e3:.1f} TFLOP/s, "
+        f"{tflop * 1e12 / PEAK_F32 / ms * 1e3:.1%} of the f32 peak), peak "
+        f"memory {peak:.2f} GiB [{card}]")
+    return dict(ms=ms, tflops=tflop / ms * 1e3, peak_gib=peak)
+
+
+def p18_classifier(card: str, tag: str, name: str, make, shape,
+                   seed: int) -> dict:
+    """Weights from ``seed`` on the CPU (``init_zoo``), eval mode; the
+    logits (and pooled features where the model has them) card against
+    CPU at ``P18_PARITY_BATCH``, the forward timed at ``P18_BATCH``."""
+    model = zoo_model(make, seed).eval()
+    g = torch.Generator().manual_seed(seed)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(P18_PARITY_BATCH, *shape, generator=g)
+    xb = torch.rand(P18_BATCH, *shape, device="cuda", generator=cuda_gen)
+    if hasattr(model, "features"):
+        call = (lambda m, v: (m.features(v), m(v)) if v.shape[0] ==
+                P18_PARITY_BATCH else m(v))
+    else:
+        call = (lambda m, v: m(v))
+    out = p18_forward(card, tag, name, model, call, (x,), (xb,))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def p18_ats(card: str, seed: int = 230) -> dict:
+    """(c) ATSViT (256/16, dim 1024, depth 6, tokens 256 .. 8, 16 heads):
+    the CPU's Gumbel uniforms handed to the card, the sampled ids exactly
+    the CPU's (else the smallest gap between a draw's two best perturbed
+    scores is reported), then the logits; timed with draws from a CUDA
+    generator."""
+    from gfe_mamba_torch.models import vit_zoo_final as f
+
+    model = zoo_model(lambda: f.ATSViT(256, 16, 1000, 1024, 6,
+                                       (256, 128, 64, 32, 16, 8), 16, 2048),
+                      seed).eval()
+    g = torch.Generator().manual_seed(seed)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(P18_PARITY_BATCH, 256, 256, 3, generator=g)
+    xb = torch.rand(P18_BATCH, 256, 256, 3, device="cuda",
+                    generator=cuda_gen)
+    layers = [m for m in model.modules() if isinstance(m, f._ATSAttention)]
+    tape = {}
+
+    def taped(i):
+        def uniforms(shape, gen, device):
+            if i not in tape:
+                tape[i] = torch.rand(shape, generator=g)
+            return tape[i].to(device)
+        return uniforms
+
+    margins = {"CPU": math.inf, "card": math.inf}
+    side = ["CPU"]
+    perturbed = f._ats_perturbed
+
+    def recording(attn, *args):
+        s = perturbed(attn, *args)
+        top = s.topk(2, dim=-1).values
+        margins[side[0]] = min(margins[side[0]],
+                               (top[..., 0] - top[..., 1]).min().item())
+        return s
+
+    for i, m in enumerate(layers):
+        m.uniforms = taped(i)
+    f._ats_perturbed = recording
+    try:
+        with torch.inference_mode():
+            want, want_ids = model(x, None, return_sampled_token_ids=True)
+        model.cuda()
+        side[0] = "card"
+        with torch.inference_mode():
+            got, ids = model(x.cuda(), None, return_sampled_token_ids=True)
+    finally:
+        f._ats_perturbed = perturbed
+    log(f"phase 18(c) ATSViT: {len(tape)} sampling layers, smallest gap "
+        f"between a draw's two best perturbed scores CPU "
+        f"{margins['CPU']:.3e} card {margins['card']:.3e}")
+    if not torch.equal(ids.cpu(), want_ids):
+        raise AssertionError(
+            f"phase 18(c) ATSViT: {(ids.cpu() != want_ids).sum().item()} "
+            f"sampled ids differ from the CPU's (smallest gap "
+            f"{margins['CPU']:.3e})")
+    log(f"phase 18(c) ATSViT: the {want_ids.numel()} sampled ids equal the "
+        f"CPU's")
+    rel = check_close("(c) ATSViT logits with the shared draws", got, want,
+                      1e-4, phase=18)[1]
+    for m in layers:
+        del m.uniforms
+    out = dict(p18_time(card, "(c)", "ATSViT", model,
+                        lambda m, v: m(v, cuda_gen), (xb,)), rel=rel)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def p18_navit(card: str, seed: int = 231) -> dict:
+    """(d) NaViT (256/32, dim 1024, depth 6, 16 heads, token dropout 0.1):
+    the README's five images (256x256, 128x128 | 128x256, 256x128 |
+    64x256) packed by the port's packer, card against CPU; then 32 images
+    of sides drawn from {64, 128, 256}, grouped and packed at
+    ``max_seq_len`` 256, timed.  Packing is host time, outside the timed
+    forward (logged)."""
+    import numpy as np
+
+    from gfe_mamba_torch.models import vit_zoo_final as f
+
+    rng = np.random.default_rng(seed)
+    readme = [[(256, 256), (128, 128)], [(128, 256), (256, 128)],
+              [(64, 256)]]
+    groups = [[rng.random((h, w, 3), dtype=np.float32) for h, w in group]
+              for group in readme]
+    sides = rng.choice(P18_NAVIT_SIDES, size=(P18_NAVIT_IMAGES, 2))
+    images = [rng.random((h, w, 3), dtype=np.float32) for h, w in sides]
+    t = time.perf_counter()
+    timed_groups = f.group_images_by_max_seq_len(
+        images, 32, lambda h, w: 0.1, P18_NAVIT_SEQ)
+    timed = f.pack_images(timed_groups, 32, P18_NAVIT_SEQ, 0.1, seed=seed)
+    pack_s = time.perf_counter() - t
+    packed = f.pack_images(groups, 32, P18_NAVIT_SEQ, 0.1, seed=seed)
+    most = max(len(g) for g in timed_groups + groups)
+    model = zoo_model(lambda: f.NaViT(256, 32, 1000, 1024, 6, 16, 2048,
+                                      max_images=most), seed).eval()
+    names = ("patches", "positions", "image_ids", "mask")
+    inputs = tuple(torch.from_numpy(packed[k]) for k in names)
+    timed_inputs = tuple(torch.from_numpy(timed[k]).cuda() for k in names)
+    log(f"phase 18(d) NaViT: {P18_NAVIT_IMAGES} images in "
+        f"{len(timed_groups)} groups of at most {most} "
+        f"({int(timed['mask'].sum())} of "
+        f"{timed['mask'].size} token slots filled), packed on the host in "
+        f"{pack_s * 1e3:.1f} ms")
+    out = p18_forward(card, "(d)", "NaViT", model, lambda m, *a: m(*a),
+                      inputs, timed_inputs)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def p18_losses(card: str, seed: int = 232) -> dict:
+    """(e) the pretraining and adapter losses, loss + backward card
+    against CPU at ``P18_PARITY_BATCH`` with the draws shared, then timed
+    at ``P18_BATCH``: SimMIM (256/32, 1024, depth 6, 8 heads, masking
+    0.5), MP3 (256/8, masking 0.75), DistillWrapper (student 256/32, T 3,
+    alpha 0.5; seeded teacher logits) and EsViTProjector (4 layers,
+    hidden 256, out 65336) under both EsViT losses over 49 region tokens
+    of width 384."""
+    from gfe_mamba_torch.models import vit_zoo_final as f
+
+    out = {}
+    b, bb = P18_PARITY_BATCH, P18_BATCH
+    g = torch.Generator().manual_seed(seed)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.rand(b, 256, 256, 3, generator=g)
+    imgb = torch.rand(bb, 256, 256, 3, device="cuda", generator=cuda_gen)
+    enc = dict(image_size=256, dim=1024, depth=6, heads=8, mlp_dim=2048)
+
+    simmim = zoo_model(lambda: f.SimMIM(patch_size=32, masking_ratio=0.5,
+                                        **enc), seed)
+    masked = f.SimMIM.masked_indices(b, simmim.pos_embedding.shape[1] - 1,
+                                     simmim.num_masked, g, "cpu")
+
+    def simmim_share():
+        simmim.masked_indices = lambda *a: masked.to(a[-1])
+
+    def simmim_unshare():
+        del simmim.masked_indices
+
+    out["SimMIM"] = p17_loss_and_grads(
+        card, "SimMIM", simmim,
+        lambda m, v: m(v, cuda_gen if v.is_cuda else g), img, imgb,
+        simmim_share, simmim_unshare, P18_BATCH, "18(e)")
+    del simmim
+
+    mp3 = zoo_model(lambda: f.MP3(f.MP3ViT(patch_size=8, num_classes=1000,
+                                           **enc), 0.75), seed + 1)
+    order = f.MP3.permutation(b, mp3.mlp_head_dense.out_features, g, "cpu")
+
+    def mp3_share():
+        mp3.permutation = lambda *a: order.to(a[-1])
+
+    def mp3_unshare():
+        del mp3.permutation
+
+    out["MP3"] = p17_loss_and_grads(
+        card, "MP3", mp3, lambda m, v: m(v, cuda_gen if v.is_cuda else g),
+        img, imgb, mp3_share, mp3_unshare, P18_BATCH, "18(e)")
+    del mp3
+
+    wrapper = zoo_model(lambda: f.DistillWrapper(f.DistillableViT(
+        patch_size=32, num_classes=1000, **enc), temperature=3.0,
+        alpha=0.5), seed + 2)
+    teacher = torch.randn(bb, 1000, generator=g)
+    labels = torch.randint(0, 1000, (bb,), generator=g)
+
+    def distill_step(m, v):
+        n = v.shape[0]
+        return m(v, labels[:n].to(v.device), teacher[:n].to(v.device))
+
+    out["DistillWrapper"] = p17_loss_and_grads(
+        card, "DistillWrapper", wrapper, distill_step, img, imgb,
+        lambda: None, lambda: None, P18_BATCH, "18(e)")
+    del wrapper
+
+    student = zoo_model(lambda: f.EsViTProjector(65336, 4, 256, dim=384),
+                        seed + 3)
+    teacher_head = zoo_model(lambda: f.EsViTProjector(65336, 4, 256,
+                                                      dim=384), seed + 4)
+    feats = torch.randn(2, b, 49, 384, generator=g)
+    featsb = torch.randn(2, bb, 49, 384, device="cuda", generator=cuda_gen)
+    centers = torch.randn(2, 1, 65336, generator=g) * 0.1
+
+    def esvit_step(m, v):
+        c = centers.to(v.device)
+        with torch.no_grad():
+            head = teacher_head.to(v.device)
+            t_view, t_regions = head(v[0].mean(dim=1)), head(v[0])
+        view = f.esvit_view_loss(t_view, m(v[1].mean(dim=1)), c[0])
+        region = f.esvit_region_loss(t_regions, m(v[1]), v[0], v[1], c[1])
+        return view + region
+
+    out["EsViT"] = p17_loss_and_grads(
+        card, "EsViTProjector + esvit losses", student, esvit_step, feats,
+        featsb, lambda: None, lambda: None, P18_BATCH, "18(e)")
+    check_close("(e) esvit_center_update",
+                f.esvit_center_update(centers[0].cuda(), centers[1].cuda()),
+                f.esvit_center_update(centers[0], centers[1]), 1e-6,
+                phase=18)
+    del student, teacher_head
+    torch.cuda.empty_cache()
+    return out
+
+
+def p18_record(card: str, seed: int = 233) -> dict:
+    """(f) ``extract`` and ``record_attention`` on phase 17's ClassifierViT
+    (256/32, dim 1024, depth 6, 16 heads): the latent, the maps and the
+    logits card against CPU at ``P18_PARITY_BATCH``, every map's rows
+    summing to 1, the logits with the recorder bitwise those without it;
+    the recorded forward timed beside the plain one at ``P18_BATCH``."""
+    from gfe_mamba_torch.models import vit_zoo as z
+    from gfe_mamba_torch.models import vit_zoo_final as f
+
+    model = zoo_model(lambda: z.ClassifierViT(256, 32, 1000, 1024, 6, 16,
+                                              2048), seed).eval()
+    g = torch.Generator().manual_seed(seed)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(P18_PARITY_BATCH, 256, 256, 3, generator=g)
+    xb = torch.rand(P18_BATCH, 256, 256, 3, device="cuda",
+                    generator=cuda_gen)
+    with torch.inference_mode():
+        want, want_latent = f.extract(model, x)
+        _, want_maps = f.record_attention(model, x)
+    model.cuda()
+    with torch.inference_mode():
+        got, latent = f.extract(model, x.cuda())
+        recorded, maps = f.record_attention(model, x.cuda())
+        plain = model(x.cuda())
+    if maps.shape != (P18_PARITY_BATCH, 6, 16, 65, 65):
+        raise AssertionError(f"phase 18(f): maps {tuple(maps.shape)}")
+    worst = max(check_close(f"(f) extract {name}", a, b, 1e-4,
+                            phase=18)[1]
+                for name, a, b in (("logits", got, want),
+                                   ("latent", latent, want_latent),
+                                   ("attention maps", maps, want_maps)))
+    rows = (maps.sum(dim=-1) - 1).abs().max().item()
+    if not rows <= 1e-5:
+        raise AssertionError(f"phase 18(f): map rows sum to 1 within {rows}")
+    if not (torch.equal(recorded, plain) and torch.equal(got, plain)):
+        raise AssertionError("phase 18(f): logits with the hooks differ "
+                             "from those without them")
+    with torch.inference_mode():
+        plain_ms = time_ms(lambda: model(xb), reps=3)
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: f.record_attention(model, xb), reps=3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"phase 18(f) record_attention: rows sum to 1 within {rows:.1e}, "
+        f"logits bitwise those without hooks; at batch {P18_BATCH} "
+        f"{ms:.3f} ms recorded vs {plain_ms:.3f} ms plain, peak memory "
+        f"{peak:.2f} GiB [{card}]")
+    del model
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, peak_gib=peak, rel=worst)
+
+
+def drive_zoo_final(card: str) -> dict:
+    """Phase 18: ``models/vit_zoo_hier.py`` and ``models/vit_zoo_final.py``
+    on the card, f32 with TF32 off, eval mode."""
+    t0 = time.perf_counter()
+    out = {}
+    with tf32_settings(False, False):
+        for i, (tag, name, make, shape) in enumerate(p18_image_models()):
+            out[name] = p18_classifier(card, tag, name, make, shape,
+                                       210 + i)
+        out["ATSViT"] = p18_ats(card)
+        out["NaViT"] = p18_navit(card)
+        out.update(p18_losses(card))
+        out["record_attention"] = p18_record(card)
+    log("phase 18 summary: " + json.dumps(
+        {k: {m: float(f"{n:.4g}") for m, n in v.items()}
+         for k, v in out.items()}))
+    worst = max(v.get("rel", v.get("grad_rel", 0.0)) for v in out.values())
+    log(f"phase 18: {len(out)} entries, worst card-vs-CPU rel "
+        f"{worst:.3e}; {time.perf_counter() - t0:.1f} s of wall [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -4035,6 +4470,7 @@ def main() -> int:
     seg = drive_segmentation(card)
     other_modules = drive_other_modules(card)
     drive_zoo(card)
+    drive_zoo_final(card)
     kernels[0]["seg_launches"] = seg["launches"]["K1"]
     kernels[0]["seg"] = dict(per="UNet3D forward, 64x128x128, batch 1, f32",
                              version=K1_F32_VERSION,

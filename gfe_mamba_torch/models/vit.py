@@ -41,7 +41,10 @@ class SwapTokens(nn.Module):
 
 
 class Attention(nn.Module):
-    """Pre-norm multi-head self-attention (``ViTAttention``)."""
+    """Pre-norm multi-head self-attention (``ViTAttention``).  The softmax
+    is the submodule ``attend`` (no parameters), where
+    ``vit_zoo_final.record_attention`` hooks the maps, as the reference's
+    Recorder hooks ``attend`` and JAX sows them."""
 
     def __init__(self, dim: int, heads: int, dim_head: int,
                  dropout: float = 0.0):
@@ -50,6 +53,7 @@ class Attention(nn.Module):
         inner = heads * dim_head
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
+        self.attend = nn.Softmax(dim=-1)
         self.attn_drop = Dropout(dropout)
         project_out = not (heads == 1 and dim_head == dim)
         self.to_out = nn.Sequential(nn.Linear(inner, dim), Dropout(dropout)) \
@@ -60,9 +64,8 @@ class Attention(nn.Module):
         qkv = self.to_qkv(self.norm(x))
         q, k, v = (t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
-        attn = torch.softmax(
-            torch.einsum("bhid,bhjd->bhij", q, k) * self.dim_head ** -0.5,
-            dim=-1)
+        attn = self.attend(
+            torch.einsum("bhid,bhjd->bhij", q, k) * self.dim_head ** -0.5)
         out = torch.einsum("bhij,bhjd->bhid", self.attn_drop(attn), v)
         return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
 

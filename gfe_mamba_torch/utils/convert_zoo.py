@@ -37,9 +37,16 @@ _VIT_RULES = [
     (r"^ff_(\d+)/Dense_1/", r"layers/\1/1/net/4/"),
 ]
 
-_AUTO_EMBED = [(r"^LayerNorm_0/", "to_patch_embedding/1/"),
-               (r"^Dense_0/", "to_patch_embedding/2/"),
-               (r"^LayerNorm_1/", "to_patch_embedding/3/")]
+
+
+def _auto_embed(prefix: str = "") -> list:
+    """flax's automatic names of a patch embedding (under ``prefix``)."""
+    return [(rf"^{prefix}LayerNorm_0/", f"{prefix}to_patch_embedding/1/"),
+            (rf"^{prefix}Dense_0/", f"{prefix}to_patch_embedding/2/"),
+            (rf"^{prefix}LayerNorm_1/", f"{prefix}to_patch_embedding/3/")]
+
+
+_AUTO_EMBED = _auto_embed()
 _NAMED_EMBED = [(r"^patch_norm1/", "to_patch_embedding/1/"),
                 (r"^patch_embed/", "to_patch_embedding/2/"),
                 (r"^patch_norm2/", "to_patch_embedding/3/")]
@@ -64,6 +71,12 @@ _MODEL_RULES = {
             (r"^(attention_pool|fc)/", r"classifier/\1/"),
             (r"^class_emb$", "classifier/class_emb"),
             (r"^pos_embedding$", "classifier/positional_emb")],
+    # LayerScale's flax ``scale`` is the port's ``gamma`` (a ``scale``
+    # leaf becomes a norm's ``weight``)
+    "XCiT": [(r"_scale/scale$", "_scale/gamma")],
+    "ATSViT": _AUTO_EMBED,
+    "DistillableViT": _AUTO_EMBED,
+    "DistillWrapper": _auto_embed("student/"),
 }
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
