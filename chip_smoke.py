@@ -195,7 +195,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    against the CPU with the draws shared, loss + backward timed;
    (f) ``extract`` and ``record_attention`` on phase 17(a)'s ViT-B-like
    ClassifierViT: maps against the CPU, rows summing to 1, the logits
-   with the hooks bitwise those without them.
+   with the hooks bitwise those without them;
+19. what closes the port: (a) every name of the nine ``__init__.py``
+   files' re-exports resolves (89 names and ``config``), with no JAX on
+   the machine, and ``ops.scan.linear_recurrence`` at (4, 53, 1024) f32
+   in both modes against the CPU (1e-5 of the CPU's largest magnitude);
+   (b) ``cli/generation_evaluation`` (f32, TF32 off) over 2 batches of a
+   synthetic 160x160x96 tree with the canonical generator of
+   ``configs/main_gan_vit_config.yaml`` from a seeded npz: K1 10 times
+   per batch (its f32 variant; phase 3 holds that variant with and
+   without the residual epilogue at each level), the first batch's PSNR
+   and MSE against the same tool on the CPU within twice the distance
+   of a witness run on the card with the plain convs (and 1e-3,
+   relative), each batch timed; (c) ``cli/view_nii --normalize`` on one written NIfTI:
+   the PNG decodes to the grid computed on the CPU, exactly; (d)
+   ``quality_torch.py --smoke`` at the small geometry (f32) and at the
+   canonical one (160x160x96, its widths, bf16, 4 + 2 + 2 subjects):
+   K1, K1-dz, K3, K2 and K4 each launched (K1-dz read inside the conv
+   Function's backward), the metrics finite; K1 (both epilogues), K1-dz
+   and K3 against their plain versions at the small path's f32 shapes,
+   K2 and K4 at the scan shape its Stage 2 gave (the canonical path's
+   shapes and dtypes are phases 3 and 6's).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  K1's ``ms``, ``plain_ms``,
@@ -218,7 +238,10 @@ its check and times on that model's first layer as ``hf_jamba``;
 over its Stage-2 and Stage-1 steps; K1's and K3's ``seg_launches``
 their launches over phase 15(b) and (c), and ``seg`` their f32 times
 of 15(e) (K1 per UNet3D forward, its dz and K3 per training step) with
-their TFLOP/s and shares of the f32 peak.
+their TFLOP/s and shares of the f32 peak; every kernel's
+``quality_launches`` its launches over phase 19(d)'s smoke run of each
+geometry (K1's forward ones, its dz in ``quality_dz_launches``), and
+K1's ``gen_eval_launches`` those of phase 19(b).
 """
 
 from __future__ import annotations
@@ -4417,6 +4440,297 @@ def drive_zoo_final(card: str) -> dict:
     return out
 
 
+# phase 19: the small quality path's f32 conv levels (batch 8), and
+# generation_evaluation's batches and its CPU reference
+P19_SMALL_LEVELS = (((32, 32, 16), 8), ((16, 16, 8), 16), ((8, 8, 4), 32))
+P19_QUALITY_BATCH = 8
+P19_GEN_EVAL_BATCHES = 2
+P19_GEN_CONFIG = os.path.join(REPO, "configs", "main_gan_vit_config.yaml")
+
+
+def p19_imports_and_recurrence(card: str) -> int:
+    """(a) every re-exported name, and ``linear_recurrence`` card vs CPU."""
+    import importlib
+
+    names = 0
+    for sub in ("models", "ops", "data", "parallel", "segmentation",
+                "training", "utils", "losses"):
+        pkg = importlib.import_module(f"gfe_mamba_torch.{sub}")
+        for name in pkg.__all__:
+            getattr(pkg, name)
+            names += 1
+    import gfe_mamba_torch
+    getattr(gfe_mamba_torch, "config")
+    names += 1
+    if names != 90:
+        raise AssertionError(f"phase 19(a): {names} re-exported names, "
+                             f"expected 90")
+    from gfe_mamba_torch.ops.scan import linear_recurrence
+
+    g = torch.Generator().manual_seed(190)
+    coeffs = torch.rand(4, 53, 1024, generator=g) * 0.5 + 0.5
+    values = torch.randn(4, 53, 1024, generator=g)
+    for mode in ("associative", "sequential"):
+        want = linear_recurrence(coeffs, values, mode=mode)
+        got = linear_recurrence(coeffs.cuda(), values.cuda(), mode=mode)
+        check_close(f"(a) linear_recurrence {mode}", got, want, 1e-5,
+                    phase=19)
+    log(f"phase 19(a): {names} re-exported names resolve; "
+        f"linear_recurrence at (4, 53, 1024) in both modes [{card}]")
+    return names
+
+
+def p19_gen_eval(card: str, root: str) -> dict:
+    """(b) ``cli/generation_evaluation`` on the card and, for its first
+    batch, on the CPU."""
+    import argparse
+
+    from gfe_mamba_torch.cli import generation_evaluation
+    from gfe_mamba_torch.cli.common import generator_kwargs
+    from gfe_mamba_torch.config import load_config
+    from gfe_mamba_torch.data.synthetic import make_mri2pet_tree
+    from gfe_mamba_torch.models.pipeline import build_generator
+    from gfe_mamba_torch.ops.cuda import conv3d as k1
+    from gfe_mamba_torch.training.checkpoint import save_params_npz
+
+    cf = dict(load_config(P19_GEN_CONFIG))
+    cf["eval_path"] = make_mri2pet_tree(
+        os.path.join(root, "gen_eval_tree"),
+        n_subjects=P19_GEN_EVAL_BATCHES * cf["eval_bc"],
+        shape=tuple(cf["img_sz"]), seed=19)
+    config = os.path.join(root, "gen_eval.yaml")
+    with open(config, "w") as f:
+        f.write(yaml_text(cf))
+    ckpt = os.path.join(root, "generator.npz")
+    save_params_npz(ckpt, build_generator(
+        seed=19, device="cpu", **generator_kwargs(cf, remat_default=False)))
+
+    def run(device, batches, out):
+        return generation_evaluation.main(argparse.Namespace(
+            config_path=config, ckpt=ckpt, num_batches=batches,
+            out_dir=os.path.join(root, out), device=device))
+
+    with tf32_settings(False, False):
+        k1.launches = 0
+        got = run(None, P19_GEN_EVAL_BATCHES, "gen_eval_card")
+        launches = k1.launches
+        with plain_convs_on_card():
+            witness = run(None, 1, "gen_eval_witness")
+        t = time.perf_counter()
+        want = run("cpu", 1, "gen_eval_cpu")
+        cpu_s = time.perf_counter() - t
+    if launches != 10 * P19_GEN_EVAL_BATCHES:
+        raise AssertionError(f"phase 19(b): {launches} K1 launches over "
+                             f"{P19_GEN_EVAL_BATCHES} batches, expected 10 "
+                             f"per batch")
+    # the random generator's relu masks flip between two f32 devices, so
+    # the kernels are held to the CPU within twice the distance of the
+    # same tool on the card with the plain convs (and within 1e-3)
+    for key in ("psnr", "mse"):
+        a, w, b = got[key][0], witness[key][0], want[key][0]
+        dist, witness_dist = abs(a - b) / abs(b), abs(w - b) / abs(b)
+        tol = max(1e-3, 2 * witness_dist)
+        log(f"phase 19(b) {key}: kernels {a}, plain convs on the card {w}, "
+            f"CPU {b}: relative distance {dist:.3e} (witness "
+            f"{witness_dist:.3e}, tol {tol:.3e})")
+        if not (math.isfinite(a) and dist <= tol):
+            raise AssertionError(f"phase 19(b): {key} {a} on the card, {b} "
+                                 f"on the CPU")
+    pngs = sorted(os.listdir(os.path.join(root, "gen_eval_card")))
+    if pngs != [f"{i + 1}.png" for i in range(P19_GEN_EVAL_BATCHES)]:
+        raise AssertionError(f"phase 19(b): wrote {pngs}")
+    log(f"phase 19(b) generation_evaluation: K1 {launches} launches over "
+        f"{P19_GEN_EVAL_BATCHES} batches (f32); batch seconds "
+        f"{[round(x, 4) for x in got['seconds']]}; PSNR {got['psnr']} MSE "
+        f"{got['mse']}; CPU first batch PSNR {want['psnr'][0]} MSE "
+        f"{want['mse'][0]} in {cpu_s:.1f} s [{card}]")
+    return dict(k1=launches, seconds=got["seconds"], psnr=got["psnr"],
+                mse=got["mse"], tree=cf["eval_path"])
+
+
+def p19_view_nii(card: str, root: str, tree: str) -> None:
+    """(c) ``cli/view_nii --normalize`` against the grid computed here."""
+    import numpy as np
+
+    from gfe_mamba_torch.cli import view_nii
+    from gfe_mamba_torch.data.nifti import load_nifti
+    from gfe_mamba_torch.data.png import read_png
+    from gfe_mamba_torch.utils.experiment import volume_grid
+
+    volume = os.path.join(tree, sorted(os.listdir(tree))[0], "mri.nii.gz")
+    out = view_nii.main(view_nii.parse_args(
+        [volume, "--out", os.path.join(root, "view.png"), "--normalize"]))
+    vol = load_nifti(volume)[0]
+    lo, hi = np.percentile(vol, [1, 99])
+    vol = np.clip((vol - lo) / max(hi - lo, 1e-9), 0, 1) * 2 - 1
+    want = (volume_grid(vol) * 255).astype(np.uint8)
+    got = read_png(out)[0][..., 0]
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"phase 19(c): the PNG {got.shape} is not the "
+                             f"grid {want.shape}")
+    log(f"phase 19(c) view_nii: {os.path.basename(volume)} -> grid "
+        f"{got.shape}, equal to the CPU's [{card}]")
+
+
+def p19_against_plain(tag: str, got, want, tol: float = 1e-4) -> float:
+    """max |kernel - plain| over max |plain|, within ``tol``; logged."""
+    err, _ = rel_err(got, want)
+    scale = want.detach().abs().max().item()
+    rel = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+    log(f"phase 19{tag}: kernel vs plain max_abs_err={err:.3e} "
+        f"max|plain|={scale:.3e} rel={rel:.3e} (tol {tol:g})")
+    if not rel <= tol:
+        raise AssertionError(f"phase 19{tag}: the kernel disagrees with "
+                             f"its plain version: rel {rel}")
+    return rel
+
+
+class _DzCounter:
+    """K1's launches inside the conv Function's backward (its dz), read
+    from K1's own count around each backward."""
+
+    def __init__(self):
+        from gfe_mamba_torch.ops import conv3d
+        from gfe_mamba_torch.ops.cuda import conv3d as k1
+        self.fn, self.k1, self.count = conv3d.Conv3x3x3Fn, k1, 0
+        self.backward = self.fn.backward
+
+    def __enter__(self):
+        def backward(ctx, g):
+            before = self.k1.launches
+            out = self.backward(ctx, g)
+            self.count += self.k1.launches - before
+            return out
+
+        self.fn.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        self.fn.backward = staticmethod(self.backward)
+
+
+def p19_counts() -> dict:
+    from gfe_mamba_torch.ops.cuda import conv3d as k1
+    from gfe_mamba_torch.ops.cuda import group_norm as k5
+    from gfe_mamba_torch.ops.cuda import selective_scan as k2
+    return {"K1": k1.launches, "K3": k1.dw_launches, "K2": k2.launches,
+            "K4": k2.bwd_launches, "K5a": k5.stats_launches,
+            "K5b": k5.apply_launches}
+
+
+def p19_zero_counts() -> None:
+    from gfe_mamba_torch.ops.cuda import conv3d as k1
+    from gfe_mamba_torch.ops.cuda import group_norm as k5
+    from gfe_mamba_torch.ops.cuda import selective_scan as k2
+    k1.launches = k1.dw_launches = k1.dw_mma_launches = 0
+    k1.dw_fma_launches = 0
+    k2.launches = k2.bwd_launches = 0
+    k5.stats_launches = k5.apply_launches = 0
+
+
+def p19_quality(card: str, root: str) -> dict:
+    """(d) ``quality_torch.py --smoke`` at both geometries, its launches
+    counted; returns them per geometry and the scan shape of the small
+    path's Stage 2."""
+    import quality_torch
+    from gfe_mamba_torch.ops import scan
+
+    shapes = []
+    kernel = scan.selective_scan_cuda
+
+    def recording(x, *args, **kwargs):
+        shapes.append(tuple(x.shape) + (args[1].shape[1],))
+        return kernel(x, *args, **kwargs)
+
+    out = {}
+    for geometry in ("small", "canonical"):
+        path = os.path.join(root, f"{geometry}.json")
+        scan.selective_scan_cuda = recording
+        t = time.perf_counter()
+        try:
+            with _DzCounter() as dz:
+                p19_zero_counts()
+                report = quality_torch.main(["--geometry", geometry,
+                                             "--smoke", "--out", path])
+                counts = p19_counts()
+        finally:
+            scan.selective_scan_cuda = kernel
+        counts["K1-dz"] = dz.count
+        counts["K1"] -= dz.count
+        wall = time.perf_counter() - t
+        for name in ("K1", "K1-dz", "K3", "K2", "K4"):
+            if counts[name] <= 0:
+                raise AssertionError(f"phase 19(d): {name} never launched "
+                                     f"on the {geometry} quality path")
+        with open(path) as f:
+            if json.load(f)["config"]["smoke"] is not True:
+                raise AssertionError("phase 19(d): the artifact is not the "
+                                     "smoke run's")
+        metrics = report.get("gfe_mamba_torch", report.get("metrics"))
+        log(f"phase 19(d) quality_torch --smoke --geometry {geometry}: "
+            f"launches {counts}; metrics {metrics}; {wall:.1f} s [{card}]")
+        out[geometry] = counts
+    return {"launches": out, "small_scan": shapes[0]}
+
+
+def p19_kernels_at_small_shapes(gen, scan_shape) -> None:
+    """(d) K1, K1-dz and K3 (f32) at the small quality path's conv levels,
+    K2 and K4 (f32) at its Stage-2 scan shape, against their plain
+    versions (1e-4 of the plain result's largest magnitude)."""
+    from gfe_mamba_torch.ops.cuda import conv3d as kc
+    from gfe_mamba_torch.ops.cuda import selective_scan as ks
+
+    rels = []
+    with tf32_settings(False, False):
+        for spatial, C in P19_SMALL_LEVELS:
+            shape = (P19_QUALITY_BATCH,) + spatial
+            for act, with_res, post in (("relu", False, "none"),
+                                        ("none", True, "relu")):
+                x, w, b, a, s, res = conv_inputs(gen, shape, C, C,
+                                                 torch.float32, with_res)
+                args = (x, w, b, a, s, res, act, post)
+                rels.append(p19_against_plain(
+                    f"(d) K1 {shape}x{C} f32 residual={with_res}",
+                    kc.conv3x3x3_cuda(*args), kc.conv3x3x3_plain(*args)))
+            wf = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+            rels.append(p19_against_plain(
+                f"(d) K1-dz {shape}x{C} f32", kc.conv3x3x3_cuda(res, wf),
+                kc.conv3x3x3_plain(res, wf)))
+            rels.append(p19_against_plain(
+                f"(d) K3 {shape}x{C} f32", kc.conv3x3x3_dw_cuda(x, res, a, s),
+                kc.conv3x3x3_dw_plain(x, res, a, s)))
+    bsz, L, ED, N = scan_shape
+    args = scan_inputs(gen, bsz, L, ED, N)
+    g = torch.randn(bsz, L, ED, generator=gen, device="cuda")
+    rels.append(p19_against_plain(
+        f"(d) K2 {scan_shape} f32",
+        ks.selective_scan_cuda(*args, delta_softplus=True),
+        ks.selective_scan_plain(*args, delta_softplus=True)))
+    got = ks.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
+    want = ks.selective_scan_bwd_plain(*args, g, delta_softplus=True)
+    for name, a, b in zip(GRAD_NAMES, got, want):
+        rels.append(p19_against_plain(f"(d) K4 {scan_shape} f32 {name}",
+                                      a, b))
+    log(f"phase 19(d): K1, K1-dz, K3, K2 and K4 at the small quality "
+        f"path's shapes within {max(rels):.3e} of their plain versions")
+
+
+def drive_closing(card: str) -> dict:
+    """Phase 19: the public surface, the Stage-1 evaluation and viewer,
+    and the quality runs' paths, on the card."""
+    t0 = time.perf_counter()
+    p19_imports_and_recurrence(card)
+    with tempfile.TemporaryDirectory(prefix="gfe_p19_") as root:
+        gen_eval = p19_gen_eval(card, root)
+        p19_view_nii(card, root, gen_eval["tree"])
+        quality = p19_quality(card, root)
+    p19_kernels_at_small_shapes(torch.Generator(device="cuda").manual_seed(19),
+                                quality["small_scan"])
+    torch.cuda.empty_cache()
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s of wall [{card}]")
+    return dict(gen_eval=gen_eval, quality=quality["launches"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -4471,6 +4785,7 @@ def main() -> int:
     other_modules = drive_other_modules(card)
     drive_zoo(card)
     drive_zoo_final(card)
+    closing = drive_closing(card)
     kernels[0]["seg_launches"] = seg["launches"]["K1"]
     kernels[0]["seg"] = dict(per="UNet3D forward, 64x128x128, batch 1, f32",
                              version=K1_F32_VERSION,
@@ -4499,6 +4814,12 @@ def main() -> int:
     k4["jamba_launches"] = other["k4"]
     for k, name in zip(kernels[:2] + [k4, k3], ("K1", "K2", "K4", "K3")):
         k["dp_launches"] = dp[name]
+    for k, name in zip(kernels, ("K1", "K2", "K4", "K3", "K5a", "K5b")):
+        k["quality_launches"] = {geo: n[name] for geo, n in
+                                 closing["quality"].items()}
+    kernels[0]["quality_dz_launches"] = {
+        geo: n["K1-dz"] for geo, n in closing["quality"].items()}
+    kernels[0]["gen_eval_launches"] = closing["gen_eval"]["k1"]
     log(f"Stage-2 ms/step {stage2['step_ms']}, Stage-1 ms/step "
         f"{stage1['step_ms']} [{card}]")
     for k in kernels:

@@ -13,7 +13,9 @@ empty value are None; ``0x``, ``0b``, a leading ``0`` (octal), ``_``
 separators and ``a:b`` base-60 integers are integers; ``YYYY-MM-DD`` is a
 ``datetime.date``.  Anything else (nesting, block lists, anchors,
 aliases, tags, block or multi-line scalars, flow mappings, nested flow
-lists, full timestamps) raises ``ValueError``.  ``load_config`` turns
+lists, full timestamps) raises ``ValueError``, and so does a tab outside
+a quoted scalar or a comment, which PyYAML's scanner refuses everywhere
+(trailing, between tokens, on a blank line).  ``load_config`` turns
 lists into tuples, as the JAX loader does.
 """
 
@@ -123,6 +125,8 @@ class _Cursor:
 
     def skip_spaces(self) -> None:
         while self.i < len(self.s) and self.s[self.i] in " \t":
+            if self.s[self.i] == "\t":
+                self.fail("a tab outside a quoted scalar or a comment")
             self.i += 1
 
     def at_end(self) -> bool:
@@ -179,8 +183,8 @@ class _Cursor:
             ch = s[self.i]
             if ch == "#" and s[self.i - 1] == " ":
                 break
-            if ch == "#" and s[self.i - 1] == "\t":
-                self.fail("a tab before a comment")
+            if ch == "\t":
+                self.fail("a tab outside a quoted scalar or a comment")
             if ch == ":" and s[self.i + 1:self.i + 2] in ("", " ", "\t") \
                     + ((",", "]", "[", "{", "}") if in_flow else ()):
                 self.fail("nested mappings are not supported")
@@ -233,7 +237,9 @@ class _Cursor:
                 end += 1
             if end >= len(self.s) or self.s[end] != ":":
                 self.fail("expected 'key: value'")
-            text = self.s[self.i:end].rstrip(" \t")
+            text = self.s[self.i:end].rstrip(" ")
+            if "\t" in text:
+                self.fail("a tab outside a quoted scalar or a comment")
             if not text or text[0] in _INDICATORS or text[0] in "-?":
                 self.fail("unsupported YAML construct")
             key = resolve_plain(text)
@@ -256,6 +262,13 @@ class _Cursor:
         return value
 
 
+def _refuse_bare_tab(line: str, lineno: int) -> None:
+    """A tab on a blank, comment-only or ``---`` line, before its comment."""
+    if "\t" in line.split("#", 1)[0]:
+        raise ValueError(f"line {lineno}: a tab outside a quoted scalar or "
+                         f"a comment: {line!r}")
+
+
 def parse_yaml(text: str) -> dict:
     """One flat YAML mapping, as ``yaml.safe_load`` reads it."""
     out: dict = {}
@@ -263,8 +276,10 @@ def parse_yaml(text: str) -> dict:
     for lineno, line in enumerate(text.splitlines(), 1):
         stripped = line.strip()
         if not stripped or stripped.startswith("#"):
+            _refuse_bare_tab(line, lineno)
             continue
         if stripped == "---" and not started and line.startswith("---"):
+            _refuse_bare_tab(line, lineno)
             started = True
             continue
         started = True
@@ -286,8 +301,10 @@ def _block_lines(text: str) -> list[list]:
     for lineno, line in enumerate(text.splitlines(), 1):
         stripped = line.strip()
         if not stripped or stripped.startswith("#"):
+            _refuse_bare_tab(line, lineno)
             continue
         if stripped == "---" and not started and line.startswith("---"):
+            _refuse_bare_tab(line, lineno)
             started = True
             continue
         started = True
@@ -295,7 +312,7 @@ def _block_lines(text: str) -> list[list]:
         if body.startswith("\t"):
             raise ValueError(f"line {lineno}: a tab in the indentation: "
                              f"{line!r}")
-        lines.append([len(line) - len(body), body.rstrip(), lineno])
+        lines.append([len(line) - len(body), body.rstrip(" "), lineno])
     return lines
 
 

@@ -10,9 +10,12 @@ as far as ``prepare_table`` and the datasets can tell:
   allowed) and which has no missing cell is int64; one whose present
   cells all parse as numbers (an int column with a gap, ``1e5``, ``.5``,
   ``inf``) is float64 with NaN for the gaps; one of only
-  ``True/TRUE/true/False/FALSE/false`` with no gap is bool; an empty one
-  is float64; any other is an object column of strings with None for the
-  gaps;
+  ``True/TRUE/true/False/FALSE/false`` is bool, or with a gap an object
+  column of bools with None for the gaps; an empty one is float64; any
+  other is an object column of strings with None for the gaps;
+* integers beyond int64 take pandas' overflow detour
+  (``_infer_overflow``): uint64, Python ints, or the cells as written
+  with their missing-value strings, by the order and kinds of the cells;
 * blank lines are skipped, short rows padded with missing cells, and a
   repeated header name ``X`` becomes ``X.1``, ``X.2``.
 
@@ -129,36 +132,99 @@ class Table:
         """``df[name].fillna("NA").astype(str)``."""
         col = self.data[name]
         if isinstance(col, list):
-            return ["NA" if v is None else v for v in col]
+            return ["NA" if v is None else str(v) for v in col]
         if col.dtype.kind == "f":
             return ["NA" if math.isnan(v) else str(v) for v in col.tolist()]
         return [str(v) for v in col.tolist()]
 
     def numeric(self, name: str) -> np.ndarray:
         """``pd.to_numeric(df[name], errors="coerce").fillna(0)`` as
-        float64 (int and bool columns keep their values)."""
+        float64 (int and bool cells keep their values)."""
         col = self.data[name]
         if isinstance(col, list):
-            out = np.asarray([math.nan if v is None else _to_float(v)
-                              for v in col], np.float64)
+            out = np.asarray([math.nan if v is None else
+                              _to_float(v) if isinstance(v, str) else
+                              float(v) for v in col], np.float64)
         else:
             out = col.astype(np.float64)
         return np.where(np.isnan(out), 0.0, out)
 
 
-def _infer(cells: list):
+_I64_MIN, _I64_MAX, _U64_MAX = -2 ** 63, 2 ** 63 - 1, 2 ** 64 - 1
+
+
+def _as_int(cell: str):
+    """An integer cell's value, None for any other cell.  A value beyond
+    int64 with trailing spaces is no integer to pandas' parser."""
+    if not _INT_RE.match(cell):
+        return None
+    value = int(cell)
+    if not _I64_MIN <= value <= _I64_MAX and cell != cell.rstrip(" \t"):
+        return None
+    return value
+
+
+def _infer(raw: list):
+    """One column as pandas' C parser types it, from its cells as written:
+    the int64, float64, bool and object attempts in turn, with its
+    overflow detour through uint64 (``_infer_overflow``)."""
+    cells = [None if c in NA_STRINGS else c for c in raw]
     present = [c for c in cells if c is not None]
-    gaps = len(present) < len(cells)
     if not present:
         return np.full(len(cells), np.nan)
-    if not gaps and all(_INT_RE.match(c) for c in present):
-        return np.asarray([int(c) for c in cells], np.int64)
+    for c in present:                 # the int64 attempt, row by row
+        value = _as_int(c)
+        if value is None:
+            break
+        if not _I64_MIN <= value <= _I64_MAX:
+            typed = _infer_overflow(raw, cells)
+            if typed is not None:
+                return typed
+            break
+    else:
+        if len(present) == len(cells):
+            return np.asarray([int(c) for c in cells], np.int64)
     if all(_FLOAT_RE.match(c) or _INF_RE.match(c) for c in present):
         return np.asarray([math.nan if c is None else _to_float(c)
                            for c in cells], np.float64)
-    if not gaps and all(c in _TRUE or c in _FALSE for c in present):
-        return np.asarray([c in _TRUE for c in cells], bool)
+    if all(c in _TRUE or c in _FALSE for c in present):
+        if len(present) == len(cells):
+            return np.asarray([c in _TRUE for c in cells], bool)
+        return [None if c is None else c in _TRUE for c in cells]
     return cells
+
+
+def _infer_overflow(raw: list, cells: list):
+    """pandas' uint64 attempt after an int64 overflow: uint64 when it
+    holds; the cells as written (missing-value strings included) when a
+    value above int64 meets a negative or a gap; Python ints, or the
+    cells as written where one is no integer, when a value lies beyond
+    uint64 or a negative stands alone; None (on to float64) at the first
+    other cell."""
+    seen_uint = seen_sint = seen_null = False
+    for c in cells:
+        if c is None:
+            seen_null = True
+        elif c.lstrip(" \t").startswith("-"):
+            seen_sint = True          # pandas reads no further
+        else:
+            value = _as_int(c)
+            if value is None:
+                return None
+            if value > _U64_MAX:
+                return _overflow_objects(raw, cells)
+            seen_uint = seen_uint or value > _I64_MAX
+    if seen_uint and (seen_sint or seen_null):
+        return list(raw)
+    if seen_sint:
+        return _overflow_objects(raw, cells)
+    return np.asarray([int(c) for c in cells], np.uint64)
+
+
+def _overflow_objects(raw: list, cells: list):
+    if all(c is None or _INT_RE.match(c) for c in cells):
+        return [None if c is None else int(c) for c in cells]
+    return list(raw)
 
 
 def read_csv(path: str) -> Table:
@@ -183,7 +249,7 @@ def read_csv(path: str) -> Table:
                              f"header has {width}")
         row = row + [""] * (width - len(row))
         for j, value in enumerate(row):
-            cells[j].append(None if value in NA_STRINGS else value)
+            cells[j].append(value)
     return Table(header, {name: _infer(col)
                           for name, col in zip(header, cells)})
 

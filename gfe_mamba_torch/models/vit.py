@@ -105,6 +105,9 @@ class Transformer(nn.Module):
         return self.norm(x)
 
 
+ViTTransformer = Transformer   # the JAX package's name for it
+
+
 class ImageToImageViT(nn.Module):
     """ViT mapping a ``(B, H, W, C)`` feature image to one of the same
     shape: patchify, embed, prepend CLS, transformer, then a token-mixing

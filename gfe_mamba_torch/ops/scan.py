@@ -1,6 +1,7 @@
 """Selective scan for the Mamba layers (counterpart of
 ``gfe_mamba_tpu/ops/scan.py`` and the custom VJP of
-``ops/pallas/selective_scan.py``), and its one-token step."""
+``ops/pallas/selective_scan.py``), its one-token step, and the
+first-order linear recurrence on plain ops."""
 
 from __future__ import annotations
 
@@ -11,6 +12,31 @@ from gfe_mamba_torch.ops.cuda.selective_scan import (kernel_operand,
                                                      selective_scan_bwd_plain,
                                                      selective_scan_cuda,
                                                      selective_scan_plain)
+
+
+def linear_recurrence(coeffs: torch.Tensor, values: torch.Tensor, *,
+                      axis: int = 1, mode: str = "associative") -> torch.Tensor:
+    """All prefixes of ``h[t] = coeffs[t] * h[t-1] + values[t]`` with
+    ``h[-1] = 0``, along ``axis``.  ``"associative"`` doubles the span
+    each round (log depth) with the combine ``(a2 a1, a2 b1 + b2)``;
+    ``"sequential"`` walks t."""
+    if mode == "associative":
+        a, b = torch.broadcast_tensors(coeffs, values)
+        a, b = a.movedim(axis, 0), b.movedim(axis, 0)
+        step = 1
+        while step < a.shape[0]:
+            b = torch.cat([b[:step], a[step:] * b[:-step] + b[step:]])
+            a = torch.cat([a[:step], a[step:] * a[:-step]])
+            step *= 2
+        return b.movedim(0, axis)
+    if mode == "sequential":
+        a, b = coeffs.movedim(axis, 0), values.movedim(axis, 0)
+        h, hs = torch.zeros_like(b[0]), []
+        for t in range(b.shape[0]):
+            h = a[t] * h + b[t]
+            hs.append(h)
+        return torch.stack(hs).movedim(0, axis)
+    raise ValueError(f"unknown scan mode {mode!r}")
 
 
 def _f32(t):
