@@ -19,7 +19,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    for K1, the cuDNN convolution; K2 by its device time alone (a CUDA
    graph of 50 calls) and through its wrapper, at batch 4 and 1, on the
    layer's bf16 operands and (logged) on contiguous f32 ones, beside the
-   serial floor of its walk (logged);
+   serial floor of its walk (logged); K2 also on the bf16 Stage-2 step's
+   operands at batch 1 (f32 x, delta, z, B and C views, bf16 D and
+   delta_bias: the classifier computes in f32 there, as JAX's), within
+   1e-5 of its plain version, timed;
 4. pipeline parity: the full channel widths at a reduced volume in f32,
    the CPU (plain versions) against the card (kernels), same weights;
 5. the main path: ``build_gfe_mamba`` at the canonical (160,160,96) bf16
@@ -27,9 +30,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    K1 10 times and K2 6 times;
 6. the training kernels against their plain versions: K4 (scan
    backward) at (1|4, 53, 1024|1000|1001, 16) with every flag on and
-   off in f32, and on a canonical Mamba layer's bf16 operands (dx,
-   ddelta, dz within one bf16 ulp), a second call on those bitwise equal,
-   timed like K2 at batch 1 and 4; K3
+   off in f32, on a canonical Mamba layer's bf16 operands (dx, ddelta,
+   dz within one bf16 ulp) and on the bf16 Stage-2 step's f32 views (every
+   gradient within 1e-4), a second call on each bitwise equal, timed like
+   K2 at batch 1 and 4 (the kernels line on the Stage-2 views); K3
    (conv weight gradient) at the three generator levels (batch 1) and two
    ragged shapes (one with C != F) in f32 and bf16 with and without the
    GN affine (bf16 on the tensor-core variant, f32 on the CUDA-core one,
@@ -48,7 +52,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    convs in place of K1 and K3;
 8. Stage 2 at the canonical size: ``ClassifyTrainer`` in bf16, batch 1,
    1 warm-up step then 3 steps; each must launch K1 10, K2 6 and K4 6
-   times;
+   times, K2 and K4 on f32 operands (the mixer's output f32: JAX's
+   promotion), each held against its plain version on the step's own
+   first-layer operands; each step's ms logged beside the canonical
+   quality run's from before that promotion (``CANONICAL_torch.json``,
+   batch 2); then the
+   bf16 Stage-2 step on the card against the CPU's bf16 step from the
+   same weights and batch (the canonical classifier over the generator
+   at (64,64,32), the CPU generator's outputs handed to the card): loss,
+   logits and every gradient within half their distance between the
+   CPU's bf16 and f32 steps (``check_stage2_bf16``), each ratio logged;
 9. Stage 1 at the canonical size: ``GanTrainer`` over the generator,
    ``PatchDiscriminator(3, 32)`` and ``PerceptualLoss(0.25)`` in bf16,
    batch 1, ``adv_on=1``, 1 warm-up step then 3 steps; each must launch
@@ -90,7 +103,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``mixer="jamba"`` and ``"transformer"`` serves 3 canonical requests
    each (bf16, batch 4): K1 10 and K2 11 / 0 launches per request; (c)
    ``ClassifyTrainer`` over the Jamba pipeline, bf16, batch 1, dropout on,
-   1 warm-up then 3 steps: K1 10, K2 11 and K4 11 per step; (e)
+   1 warm-up then 3 steps: K1 10, K2 11 and K4 11 per step, on f32
+   operands, and the Jamba head's bf16 step held to the CPU's as in phase
+   8; (e)
    ``classify_mamba`` with ``mixer: 'jamba'`` on phase 12's tree and
    Stage-1 npz, ``test_mamba`` on its checkpoint (phase 12's checks), and
    ``ft_table`` for 2 epochs on the synthetic CSV, whose lines must have
@@ -100,8 +115,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    head) and one Stage-1 step, against this process stepping the global
    batch of 2 from the same weights (``compare_dp`` states the bf16
    tolerances), both ranks' parameters bitwise equal, each rank launching
-   K1, K2, K4 (Stage 2) and K1, K3 (Stage 1), each rank's step time and
-   peak memory logged (gloo through the host on one card, not NCCL data
+   K1, K2, K4 (Stage 2) and K1, K3 (Stage 1), each rank's mixer output
+   f32 (Stage 2), each rank's step time and peak memory logged (gloo through the host on one card, not NCCL data
    parallelism); (b) the dry run ``python -m
    gfe_mamba_torch.parallel.dryrun`` at 2 processes on the card (gloo,
    model axis 2: tensor- and expert-parallel projections on CUDA
@@ -221,11 +236,13 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  K1's ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are per forward of the main path (its 10
 conv calls at batch 4), its ``dz`` entry per Stage-1 step; K2's per
-forward (its 6 scan calls at batch 4) and K4's per Stage-2 step (6 calls
-at batch 1), on a Mamba layer's bf16 operands as the main path gives
-them, ``ms`` being their device time alone and ``call_ms`` their time
-through the wrapper, with the other batch's per-call times beside them
-and ``bound_ms`` from the bf16 bytes; K3's per
+forward (its 6 scan calls at batch 4) on a Mamba layer's bf16 operands
+as the serving path gives them, with the Stage-2 step's f32 views'
+per-call times in its ``stage2_*`` keys, and K4's per Stage-2 step (6
+calls at batch 1) on the f32 views the bf16 step gives it, ``ms`` being
+their device time alone and ``call_ms`` their time through the wrapper,
+with the other batch's per-call times beside them and ``bound_ms`` from
+their operands' bytes; K3's per
 Stage-1 step (10 calls); K5a's and K5b's per pass over the three widths
 (one call each).  ``launches`` counts each kernel over the run of the
 path it serves: K1 and K2 the 3 requests of phase 5, K4 the 3 steps of
@@ -306,11 +323,24 @@ K1_F32_VERSION = ("f32 v2: CUDA-core implicit GEMM, 8 z rows x 8 channels "
 K3_F32_VERSION = ("f32 v2: the 9 taps of one dx per block over a "
                   "double-buffered cp.async x slab, 4x4 per tap per thread, "
                   "makespan-balanced split-K")
+# the canonical bf16 quality run from before the classifier followed
+# JAX's dtype promotion (quality_torch.py; H100 80GB HBM3 at 700 W):
+# its median Stage-2 step at batch 2 is logged beside phase 8's steps
+# and kept out of the kernels line
+STAGE2_BEFORE_PROMOTION = "CANONICAL_torch.json"
+# the biases of the layers that compute in bf16 on both devices in the
+# bf16 Stage-2 step (check_stage2_bf16)
+STAGE2_BF16_BIASES = ("combiner.vit_mid_linear.bias",
+                      "classifier.final_cross.k_proj.bias",
+                      "classifier.final_cross.v_proj.bias")
 # phase 13: CrossJambaBoth at depth 6 has 12 layers, layer 4 attention,
 # so 11 Mamba layers (K2 per forward, K4 per Stage-2 step); its parity
 # against the CPU runs on the slice tokens of volumes this size
 JAMBA_SCANS = 11
 MIXER_PARITY_IMG = (64, 64, 32)
+# check_stage2_bf16's generator: phase 7's reduced volume, dropout off
+STAGE2_PARITY_BUILD = dict(img_size=MIXER_PARITY_IMG, vit_patch_size=16,
+                           vit_dropout=0.0, vit_emb_dropout=0.0)
 # group_norm_act (K5) runs at the generator's GroupNorm widths (the conv
 # levels above), 8 groups
 GN_GROUPS = 8
@@ -543,17 +573,19 @@ def nbytes(*tensors) -> int:
                if t is not None)
 
 
-def mamba_operands(bsz, seed):
+def mamba_operands(bsz, seed, stage2=False):
     """The scan's operands as a canonical Mamba layer (d_model = the
     classifier's dim, ED 1024, N 16) hands them over in bf16 on the card
     (``MambaBlock.scan_operands``): x channel-major from the depthwise
     conv, z a ``chunk`` view, B and C ``split`` views, D and delta_bias
-    bf16, A f32."""
+    bf16, A f32.  ``stage2``: the bf16 Stage-2 step's, whose f32 tokens
+    make x, delta, z, B and C f32 views (D and delta_bias stay bf16)."""
     from gfe_mamba_torch.testing import mamba_scan_operands
 
     _, L, ED, N = SCAN_SHAPE
     args = mamba_scan_operands(bsz, L, CANONICAL["dim"], torch.bfloat16,
-                               "cuda", d_state=N, seed=seed)
+                               "cuda", d_state=N, seed=seed,
+                               input_dtype=torch.float32 if stage2 else None)
     assert args[0].shape == (bsz, L, ED) and args[2].shape == (ED, N)
     return args
 
@@ -620,11 +652,27 @@ def check_k2(gen) -> dict:
         if not (ulps <= 1.0 and got.dtype == torch.bfloat16):
             raise AssertionError("K2 with bf16 operands disagrees with its "
                                  "plain version")
+    # the bf16 Stage-2 step's operands: f32 views beside bf16 D and bias
+    stage2 = mamba_operands(TRAIN_BATCH, seed=7, stage2=True)
+    got = k2.selective_scan_cuda(*stage2, delta_softplus=True)
+    want = k2.selective_scan_plain(*[t.float() for t in stage2],
+                                   delta_softplus=True)
+    torch.cuda.synchronize()
+    s2_err, s2_rel = rel_err(got, want)
+    log(f"K2 check ({TRAIN_BATCH},{L},{ED},N={N}) the bf16 Stage-2 step's "
+        f"operands (f32 x, delta, z, B, C views; bf16 D, delta_bias): "
+        f"max_abs_err={s2_err:.3e} rel={s2_rel:.3e} (tol 1e-5)")
+    if not (s2_rel <= 1e-5 and got.dtype == torch.float32):
+        raise AssertionError("K2 on the Stage-2 step's f32 views disagrees "
+                             "with its plain version")
     floor = serial_floor_ms(L)
     times = {}
     for b in (bsz, TRAIN_BATCH):
-        for kind, args in (("bf16 views", views[b]),
-                           ("f32", scan_inputs(gen, b, L, ED, N))):
+        kinds = [("bf16 views", views[b]),
+                 ("f32", scan_inputs(gen, b, L, ED, N))]
+        if b == TRAIN_BATCH:
+            kinds.append(("stage-2 f32 views", stage2))
+        for kind, args in kinds:
             y = k2.selective_scan_cuda(*args, delta_softplus=True)
             dev = graph_ms(lambda: k2.selective_scan_cuda(
                 *args, delta_softplus=True))
@@ -645,6 +693,7 @@ def check_k2(gen) -> dict:
         f"per call (f32 casts and the loop); {SCAN_CALLS} calls per forward")
     dev4, call4 = times[bsz, "bf16 views"]
     dev1, call1 = times[TRAIN_BATCH, "bf16 views"]
+    s2_dev, s2_call = times[TRAIN_BATCH, "stage-2 f32 views"]
     return dict(name="K2 selective-scan forward", route="cuda",
                 source="gfe_mamba_torch/csrc/selective_scan.cu",
                 replaces="gfe_mamba_tpu/ops/pallas/selective_scan.py:42",
@@ -652,11 +701,15 @@ def check_k2(gen) -> dict:
                 ms=SCAN_CALLS * dev4, call_ms=SCAN_CALLS * call4,
                 plain_ms=SCAN_CALLS * plain, bound_ms=SCAN_CALLS * bound,
                 bound_by=bound_by, batch1_device_ms_per_call=dev1,
-                batch1_call_ms_per_call=call1, library_ms=None,
+                batch1_call_ms_per_call=call1,
+                stage2_max_abs_err=s2_err,
+                stage2_device_ms_per_call=s2_dev,
+                stage2_call_ms_per_call=s2_call, library_ms=None,
                 per="forward: 6 calls of (4,53,1024,N=16) on a Mamba "
                     "layer's bf16 operands (channel-major x, z/B/C views); "
                     "ms is device time (CUDA graph), call_ms through the "
-                    "wrapper")
+                    "wrapper; stage2_* at batch 1 on the bf16 Stage-2 "
+                    "step's f32 views")
 
 
 def check_pipeline_parity():
@@ -760,12 +813,14 @@ def scan_bwd_bound_ms(args, g, grads) -> tuple[float, str]:
 
 def check_k4(gen) -> dict:
     """K4 against its plain version in f32 (every gradient; gate/bias/
-    softplus on and off; batch 1 and 4; ragged ED) and on a canonical
-    Mamba layer's bf16 operands (views, channel-major x) at batch 1 and 4;
-    a second call on those bitwise equal to the first; then its device
-    time alone (a CUDA graph) and through the wrapper, beside its bound
-    and the serial floor of its walks: on the bf16 views for the kernels
-    line (batch 1, the Stage-2 step's, and 4), and on contiguous f32
+    softplus on and off; batch 1 and 4; ragged ED), on a canonical Mamba
+    layer's bf16 operands (views, channel-major x) and on the bf16
+    Stage-2 step's (the same views in f32, D and delta_bias bf16: the
+    classifier computes in f32 there) at batch 1 and 4; a second call on
+    each bitwise equal to the first; then its device time alone (a CUDA
+    graph) and through the wrapper, beside its bound and the serial floor
+    of its walks: on the Stage-2 step's f32 views for the kernels line
+    (batch 1, the step's, and 4), on the bf16 views and on contiguous f32
     operands for the log."""
     from gfe_mamba_torch.ops.cuda import selective_scan as ks
     from gfe_mamba_torch.testing import bf16_ulps
@@ -820,20 +875,42 @@ def check_k4(gen) -> dict:
                 and all(got[i].dtype == torch.bfloat16 for i in (0, 1, 6))):
             raise AssertionError("K4 with bf16 operands disagrees with its "
                                  "plain version")
-    args, g = views[TRAIN_BATCH]
-    first = ks.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
-    second = ks.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError("K4: two calls on the same inputs differ")
-    log("K4 determinism: a second call on the bf16 views is bitwise equal "
-        "to the first")
+    stage2 = {}
+    for bsz in (TRAIN_BATCH, BATCH):
+        args = mamba_operands(bsz, seed=20 + bsz, stage2=True)
+        g = torch.randn(bsz, L, ED, generator=gen, device="cuda")
+        stage2[bsz] = args, g
+        got = ks.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
+        want = ks.selective_scan_bwd_plain(*[t.float() for t in args], g,
+                                           delta_softplus=True)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        worst[bsz, "stage2"] = max(e for e, _ in errs)
+        rel = max(r for _, r in errs)
+        log(f"K4 check ({bsz},{L},{ED},N={N}) the bf16 Stage-2 step's "
+            f"operands (f32 x, delta, z, B, C views; bf16 D, delta_bias): "
+            f"max_abs_err={worst[bsz, 'stage2']:.3e} rel={rel:.3e} over 8 "
+            f"gradients (tol 1e-4)")
+        if not (rel <= 1e-4
+                and all(got[i].dtype == torch.float32 for i in range(8))):
+            raise AssertionError("K4 on the Stage-2 step's f32 views "
+                                 "disagrees with its plain version")
+    for kind, (args, g) in (("bf16 views", views[TRAIN_BATCH]),
+                            ("stage-2 f32 views", stage2[TRAIN_BATCH])):
+        first = ks.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
+        second = ks.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError("K4: two calls on the same inputs differ")
+        log(f"K4 determinism: a second call on the {kind} is bitwise equal "
+            f"to the first")
     floor = serial_floor_ms(3 * L)
     times = {}
     for bsz in (TRAIN_BATCH, BATCH):
         f32 = (scan_inputs(gen, bsz, L, ED, N),
                torch.randn(bsz, L, ED, generator=gen, device="cuda"))
-        for kind, (args, g) in (("bf16 views", views[bsz]), ("f32", f32)):
+        for kind, (args, g) in (("stage-2 f32 views", stage2[bsz]),
+                                ("bf16 views", views[bsz]), ("f32", f32)):
             grads = ks.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
             dev = graph_ms(lambda: ks.selective_scan_bwd_cuda(
                 *args, g, delta_softplus=True))
@@ -845,28 +922,33 @@ def check_k4(gen) -> dict:
                 f"{call:.4f} ms, bound {bound:.5f} ms, serial floor "
                 f"{floor:.5f} ms")
             times[bsz, kind] = dev, call
-    args, g = views[TRAIN_BATCH]
+    args, g = stage2[TRAIN_BATCH]
     plain = time_ms(lambda: ks.selective_scan_bwd_plain(
-        *[t.float() for t in args], g.float(), delta_softplus=True))
+        *[t.float() for t in args], g, delta_softplus=True))
     bound, bound_by = scan_bwd_bound_ms(
         args, g, ks.selective_scan_bwd_cuda(*args, g, delta_softplus=True))
-    log(f"K4 at ({TRAIN_BATCH},{L},{ED},N={N}) bf16 views: plain "
-        f"{plain:.4f} ms per call (f32 casts and the loops); {SCAN_CALLS} "
+    log(f"K4 at ({TRAIN_BATCH},{L},{ED},N={N}) the Stage-2 step's f32 "
+        f"views: plain {plain:.4f} ms per call (the loops); {SCAN_CALLS} "
         f"calls per Stage-2 step")
-    dev1, call1 = times[TRAIN_BATCH, "bf16 views"]
-    dev4, call4 = times[BATCH, "bf16 views"]
+    dev1, call1 = times[TRAIN_BATCH, "stage-2 f32 views"]
+    dev4, call4 = times[BATCH, "stage-2 f32 views"]
     return dict(name="K4 selective-scan backward", route="cuda",
                 source="gfe_mamba_torch/csrc/selective_scan_bwd.cu",
                 replaces="gfe_mamba_tpu/ops/pallas/selective_scan.py:126",
-                max_abs_err=worst[TRAIN_BATCH][0],
+                max_abs_err=worst[TRAIN_BATCH, "stage2"],
+                bf16_views_max_abs_err=worst[TRAIN_BATCH][0],
                 bf16_ulps=worst[TRAIN_BATCH][1],
                 ms=SCAN_CALLS * dev1, call_ms=SCAN_CALLS * call1,
                 plain_ms=SCAN_CALLS * plain, bound_ms=SCAN_CALLS * bound,
                 bound_by=bound_by, batch4_device_ms_per_call=dev4,
-                batch4_call_ms_per_call=call4, library_ms=None,
-                per="Stage-2 step: 6 calls of (1,53,1024,N=16) on a Mamba "
-                    "layer's bf16 operands (channel-major x, z/B/C views); "
-                    "ms is device time (CUDA graph), call_ms through the "
+                batch4_call_ms_per_call=call4,
+                bf16_views_device_ms_per_call=times[TRAIN_BATCH,
+                                                    "bf16 views"][0],
+                library_ms=None,
+                per="Stage-2 step: 6 calls of (1,53,1024,N=16) on the bf16 "
+                    "step's operands (f32 x, delta, z, B, C views: "
+                    "channel-major x, z/B/C views; bf16 D, delta_bias); ms "
+                    "is device time (CUDA graph), call_ms through the "
                     "wrapper")
 
 
@@ -1241,11 +1323,77 @@ def check_training_parity():
         torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def scan_operands_seen():
+    """Every K2 and K4 launch of ``SelectiveScanFn`` in the block, with
+    the operands it was handed (``[(args, kwargs)]`` per kernel), the
+    launches themselves unchanged."""
+    from gfe_mamba_torch.ops import scan as ops_scan
+
+    seen = {"K2": [], "K4": []}
+    saved = ops_scan.selective_scan_cuda, ops_scan.selective_scan_bwd_cuda
+
+    def record(name, fn):
+        def call(*args, **kwargs):
+            seen[name].append((args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    ops_scan.selective_scan_cuda = record("K2", saved[0])
+    ops_scan.selective_scan_bwd_cuda = record("K4", saved[1])
+    try:
+        yield seen
+    finally:
+        ops_scan.selective_scan_cuda, ops_scan.selective_scan_bwd_cuda = saved
+
+
+def check_stage2_scan_operands(mixer: str, seen: dict) -> None:
+    """The operands the bf16 Stage-2 step handed K2 and K4: x, delta, B, C
+    and z (and K4's cotangent) f32, as JAX's step computes its classifier
+    (flax's promotion), D and delta_bias the bf16 parameters, passed as
+    they are; each kernel on the first layer's operands against its plain
+    version (1e-5 for y, 1e-4 for the gradients, as phases 3 and 6)."""
+    from gfe_mamba_torch.ops.cuda import selective_scan as k2
+
+    for name, calls in seen.items():
+        dtypes = {tuple(None if t is None else str(t.dtype).split(".")[1]
+                        for t in args) for args, _ in calls}
+        log(f"Stage-2 {mixer}: {len(calls)} {name} launches, operand "
+            f"dtypes (x, delta, A, B, C, D, z, delta_bias"
+            f"{', g' if name == 'K4' else ''}) {sorted(dtypes)}")
+        for args, _ in calls:
+            if any(args[i].dtype != torch.float32
+                   for i in (0, 1, 3, 4, 6) + ((8,) if name == "K4" else ())):
+                raise AssertionError(f"Stage-2 {mixer}: {name} was handed "
+                                     f"operands outside f32: {dtypes}")
+    (args, kw), (bargs, bkw) = seen["K2"][0], seen["K4"][0]
+    got = k2.selective_scan_cuda(*args, **kw)
+    want = k2.selective_scan_plain(*[None if t is None else t.float()
+                                     for t in args], **kw)
+    grads = k2.selective_scan_bwd_cuda(*bargs, **bkw)
+    wants = k2.selective_scan_bwd_plain(*[None if t is None else t.float()
+                                          for t in bargs], **bkw)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    errs = [rel_err(a, b) for a, b in zip(grads, wants) if b is not None]
+    berr, brel = max(e for e, _ in errs), max(r for _, r in errs)
+    log(f"Stage-2 {mixer}: K2 on the step's own f32 operands (first layer, "
+        f"strides {[tuple(t.stride()) for t in args[:1] + args[3:5]]}) "
+        f"max_abs_err={err:.3e} rel={rel:.3e} (tol 1e-5); K4 max_abs_err="
+        f"{berr:.3e} rel={brel:.3e} (tol 1e-4)")
+    if not (rel <= 1e-5 and brel <= 1e-4):
+        raise AssertionError(f"Stage-2 {mixer}: K2/K4 disagree with their "
+                             f"plain versions on the step's operands")
+
+
 def train_stage2_canonical(card: str, mixer: str = "mamba",
                            scans: int = SCAN_CALLS) -> dict:
     """Stage 2 at the canonical size: 3 bf16 steps of batch 1 with the
     ``mixer`` head (dropout on at the build's rates), whose forward and
-    backward run K2 and K4 ``scans`` times each."""
+    backward run K2 and K4 ``scans`` times each, on f32 operands
+    (:func:`check_stage2_scan_operands`); the mixer's output dtype (f32:
+    the classifier computes in f32 under the bf16 cast) and each step's ms
+    logged, the latter beside ``STAGE2_BEFORE_PROMOTION``'s."""
     from gfe_mamba_torch.models.pipeline import build_gfe_mamba
     from gfe_mamba_torch.ops.cuda import conv3d as k1
     from gfe_mamba_torch.ops.cuda import selective_scan as k2
@@ -1257,6 +1405,10 @@ def train_stage2_canonical(card: str, mixer: str = "mamba",
     trainer = ClassifyTrainer(model, device="cuda")
     log(f"Stage-2 {mixer} trainer built in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda")
+    mixer_dtypes = set()
+    model.classifier.transformer.register_forward_hook(
+        lambda m, i, o: mixer_dtypes.add(
+            (o[0] if isinstance(o, tuple) else o).dtype))
 
     def step(seed):
         gen.manual_seed(seed)
@@ -1275,8 +1427,9 @@ def train_stage2_canonical(card: str, mixer: str = "mamba",
     for i in range(3):
         before = (k1.launches, k2.launches, k2.bwd_launches)
         t = time.perf_counter()
-        logs = step(i)
-        torch.cuda.synchronize()
+        with scan_operands_seen() as seen:
+            logs = step(i)
+            torch.cuda.synchronize()
         dt = time.perf_counter() - t
         times.append(dt * 1e3)
         per = (k1.launches - before[0], k2.launches - before[1],
@@ -1291,9 +1444,117 @@ def train_stage2_canonical(card: str, mixer: str = "mamba",
                                  f"K4 launches per Stage-2 {mixer} step, "
                                  f"got {per}")
     out = dict(k4=k2.bwd_launches, step_ms=times)
+    with open(os.path.join(REPO, STAGE2_BEFORE_PROMOTION)) as f:
+        before = json.load(f)["stage2_step_ms"]
+    log(f"Stage-2 {mixer}: the mixer's output {sorted(map(str, mixer_dtypes))}"
+        f"; ms per step (batch 1) {['%.1f' % t for t in times]}; the "
+        f"canonical quality run before the promotion "
+        f"({STAGE2_BEFORE_PROMOTION}) {before:.1f} ms per step at batch 2 "
+        f"[{card}]")
+    if mixer_dtypes != {torch.float32}:
+        raise AssertionError(f"Stage-2 {mixer}: the mixer ran in "
+                             f"{mixer_dtypes}, JAX's runs in f32")
+    check_stage2_scan_operands(mixer, seen)
     del trainer, model
     torch.cuda.empty_cache()
     return out
+
+
+def check_stage2_bf16(card: str, mixer: str = "mamba") -> None:
+    """The bf16 Stage-2 step on the card against the CPU's bf16 step
+    (plain versions), both from the same weights and batch: the
+    canonical classifier (dim 512, depth 6, 8 heads) over the generator
+    at phase 7's reduced volume (64,64,32), batch 2, dropout off, TF32
+    off; the CPU's f32 step from the same weights gives the scale.  The
+    card's step is handed the CPU generator's bf16 outputs by a forward
+    hook (it still runs its own): the two devices round the generator's
+    bf16 convolutions differently, which moves the gradients as far as
+    bf16 against f32 does, outside the classifier held here.  The loss,
+    the logits and each trainable gradient (norm of the difference per
+    tensor) must lie within half their distance between the CPU's bf16
+    and f32 steps, or of 2^-8 of their norm where that distance cancels
+    below bf16's resolution (the logit head's LayerNorm bias: a sum over
+    a batch of opposite labels); the biases of the layers that compute in
+    bf16 on both devices (``STAGE2_BF16_BIASES``: sums over rows of a
+    bf16 cotangent, the key bias's zero in exact arithmetic) within the
+    whole distance.  The mixer's output must be f32 on both devices, as
+    JAX's."""
+    from gfe_mamba_torch.models.pipeline import build_gfe_mamba
+    from gfe_mamba_torch.training.classify_trainer import ClassifyTrainer
+
+    t0 = time.perf_counter()
+    img = STAGE2_PARITY_BUILD["img_size"]
+    gen = torch.Generator().manual_seed(31)
+    batch = (torch.randn(2, *img, 1, generator=gen),
+             torch.randint(0, 6, (2, 8), generator=gen),
+             torch.randn(2, 40, generator=gen), torch.tensor([1.0, 0.0]))
+    base = build_gfe_mamba(device="cpu", seed=3, mixer=mixer,
+                           attn_dropout=0.0, ff_dropout=0.0,
+                           cross_ff_dropout=0.0, **STAGE2_PARITY_BUILD,
+                           **CANONICAL)
+    runs, handed = {}, {}
+    with tf32_settings(False, False):
+        for tag, mp, device in (("cpu f32", "none", "cpu"),
+                                ("cpu bf16", "bf16", "cpu"),
+                                ("card bf16", "bf16", "cuda")):
+            model = copy.deepcopy(base)
+            trainer = ClassifyTrainer(model, mixed_precision=mp,
+                                      device=device)
+            if tag == "cpu bf16":
+                model.generator.register_forward_hook(
+                    lambda m, i, o: handed.setdefault("outputs", o))
+            elif tag == "card bf16":
+                outputs = tuple(t.cuda() for t in handed["outputs"])
+                model.generator.register_forward_hook(
+                    lambda m, i, o: outputs)
+            dtypes = set()
+            model.classifier.transformer.register_forward_hook(
+                lambda m, i, o: dtypes.add(
+                    (o[0] if isinstance(o, tuple) else o).dtype))
+            model.train()
+            with torch.no_grad():
+                logits = trainer._logits(*trainer._inputs(*batch[:3]))
+            grads, logs = trainer.gradients(*batch)
+            runs[tag] = dict(loss=logs["cla_loss"], logits=logits.cpu(),
+                             grads=dict(zip(trainer.trainable,
+                                            (g.float().cpu() for g in grads))),
+                             dtypes=dtypes)
+            del trainer, model
+    torch.cuda.empty_cache()
+    f32, cpu, dev = runs["cpu f32"], runs["cpu bf16"], runs["card bf16"]
+    for tag, run in runs.items():
+        log(f"Stage-2 {mixer} bf16 parity: {tag} loss {run['loss']:.7g}, "
+            f"logits {run['logits'].tolist()}, the mixer's output "
+            f"{sorted(map(str, run['dtypes']))}")
+    for tag in ("cpu bf16", "card bf16"):
+        if runs[tag]["dtypes"] != {torch.float32}:
+            raise AssertionError(f"Stage-2 {mixer}: the {tag} step's mixer "
+                                 f"ran in {runs[tag]['dtypes']}")
+    def ratio(got, want, other):
+        # a distance that cancels below bf16's own resolution of the
+        # quantity (2^-8 of its norm) is measured against that instead
+        got, want, other = (torch.as_tensor(t, dtype=torch.float64)
+                            for t in (got, want, other))
+        scale = max(float((want - other).norm()),
+                    2.0 ** -8 * float(want.norm()), 1e-30)
+        return float((got - want).norm()) / scale
+
+    ratios = {"loss": ratio(dev["loss"], cpu["loss"], f32["loss"]),
+              "logits": ratio(dev["logits"], cpu["logits"], f32["logits"])}
+    for name, g in dev["grads"].items():
+        ratios[name] = ratio(g, cpu["grads"][name], f32["grads"][name])
+    for name, r in sorted(ratios.items(), key=lambda kv: -kv[1]):
+        log(f"Stage-2 {mixer} bf16 parity: {name} |card - cpu| over |cpu "
+            f"bf16 - cpu f32| = {r:.3e}")
+    bad = {n: r for n, r in ratios.items()
+           if r > (1.0 if n in STAGE2_BF16_BIASES else 0.5)}
+    log(f"Stage-2 {mixer} bf16 parity: {len(ratios)} quantities, worst "
+        f"{max(ratios.values()):.3e} (tolerance 0.5; 1.0 for "
+        f"{len(STAGE2_BF16_BIASES)} bf16 biases); "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    if bad:
+        raise AssertionError(f"Stage-2 {mixer}: the card's bf16 step "
+                             f"differs from the CPU's: {bad}")
 
 
 def train_stage1_canonical(card: str) -> dict:
@@ -2147,6 +2408,7 @@ def drive_other_mixers(card: str, root: str, phase12: dict) -> dict:
     _, k2_jamba, jamba_ms = serve_canonical(card, "jamba", JAMBA_SCANS)
     _, k2_none, transformer_ms = serve_canonical(card, "transformer", 0)
     stage2 = train_stage2_canonical(card, "jamba", JAMBA_SCANS)
+    check_stage2_bf16(card, "jamba")
     drive_other_mixer_clis(card, root, phase12)
     log(f"phase 13: jamba ms/request {jamba_ms}, transformer ms/request "
         f"{transformer_ms}, jamba Stage-2 ms/step {stage2['step_ms']}; "
@@ -2287,6 +2549,12 @@ def check_dp(card: str, jobs: list, ranks: list) -> dict:
             if missing:
                 raise AssertionError(f"phase 14(a) {name}: rank {r} never "
                                      f"launched {missing}")
+            if name == "stage2":
+                log(f"phase 14(a) stage2 rank {r}: the mixer's output "
+                    f"{sorted(run['mixer_dtypes'])}")
+                if run["mixer_dtypes"] != {"torch.float32"}:
+                    raise AssertionError("phase 14(a) stage2: the mixer "
+                                         "ran outside f32, JAX's runs in f32")
         if ranks[0][name]["digests"] != ranks[1][name]["digests"]:
             raise AssertionError(f"phase 14(a) {name}: the ranks' "
                                  f"parameters differ")
@@ -4765,6 +5033,7 @@ def main() -> int:
     check_conv_function(gen)
     check_training_parity()
     stage2 = train_stage2_canonical(card)
+    check_stage2_bf16(card)
     stage1 = train_stage1_canonical(card)
     k4["launches"] = stage2["k4"]
     k3["launches"] = stage1["k3"]

@@ -1,10 +1,15 @@
 """Self- and cross-attention (counterpart of
-``gfe_mamba_tpu/models/attention.py``), as einsum plus softmax."""
+``gfe_mamba_tpu/models/attention.py``), as einsum plus softmax.  The
+projections and the einsums compute in their operands' promoted dtype
+(``models/promote.py``): under the bf16 cast, f32 queries over bf16
+keys and values take their logits and output in f32, as JAX's do."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from gfe_mamba_torch.models.promote import Linear, promote
 
 
 def _heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -28,8 +33,8 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.n_heads = n_heads
         self.d_head = d_embed // n_heads
-        self.in_proj = nn.Linear(d_embed, 3 * d_embed, bias=in_proj_bias)
-        self.out_proj = nn.Linear(d_embed, d_embed, bias=out_proj_bias)
+        self.in_proj = Linear(d_embed, 3 * d_embed, bias=in_proj_bias)
+        self.out_proj = Linear(d_embed, d_embed, bias=out_proj_bias)
 
     def forward(self, x: torch.Tensor,
                 causal_mask: bool = False) -> torch.Tensor:
@@ -52,14 +57,14 @@ class CrossAttention(nn.Module):
         super().__init__()
         self.n_heads = n_heads
         self.d_head = d_embed // n_heads
-        self.q_proj = nn.Linear(d_embed, d_embed)
-        self.k_proj = nn.Linear(d_cross, d_embed)
-        self.v_proj = nn.Linear(d_cross, d_embed)
-        self.out_proj = nn.Linear(d_embed, d_embed)
+        self.q_proj = Linear(d_embed, d_embed)
+        self.k_proj = Linear(d_cross, d_embed)
+        self.v_proj = Linear(d_cross, d_embed)
+        self.out_proj = Linear(d_embed, d_embed)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        q, k, v = (_heads(t, self.n_heads)
-                   for t in (self.q_proj(x), self.k_proj(y), self.v_proj(y)))
+        q, k, v = (_heads(t, self.n_heads) for t in promote(
+            self.q_proj(x), self.k_proj(y), self.v_proj(y)))
         logits = torch.einsum("bhid,bhjd->bhij", q, k) / self.d_head ** 0.5
         out = torch.einsum("bhij,bhjd->bhid", torch.softmax(logits, -1), v)
         return self.out_proj(_merge(out))

@@ -8,7 +8,14 @@ feed-forward): the flax names of both are ``attn_<i>`` / ``ff_<i>``, so
 one set of conversion rules (``utils/convert.py``) serves both.  A
 model built with ``d_cross=None`` has no final cross-attention or
 feed-forward, the tree flax builds when it is initialised without an
-image condition."""
+image condition.
+
+Every layer computes in the promoted dtype of its input and its
+parameters (``models/promote.py``), as the flax modules do: under the
+trainers' bf16 cast an f32 ``x_numer`` makes the numerical tokens, and
+so the whole token sequence, f32, while the categorical tokens and the
+CLS token stay in their parameters' dtype and the volume condition
+reaches the cross-attention's keys and values as it is."""
 
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from torch import nn
 
 from gfe_mamba_torch.models.attention import CrossAttention, _heads, _merge
 from gfe_mamba_torch.models.dropout import Dropout
+from gfe_mamba_torch.models.promote import LayerNorm, Linear
 
 LN_EPS = 1e-6   # flax nn.LayerNorm default
 NUM_SPECIAL_TOKENS = 2   # embedding rows ahead of the first category
@@ -39,9 +47,9 @@ class FeedForward(nn.Sequential):
     weights at the reference indices 0, 1, 4."""
 
     def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
-        super().__init__(nn.LayerNorm(dim, eps=LN_EPS),
-                         nn.Linear(dim, dim * mult * 2), GEGLU(),
-                         Dropout(dropout), nn.Linear(dim * mult, dim))
+        super().__init__(LayerNorm(dim, eps=LN_EPS),
+                         Linear(dim, dim * mult * 2), GEGLU(),
+                         Dropout(dropout), Linear(dim * mult, dim))
 
 
 class FTAttention(nn.Module):
@@ -54,10 +62,10 @@ class FTAttention(nn.Module):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         inner = heads * dim_head
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
-        self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
+        self.norm = LayerNorm(dim, eps=LN_EPS)
+        self.to_qkv = Linear(dim, inner * 3, bias=False)
         self.attn_drop = Dropout(dropout)
-        self.to_out = nn.Sequential(nn.Linear(inner, dim, bias=False))
+        self.to_out = nn.Sequential(Linear(inner, dim, bias=False))
 
     def forward(self, x: torch.Tensor):
         q, k, v = (_heads(t, self.heads)
@@ -182,8 +190,11 @@ class TabularEmbedder(nn.Module):
                                    device=x_categ.device)
             xs.append(self.categorical_embeds(x_categ.long() + offsets))
         if self.numerical_embedder is not None:
-            xs.append(self.numerical_embedder(
-                x_numer.to(self.cls_token.dtype)))
+            xs.append(self.numerical_embedder(x_numer))
+        if len(xs) == 1:
+            # no table: flax joins the CLS token to an empty f32 block
+            xs.append(torch.zeros(b, 0, self.cls_token.shape[-1],
+                                  device=self.cls_token.device))
         return torch.cat(xs, dim=1)
 
 
@@ -202,8 +213,8 @@ class LogitsHead(nn.Sequential):
     at indices 0, 1 either way (flax ``LayerNorm_0``, ``Dense_0``)."""
 
     def __init__(self, dim: int, dim_out: int = 1, relu: bool = False):
-        super().__init__(nn.LayerNorm(dim, eps=LN_EPS),
-                         nn.Linear(dim, dim_out))
+        super().__init__(LayerNorm(dim, eps=LN_EPS),
+                         Linear(dim, dim_out))
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -233,7 +244,7 @@ class TabularHead(TabularEmbedder):
         runs when ``image_condition`` (a list of channels-last volumes) is
         given."""
         if image_condition is not None:
-            cond = flatten_volume_condition(image_condition).to(x.dtype)
+            cond = flatten_volume_condition(image_condition)
             x = self.final_cross(x, cond) + x
             x = self.final_feed(x) + x
         return self.to_logits(x[:, 0])
@@ -255,7 +266,7 @@ class CrossTransformerBoth(TabularHead):
 
     def forward(self, x_categ, x_numer, feature_img, image_condition=None):
         x = self.embed(x_categ, x_numer)
-        x = torch.cat([x, feature_img.to(x.dtype)], dim=1)
+        x = torch.cat([x, feature_img], dim=1)
         return self.head(self.transformer(x)[:, :1], image_condition)
 
 
@@ -293,9 +304,9 @@ class FTTransformerCrossImg(TabularHead):
 
     def forward(self, x_categ, x_numer, feature_img, image_condition):
         x = self.embed(x_categ, x_numer)
-        x = torch.cat([x, feature_img.to(x.dtype)], dim=1)
+        x = torch.cat([x, feature_img], dim=1)
         x = self.transformer(x)[:, :1]
-        cond = flatten_volume_condition([image_condition]).to(x.dtype)
+        cond = flatten_volume_condition([image_condition])
         return self.to_logits(self.final_cross(x, cond)[:, 0])
 
 
@@ -331,8 +342,7 @@ class FTTransformerCross(TabularHead):
             dim, depth, heads, dim_head, d_cross, attn_dropout, ff_dropout)
 
     def forward(self, x_categ, x_numer, condition, return_attn=False):
-        out = self.transformer(self.embed(x_categ, x_numer),
-                               condition.to(self.cls_token.dtype),
+        out = self.transformer(self.embed(x_categ, x_numer), condition,
                                return_attn)
         x, attns = out if return_attn else (out, None)
         logits = self.to_logits(x[:, 0])

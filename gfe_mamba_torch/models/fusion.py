@@ -6,7 +6,12 @@ feed-forward -> LayerNorm + Linear logit.
 
 ``d_cross`` is the slice-token width H*W of the conditioning volumes
 (25600 at 160x160); with ``d_cross=None`` a head has no cross-attention
-and feed-forward and runs without the image condition."""
+and feed-forward and runs without the image condition.
+
+The generator's feature tokens join the table's with ``torch.cat``,
+which promotes as ``jnp.concatenate`` does: under the bf16 cast with an
+f32 ``x_numer`` the mixer and the head run in f32
+(``models/promote.py``)."""
 
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ class CrossMambaBoth(_FusionBase):
                 image_condition: Sequence[torch.Tensor] | None = None
                 ) -> torch.Tensor:
         x = self.embed(x_categ, x_numer)
-        x = torch.cat([x, feature_img.to(x.dtype)], dim=1)
+        x = torch.cat([x, feature_img], dim=1)
         return self._fuse_head(self.transformer(x), image_condition)
 
 
@@ -70,7 +75,7 @@ class CrossJambaBoth(_FusionBase):
                 image_condition: Sequence[torch.Tensor] | None = None
                 ) -> torch.Tensor:
         x = self.embed(x_categ, x_numer)
-        x = torch.cat([x, feature_img.to(x.dtype)], dim=1)
+        x = torch.cat([x, feature_img], dim=1)
         return self._fuse_head(self.transformer(x)[0], image_condition)
 
 
@@ -90,5 +95,5 @@ class CrossMambaAblation(CrossMambaBoth):
                 raise ValueError("no_table needs the image feature tokens")
             x = x[:, :1]
         if feature_img is not None:
-            x = torch.cat([x, feature_img.to(x.dtype)], dim=1)
+            x = torch.cat([x, feature_img], dim=1)
         return self._fuse_head(self.transformer(x), image_condition)

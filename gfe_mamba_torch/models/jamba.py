@@ -9,6 +9,8 @@ through every expert as one batched einsum, and the outputs are summed
 with hard top-k gates (the softmax weights of the k chosen experts, not
 renormalised).  The router's softmax runs in f32 and the gates are cast
 to the activations' dtype, so bf16 runs choose the experts f32 would.
+Every projection and expert einsum computes in the promoted dtype of its
+input and its weights (``models/promote.py``), as flax's do.
 
 ``step`` runs one token through caches from ``init_cache``: a Mamba
 layer's ``(h, conv window)``, an attention layer's ``(k, v)``, which
@@ -28,6 +30,7 @@ from torch import nn
 from gfe_mamba_torch.models.attention import _heads, _merge
 from gfe_mamba_torch.models.dropout import Dropout
 from gfe_mamba_torch.models.mamba import MambaBlock, MambaConfig, RMSNorm
+from gfe_mamba_torch.models.promote import Linear, promote
 from gfe_mamba_torch.parallel.collectives import (copy_to_model,
                                                   reduce_from_model)
 
@@ -108,10 +111,10 @@ class GQAttention(nn.Module):
                              f"{n_kv} key/value heads")
         self.n_heads, self.n_kv = n_heads, n_kv
         self.head_dim = d // n_heads
-        self.q_proj = nn.Linear(d, n_heads * self.head_dim, bias=False)
-        self.k_proj = nn.Linear(d, n_kv * self.head_dim, bias=False)
-        self.v_proj = nn.Linear(d, n_kv * self.head_dim, bias=False)
-        self.o_proj = nn.Linear(n_heads * self.head_dim, d, bias=False)
+        self.q_proj = Linear(d, n_heads * self.head_dim, bias=False)
+        self.k_proj = Linear(d, n_kv * self.head_dim, bias=False)
+        self.v_proj = Linear(d, n_kv * self.head_dim, bias=False)
+        self.o_proj = Linear(n_heads * self.head_dim, d, bias=False)
         self.attn_drop = Dropout(config.attention_dropout)
 
     def forward(self, x: torch.Tensor, cache=None):
@@ -128,7 +131,7 @@ class GQAttention(nn.Module):
         groups = self.n_heads // self.n_kv
         k = k.repeat_interleave(groups, dim=1)
         v = v.repeat_interleave(groups, dim=1)
-        logits = torch.einsum("bhid,bhjd->bhij", q, k) \
+        logits = torch.einsum("bhid,bhjd->bhij", *promote(q, k)) \
             / math.sqrt(self.head_dim)
         if causal:
             li, lj = logits.shape[-2:]
@@ -136,7 +139,7 @@ class GQAttention(nn.Module):
                               device=x.device).tril(lj - li)
             logits = logits.masked_fill(~mask, float("-inf"))
         attn = self.attn_drop(torch.softmax(logits, dim=-1))
-        out = torch.einsum("bhij,bhjd->bhid", attn, v)
+        out = torch.einsum("bhij,bhjd->bhid", *promote(attn, v))
         return self.o_proj(_merge(out)), cache
 
 
@@ -145,9 +148,9 @@ class MLP(nn.Module):
 
     def __init__(self, d_model: int, mlp_size: int):
         super().__init__()
-        self.gate_proj = nn.Linear(d_model, mlp_size, bias=False)
-        self.up_proj = nn.Linear(d_model, mlp_size, bias=False)
-        self.down_proj = nn.Linear(mlp_size, d_model, bias=False)
+        self.gate_proj = Linear(d_model, mlp_size, bias=False)
+        self.up_proj = Linear(d_model, mlp_size, bias=False)
+        self.down_proj = Linear(mlp_size, d_model, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -174,7 +177,7 @@ class SparseMoEBlock(nn.Module):
         if num_experts == 1:
             self.expert = MLP(d_model, mlp_size)
             return
-        self.router = nn.Linear(d_model, num_experts, bias=False)
+        self.router = Linear(d_model, num_experts, bias=False)
         self.experts_gate = nn.Parameter(
             torch.empty(num_experts, d_model, mlp_size))
         self.experts_up = nn.Parameter(
@@ -197,9 +200,10 @@ class SparseMoEBlock(nn.Module):
             x = copy_to_model(x, self.ep_group)
             gates = copy_to_model(gates, self.ep_group).narrow(
                 -1, self.ep_index * local, local)
-        g = torch.einsum("bld,edf->belf", x, self.experts_gate)
-        u = torch.einsum("bld,edf->belf", x, self.experts_up)
-        y = torch.einsum("belf,efd->beld", F.silu(g) * u, self.experts_down)
+        g = torch.einsum("bld,edf->belf", *promote(x, self.experts_gate))
+        u = torch.einsum("bld,edf->belf", *promote(x, self.experts_up))
+        y = torch.einsum("belf,efd->beld",
+                         *promote(F.silu(g) * u, self.experts_down))
         out = reduce_from_model(torch.einsum("beld,ble->bld", y, gates),
                                 self.ep_group)
         return out, router_logits.reshape(bsz * seq, self.num_experts)
@@ -312,12 +316,13 @@ class JambaLM(nn.Module):
         self.jamba = Jamba(config)
         self.final_layernorm = RMSNorm(config.d_model, config.rms_norm_eps)
         if not config.tie_lm_weights:
-            self.lm_head = nn.Linear(config.d_model, config.vocab_size,
-                                     bias=False)
+            self.lm_head = Linear(config.d_model, config.vocab_size,
+                                  bias=False)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.config.tie_lm_weights:
-            return x @ self.embedding.weight.T
+            x, table = promote(x, self.embedding.weight)
+            return x @ table.T
         return self.lm_head(x)
 
     def forward(self, tokens: torch.Tensor):

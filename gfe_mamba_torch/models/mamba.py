@@ -2,7 +2,10 @@
 ``gfe_mamba_tpu/models/mamba.py``).  The sequence forward's scan runs
 through ``ops.scan.selective_scan`` (K2 on the card); ``Mamba.step`` is
 the one-token recurrence with a ``(h, conv window)`` cache per layer, in
-JAX's layout: h ``(B, ED, N)``, the window ``(B, d_conv - 1, ED)``."""
+JAX's layout: h ``(B, ED, N)``, the window ``(B, d_conv - 1, ED)``.
+The projections, the conv and the norms compute in the promoted dtype
+of their input and their parameters (``models/promote.py``), as flax's
+do."""
 
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gfe_mamba_torch.models.promote import Conv1d, Linear, promote
 from gfe_mamba_torch.ops.scan import selective_scan, selective_scan_step
 
 
@@ -66,17 +70,17 @@ class MambaBlock(nn.Module):
         super().__init__()
         self.config = cfg = config
         ed = cfg.d_inner
-        self.in_proj = nn.Linear(cfg.d_model, 2 * ed, bias=cfg.bias)
+        self.in_proj = Linear(cfg.d_model, 2 * ed, bias=cfg.bias)
         # left-pad d_conv-1: both-sided padding, then the first L outputs
-        self.conv1d = nn.Conv1d(ed, ed, cfg.d_conv, groups=ed,
-                                padding=cfg.d_conv - 1, bias=cfg.conv_bias)
-        self.x_proj = nn.Linear(ed, cfg.dt_rank_ + 2 * cfg.d_state,
-                                bias=False)
+        self.conv1d = Conv1d(ed, ed, cfg.d_conv, groups=ed,
+                             padding=cfg.d_conv - 1, bias=cfg.conv_bias)
+        self.x_proj = Linear(ed, cfg.dt_rank_ + 2 * cfg.d_state,
+                             bias=False)
         # the bias is the scan's delta_bias, not applied by the Linear
-        self.dt_proj = nn.Linear(cfg.dt_rank_, ed, bias=True)
+        self.dt_proj = Linear(cfg.dt_rank_, ed, bias=True)
         self.A_log = nn.Parameter(torch.empty(ed, cfg.d_state))
         self.D = nn.Parameter(torch.empty(ed))
-        self.out_proj = nn.Linear(ed, cfg.d_model, bias=cfg.bias)
+        self.out_proj = Linear(ed, cfg.d_model, bias=cfg.bias)
         if cfg.inner_layernorms:
             self.dt_layernorm = RMSNorm(cfg.dt_rank_, cfg.rms_norm_eps)
             self.B_layernorm = RMSNorm(cfg.d_state, cfg.rms_norm_eps)
@@ -121,8 +125,9 @@ class MambaBlock(nn.Module):
         for the layer input ``x`` (B, L, d_model), as the forward hands
         them over: x channel-major from the depthwise conv, z a ``chunk``
         view of in_proj's output, B and C ``split`` views of x_proj's (or
-        their RMSNorms' outputs), A in f32, the rest in the layer's
-        dtype."""
+        their RMSNorms' outputs), A in f32, x, delta, B, C and z in the
+        promoted dtype of the input and the weights (f32 for an f32 input
+        under the bf16 cast), D and delta_bias in their own."""
         L = x.shape[1]
         x, z = self.in_proj(x).chunk(2, dim=-1)
         x = self.conv1d(x.transpose(1, 2))[..., :L].transpose(1, 2)
@@ -136,8 +141,8 @@ class MambaBlock(nn.Module):
         """dt_proj without its bias, which the scan adds in f32; a
         tensor-parallel dt_proj (``parallel/sharding.py``) is asked to
         leave it out too."""
-        if type(self.dt_proj) is nn.Linear:
-            return F.linear(delta, self.dt_proj.weight)
+        if isinstance(self.dt_proj, nn.Linear):
+            return F.linear(*promote(delta, self.dt_proj.weight))
         return self.dt_proj(delta, add_bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -147,12 +152,14 @@ class MambaBlock(nn.Module):
     def step(self, x: torch.Tensor, cache):
         """One token ``x (B, d_model)`` with ``cache = (h, conv window)``
         -> ``(out (B, d_model), new cache)``.  The conv is the valid conv
-        of the window and this token; the state stays in the cache's
-        dtype, the output takes the layer's."""
+        of the window and this token.  Dtypes promote as in JAX's step:
+        an f32 cache makes the state, the window and the output f32
+        whatever the layer's dtype."""
         h, conv_in = cache
         x, z = self.in_proj(x).chunk(2, dim=-1)
-        window = torch.cat([conv_in.to(x.dtype), x[:, None]], dim=1)
-        x = torch.einsum("bke,ek->be", window, self.conv1d.weight[:, 0])
+        window = torch.cat([conv_in, x[:, None]], dim=1)
+        x = torch.einsum("bke,ek->be",
+                         *promote(window, self.conv1d.weight[:, 0]))
         if self.conv1d.bias is not None:
             x = x + self.conv1d.bias
         x = F.silu(x)
@@ -160,8 +167,7 @@ class MambaBlock(nn.Module):
         delta, B, C = self._delta_bc(x)
         delta = F.softplus(self.dt_proj(delta))
         y, h = selective_scan_step(h, x, delta, A, B, C, self.D)
-        y = y.to(z.dtype) * F.silu(z)
-        return self.out_proj(y), (h, window[:, 1:].to(conv_in.dtype))
+        return self.out_proj(y * F.silu(z)), (h, window[:, 1:])
 
 
 class ResidualBlock(nn.Module):

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from gfe_mamba_torch.models.promote import promote
 from gfe_mamba_torch.ops.cuda.selective_scan import (kernel_operand,
                                                      selective_scan_bwd_cuda,
                                                      selective_scan_bwd_plain,
@@ -106,8 +107,9 @@ def selective_scan_step(h, x, delta, A, B, C, D):
     """One recurrent step of the scan, plain PyTorch on any device: h
     ``(B, ED, N)`` the carried state, x and the post-softplus delta
     ``(B, ED)``, A ``(ED, N)``, B and C ``(B, N)``, D ``(ED,)``.  Returns
-    ``(y (B, ED), new h)``, y without the gate."""
+    ``(y (B, ED), new h)``, y without the gate, both in the operands'
+    promoted dtype (JAX's ``selective_scan_step``)."""
     h = torch.exp(delta[..., None] * A) * h \
         + (delta * x)[..., None] * B[:, None, :]
-    y = torch.einsum("ben,bn->be", h, C) + D * x
+    y = torch.einsum("ben,bn->be", *promote(h, C)) + D * x
     return y, h

@@ -21,7 +21,9 @@ matched ``nn.Linear`` for a :class:`RowParallelLinear` or
 ``SparseMoEBlock`` its slice of the experts; their forwards use the
 autograd pairs of ``parallel/collectives.py`` (``add_bias=False`` leaves
 the bias out, for a Mamba layer's ``dt_proj``, whose bias the scan adds).
-State-dict keys stay as they were, with the shards' shapes.
+State-dict keys stay as they were, with the shards' shapes.  The
+parallel forms compute in the promoted dtype of their input and their
+shard, as the ``Linear`` they replace (``models/promote.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gfe_mamba_torch.models.promote import promote
 from gfe_mamba_torch.parallel.collectives import (copy_to_model,
                                                   gather_from_model,
                                                   group_rank, group_size,
@@ -104,7 +107,7 @@ class ColumnParallelLinear(nn.Module):
             nn.Parameter(linear.bias.detach().clone())
 
     def forward(self, x: torch.Tensor, add_bias: bool = True):
-        y = F.linear(copy_to_model(x, self.group), self.weight)
+        y = F.linear(*promote(copy_to_model(x, self.group), self.weight))
         y = gather_from_model(y, -1, self.group)
         return y if self.bias is None or not add_bias else y + self.bias
 
@@ -128,7 +131,7 @@ class RowParallelLinear(nn.Module):
     def forward(self, x: torch.Tensor, add_bias: bool = True):
         per = self.weight.shape[1]
         x = copy_to_model(x, self.group).narrow(-1, self.index * per, per)
-        y = reduce_from_model(F.linear(x, self.weight), self.group)
+        y = reduce_from_model(F.linear(*promote(x, self.weight)), self.group)
         return y if self.bias is None or not add_bias else y + self.bias
 
 
@@ -165,7 +168,7 @@ def apply_param_shardings(model: nn.Module, shardings: dict[str, Split],
                 raise ValueError(f"{owner}: the rules split only some of "
                                  f"its experts' kernels")
             _shard_experts(module, group)
-        elif type(module) is nn.Linear and leaf == "weight":
+        elif isinstance(module, nn.Linear) and leaf == "weight":
             cls = RowParallelLinear if split.dim == 1 else \
                 ColumnParallelLinear
             parent, _, child = owner.rpartition(".")

@@ -20,12 +20,16 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def mamba_scan_operands(bsz: int, L: int, d_model: int, dtype, device,
-                        d_state: int = 16, seed: int = 0) -> list:
+                        d_state: int = 16, seed: int = 0,
+                        input_dtype=None) -> list:
     """The scan's operands ``[x, delta, A, B, C, D, z, delta_bias]`` as one
     ``MambaBlock`` in ``dtype`` on ``device`` hands them over
     (``MambaBlock.scan_operands``): x channel-major, z, B and C views, A
     f32.  The block takes Mamba's init and the layer input is normal, all
-    from ``seed``; the global RNG is left as it was."""
+    from ``seed``; the global RNG is left as it was.  ``input_dtype``
+    (``dtype`` when omitted) is the layer input's: an f32 input to a
+    bf16 block gives the bf16 Stage-2 step's operands, x, delta, z, B
+    and C f32 views beside bf16 D and delta_bias."""
     from gfe_mamba_torch.models.mamba import MambaBlock, MambaConfig
 
     gen = torch.Generator().manual_seed(seed)
@@ -35,7 +39,8 @@ def mamba_scan_operands(bsz: int, L: int, d_model: int, dtype, device,
                                        d_state=d_state))
     block.reset_ssm_parameters(gen)
     block = block.to(device, dtype)
-    h = torch.randn(bsz, L, d_model, generator=gen).to(device, dtype)
+    h = torch.randn(bsz, L, d_model, generator=gen).to(
+        device, input_dtype or dtype)
     with torch.no_grad():
         return [t.detach() for t in block.scan_operands(h)]
 
@@ -148,6 +153,12 @@ def run_job(job: dict, mesh, device) -> dict:
         "generator": trainer.generator, "discriminator": trainer.discriminator}
     cuda = device.type == "cuda"
     out = {"logs": [], "step_ms": []}
+    if stage2:
+        seen = set()
+        trainer.model.classifier.transformer.register_forward_hook(
+            lambda m, i, o: seen.add(
+                str((o[0] if isinstance(o, tuple) else o).dtype)))
+        out["mixer_dtypes"] = seen
     for i, batch in enumerate(job["batches"]):
         rows = slice(None) if mesh is None else \
             mesh.local_rows(len(next(iter(batch.values()))))
@@ -206,7 +217,8 @@ def dp_steps(out_dir: str, spec: dict) -> None:
     every parameter, Adam's counts and (where ``keep``) the parameters
     and Adam's first moments (only on rank ``keep_rank`` when given), on
     the card also the launches and the peak memory of the last step, and
-    with ``time_allreduce`` the gradient average timed alone."""
+    with ``time_allreduce`` the gradient average timed alone; a Stage-2
+    job also the dtypes its mixer's output took."""
     import os
 
     from gfe_mamba_torch.parallel import multihost

@@ -48,7 +48,9 @@ canonical geometry to the small one's shape and widths, as
 geometry, ``--stage1-npz`` splits a run at the stage boundary (the
 generator saved after Stage 1, or loaded and Stage 1 skipped, its batch
 draws replayed so that Stage 2 sees the same order) and
-``--mixed-precision none`` runs both stages in f32.
+``--mixed-precision none`` runs both stages in f32.  ``--summarize
+FILE...`` prints the seed summary of canonical runs' files (means and
+standard errors beside JAX's artifact) and trains nothing.
 """
 
 from __future__ import annotations
@@ -496,6 +498,51 @@ def run_canonical(args, device) -> dict:
     return report
 
 
+def summarize(paths) -> dict:
+    """Canonical runs at several seeds (their JSON files): per seed the
+    test MCC and F1 of the best-validation checkpoint and of the last
+    epoch, the best epoch, the Stage-2 BCE per epoch and the median ms
+    per Stage-2 step; over the seeds each metric's mean and standard
+    error (sample sd / sqrt(n)), beside the JAX artifact the runs name,
+    and whether the best-validation MCC's mean lies within two standard
+    errors of JAX's."""
+    runs = []
+    for path in paths:
+        with open(path) as f:
+            r = json.load(f)
+        runs.append(dict(
+            file=os.path.basename(path), seed=r["config"]["seed"],
+            device=r["config"].get("device"),
+            mixed_precision=r["config"]["mixed_precision"],
+            best_mcc=r["best_ckpt_metrics"]["mcc"],
+            best_f1=r["best_ckpt_metrics"]["f1"],
+            last_mcc=r["metrics"]["mcc"], last_f1=r["metrics"]["f1"],
+            best_val_epoch=r.get("best_val_epoch"),
+            stage2_bce=r["stage2_bce"], val_mcc=r["val_mcc"],
+            stage2_step_ms=r["stage2_step_ms"],
+            wall_seconds=r.get("wall_seconds"), reference=r["reference"]))
+    out = {"runs": [{k: v for k, v in r.items() if k != "reference"}
+                    for r in runs], "mean": {}, "stderr": {}}
+    n = len(runs)
+    for key in ("best_mcc", "best_f1", "last_mcc", "last_f1"):
+        vals = [r[key] for r in runs]
+        mean = sum(vals) / n
+        sd = math.sqrt(sum((v - mean) ** 2 for v in vals) / (n - 1)) \
+            if n > 1 else float("nan")
+        out["mean"][key], out["stderr"][key] = mean, sd / math.sqrt(n)
+    ref = runs[0]["reference"]
+    out["reference"] = dict(
+        artifact=ref["artifact"], best_mcc=ref["best_ckpt_metrics"]["mcc"],
+        best_f1=ref["best_ckpt_metrics"]["f1"],
+        last_mcc=ref["final_metrics"]["mcc"],
+        last_f1=ref["final_metrics"]["f1"])
+    gap = out["mean"]["best_mcc"] - out["reference"]["best_mcc"]
+    out["best_mcc_gap_in_stderr"] = gap / out["stderr"]["best_mcc"] \
+        if out["stderr"]["best_mcc"] > 0 else float("nan")
+    out["within_two_stderr"] = abs(gap) <= 2 * out["stderr"]["best_mcc"]
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def _device_fields(device) -> dict:
@@ -553,7 +600,15 @@ def main(argv=None) -> dict:
                         help="the Stage-1 generator's npz: loaded, and Stage "
                              "1 skipped, when it exists; else written after "
                              "Stage 1 (a run split at the stage boundary)")
+    parser.add_argument("--summarize", nargs="+", default=None,
+                        metavar="JSON",
+                        help="print the seed summary of these canonical "
+                             "runs' files (summarize()) and run nothing")
     args = parser.parse_args(argv)
+    if args.summarize:
+        summary = summarize(args.summarize)
+        print(json.dumps(summary, indent=1), flush=True)
+        return summary
 
     device = resolve_device(args.device)
     tf32 = (torch.backends.cudnn.allow_tf32,

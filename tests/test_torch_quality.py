@@ -146,3 +146,31 @@ def test_canonical_run_splits_at_the_stage_boundary(tmp_path):
     for key in ("stage2_bce", "val_mcc", "final_metrics",
                 "best_ckpt_metrics"):
         assert runs[0][key] == runs[1][key], key
+
+
+def test_summarize_gives_the_seed_means_and_standard_errors(tmp_path):
+    """``--summarize`` over two written runs: the per-seed metrics, their
+    means and standard errors (sample sd / sqrt(n)) and the distance to
+    the JAX artifact's best-validation MCC in standard errors."""
+    paths = []
+    for seed, (best, last) in enumerate(((0.1, 0.0), (0.3, 0.2))):
+        run = dict(config=dict(seed=seed, device="cpu",
+                               mixed_precision="bf16"),
+                   best_ckpt_metrics=dict(mcc=best, f1=0.5),
+                   metrics=dict(mcc=last, f1=0.4), best_val_epoch=2,
+                   stage2_bce=[0.7], val_mcc=[[2, best]],
+                   stage2_step_ms=60.0,
+                   reference=dict(artifact="CANONICAL_r04.json",
+                                  best_ckpt_metrics=dict(mcc=0.3548,
+                                                         f1=0.6771),
+                                  final_metrics=dict(mcc=-0.0013, f1=0.52)))
+        paths.append(str(tmp_path / f"s{seed}.json"))
+        with open(paths[-1], "w") as f:
+            json.dump(run, f)
+    out = quality_torch.main(["--summarize", *paths])
+    assert [r["seed"] for r in out["runs"]] == [0, 1]
+    assert math.isclose(out["mean"]["best_mcc"], 0.2)
+    assert math.isclose(out["stderr"]["best_mcc"], 0.1)
+    assert math.isclose(out["best_mcc_gap_in_stderr"], -1.548)
+    assert out["within_two_stderr"]
+    assert out["reference"]["best_mcc"] == 0.3548

@@ -115,6 +115,26 @@ def _mamba_operands(dtype, bsz=2, L=5):
     return x, delta, z, B, C
 
 
+def test_stage2_bf16_operands_pass_as_they_are():
+    """Under the bf16 Stage-2 step a Mamba layer takes f32 tokens with
+    bf16 weights and computes in f32 (``models/promote.py``): x, delta,
+    z, B and C are f32 views in the same layout as above, D and
+    delta_bias stay bf16, and every one goes to the kernels as it is."""
+    x, delta, A, B, C, D, z, bias = mamba_scan_operands(
+        2, 5, 8, torch.bfloat16, "cpu", d_state=4,
+        input_dtype=torch.float32)
+    ED, R = 16, 1
+    for t in (x, delta, z, B, C):
+        assert t.dtype == torch.float32
+    assert D.dtype == bias.dtype == torch.bfloat16
+    assert A.dtype == torch.float32
+    for t in (x, delta, A, B, C, D, z, bias):
+        assert k2.kernel_operand(t) is t
+    assert k2.operand_meta(x) == (0, 5 * ED, 1, 5)
+    assert k2.operand_meta(z) == (0, 5 * 2 * ED, 2 * ED, 1)
+    assert k2.operand_meta(C) == (0, 5 * (R + 8), R + 8, 1)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mamba_operands_pass_as_they_are(dtype):
     """No operand of a Mamba layer is copied: x channel-major (last

@@ -108,6 +108,32 @@ def test_scan_bwd_kernel_takes_bf16_views_and_is_deterministic(cuda, bsz):
             _assert_close(got[i], want[i], 1e-4, name)
 
 
+@pytest.mark.parametrize("bsz", [1, 2])
+def test_scan_kernels_take_the_stage2_f32_views(cuda, bsz):
+    """The bf16 Stage-2 step's operands (f32 tokens into a bf16 Mamba
+    layer, which computes in f32: x, delta, z, B, C f32 views, D and
+    delta_bias bf16) go to K2 and K4 as they are: y and every gradient
+    within 1e-5 / 1e-4 of the plain versions in f32."""
+    args = mamba_scan_operands(bsz, 53, 128, torch.bfloat16, cuda,
+                               seed=bsz, input_dtype=torch.float32)
+    assert args[0].dtype == torch.float32 and args[5].dtype == torch.bfloat16
+    assert not args[0].is_contiguous() and not args[6].is_contiguous()
+    assert all(k2.kernel_operand(t) is t for t in args)
+    plain = [t.float() for t in args]
+    got = k2.selective_scan_cuda(*args, delta_softplus=True)
+    want = k2.selective_scan_plain(*plain, delta_softplus=True)
+    assert got.dtype == torch.float32
+    _assert_close(got, want, 1e-5, "y")
+    g = _randn(np.random.RandomState(7), bsz, 53, 256).to(cuda)
+    got = k2.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
+    want = k2.selective_scan_bwd_plain(*plain, g, delta_softplus=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "ddelta", "dA", "dB", "dC", "dD", "dz",
+                           "dbias"), got, want):
+        assert a.dtype == torch.float32, name
+        _assert_close(a, b, 1e-4, name)
+
+
 def test_scan_fn_takes_bf16_views_without_casts_or_copies(cuda):
     """``SelectiveScanFn`` forward and backward on a Mamba layer's own
     bf16 operands: no op casts anything to f32 and none copies (``clone``,
