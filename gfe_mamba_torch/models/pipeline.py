@@ -19,6 +19,7 @@ from gfe_mamba_torch.models.ft_transformer import CrossTransformerBoth
 from gfe_mamba_torch.models.fusion import CrossJambaBoth, CrossMambaBoth
 from gfe_mamba_torch.models.unet3d import ResidualMidUNet3DViT
 from gfe_mamba_torch.utils.initializers import init_weights
+from gfe_mamba_torch.utils.profiling import annotate
 
 
 class GFEMamba(nn.Module):
@@ -43,11 +44,13 @@ class GFEMamba(nn.Module):
 
     def forward(self, mri: torch.Tensor, x_categ: torch.Tensor,
                 x_numer: torch.Tensor, return_pet: bool = False):
-        with torch.no_grad():
+        with annotate("gfe.generator"), torch.no_grad():
             mid_input, mid_output, pet = self.generator(mri,
                                                         output_vit_mid=True)
-        feature_img = self.combiner(mid_input, mid_output)
-        logits = self.classifier(x_categ, x_numer, feature_img, [mri, pet])
+        with annotate("gfe.classifier"):
+            feature_img = self.combiner(mid_input, mid_output)
+            logits = self.classifier(x_categ, x_numer, feature_img,
+                                     [mri, pet])
         if return_pet:
             return logits, pet
         return logits

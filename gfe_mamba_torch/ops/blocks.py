@@ -32,6 +32,7 @@ from gfe_mamba_torch.ops.conv3d import (apply_act, conv3x3x3, conv_nd,
                                         deconv3x3x3_s2, deconv_nd,
                                         group_norm_stats, interpolate_to,
                                         pool_nd, resize_nearest)
+from gfe_mamba_torch.utils.profiling import annotate
 
 _ACT_NAMES = {"r": "relu", "e": "elu", "l": "leaky001", None: "none"}
 _ORDER_CHARS = set("bgrlecdD")
@@ -243,6 +244,10 @@ class SingleConv(nn.Module):
 
     def forward(self, x: torch.Tensor, residual=None,
                 post_act: str = "none") -> torch.Tensor:
+        with annotate("gfe.conv3d"):
+            return self._forward(x, residual, post_act)
+
+    def _forward(self, x, residual, post_act):
         consumed, act, fuse_gn, conv_is_last = self._fusion() \
             if self.fused else (set(), None, False, False)
         for i, ch in enumerate(self.order):

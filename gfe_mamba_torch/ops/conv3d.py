@@ -23,6 +23,7 @@ from gfe_mamba_torch.ops.cuda.conv3d import (apply_act, conv3x3x3_cuda,
                                              conv3x3x3_dw_cuda,
                                              conv3x3x3_dw_plain,
                                              conv3x3x3_plain)
+from gfe_mamba_torch.utils.profiling import annotate
 
 __all__ = ["Conv3x3x3Fn", "apply_act", "conv3x3x3", "conv_nd",
            "deconv3x3x3_s2", "deconv_nd", "group_norm_stats",
@@ -264,9 +265,10 @@ class Conv3x3x3Fn(torch.autograd.Function):
         g1 = g2 if ag is None else g2 * ag
         dx = dw = dbias = da = ds = None
         if need[0] or need[3] or need[4]:
-            wf = w.flip(0, 1, 2).transpose(3, 4).contiguous()
-            conv = conv3x3x3_cuda if g1.is_cuda else conv3x3x3_plain
-            dz = conv(g1.contiguous(), wf)
+            with annotate("gfe.conv3d.dz"):
+                wf = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+                conv = conv3x3x3_cuda if g1.is_cuda else conv3x3x3_plain
+                dz = conv(g1.contiguous(), wf)
             if need[0]:
                 dx = dz if pre_scale is None else \
                     dz * pre_scale.to(dz.dtype)[:, None, None, None, :]
@@ -276,7 +278,9 @@ class Conv3x3x3Fn(torch.autograd.Function):
                 ds = dz.float().sum((1, 2, 3))
         if need[1]:
             dw_fn = conv3x3x3_dw_cuda if x.is_cuda else conv3x3x3_dw_plain
-            dw = dw_fn(x, g1.contiguous(), pre_scale, pre_shift).to(w.dtype)
+            with annotate("gfe.conv3d.dw"):
+                dw = dw_fn(x, g1.contiguous(), pre_scale, pre_shift
+                           ).to(w.dtype)
         if need[2]:
             dbias = g1.float().sum((0, 1, 2, 3)).to(bias.dtype)
         dres = g2 if need[5] else None

@@ -13,6 +13,7 @@ from gfe_mamba_torch.ops.cuda.selective_scan import (kernel_operand,
                                                      selective_scan_bwd_plain,
                                                      selective_scan_cuda,
                                                      selective_scan_plain)
+from gfe_mamba_torch.utils.profiling import annotate
 
 
 def linear_recurrence(coeffs: torch.Tensor, values: torch.Tensor, *,
@@ -65,27 +66,31 @@ class SelectiveScanFn(torch.autograd.Function):
         ins = (x, delta, A, B, C, D, z, delta_bias)
         ctx.dtypes = [None if t is None else t.dtype for t in ins]
         ctx.delta_softplus = delta_softplus
-        if x.is_cuda:
-            args = [kernel_operand(t) for t in ins]
-            args[2] = A.float().contiguous()
-            y = selective_scan_cuda(*args, delta_softplus=delta_softplus)
-        else:
-            args = [_f32(t) for t in ins]
-            y = selective_scan_plain(*args, delta_softplus=delta_softplus)
-        ctx.save_for_backward(*args)
-        return y.to(x.dtype)
+        with annotate("gfe.scan"):
+            if x.is_cuda:
+                args = [kernel_operand(t) for t in ins]
+                args[2] = A.float().contiguous()
+                y = selective_scan_cuda(*args, delta_softplus=delta_softplus)
+            else:
+                args = [_f32(t) for t in ins]
+                y = selective_scan_plain(*args,
+                                         delta_softplus=delta_softplus)
+            ctx.save_for_backward(*args)
+            return y.to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         args = ctx.saved_tensors
-        if g.is_cuda:
-            grads = selective_scan_bwd_cuda(
-                *args, kernel_operand(g), delta_softplus=ctx.delta_softplus)
-        else:
-            grads = selective_scan_bwd_plain(
-                *args, _f32(g), delta_softplus=ctx.delta_softplus)
-        return (*(None if d is None else d.to(dt)
-                  for d, dt in zip(grads, ctx.dtypes)), None)
+        with annotate("gfe.scan.bwd"):
+            if g.is_cuda:
+                grads = selective_scan_bwd_cuda(
+                    *args, kernel_operand(g),
+                    delta_softplus=ctx.delta_softplus)
+            else:
+                grads = selective_scan_bwd_plain(
+                    *args, _f32(g), delta_softplus=ctx.delta_softplus)
+            return (*(None if d is None else d.to(dt)
+                      for d, dt in zip(grads, ctx.dtypes)), None)
 
 
 def selective_scan(x, delta, A, B, C, D, z=None, delta_bias=None,

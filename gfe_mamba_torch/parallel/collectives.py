@@ -24,6 +24,8 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 
+from gfe_mamba_torch.utils.profiling import annotate, to_host
+
 
 def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
@@ -136,7 +138,7 @@ def all_true(flag: bool, device, group=None) -> bool:
         return flag
     t = torch.tensor([1.0 if flag else 0.0], device=device)
     dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
-    return bool(t.item() > 0.5)
+    return to_host(t[0] > 0.5, "all_true")
 
 
 def mean_over(values: Sequence[float], group, device) -> list[float]:
@@ -146,4 +148,5 @@ def mean_over(values: Sequence[float], group, device) -> list[float]:
         return list(values)
     t = torch.tensor(list(values), dtype=torch.float64, device=device)
     dist.all_reduce(t, group=group)
-    return (t / group_size(group)).tolist()
+    with annotate("gfe.sync.mean_over"):
+        return (t / group_size(group)).tolist()

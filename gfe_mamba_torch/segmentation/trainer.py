@@ -31,6 +31,7 @@ from gfe_mamba_torch.models.dropout import seed_dropout
 from gfe_mamba_torch.segmentation.losses import get_loss_criterion
 from gfe_mamba_torch.segmentation.metrics import get_evaluation_metric
 from gfe_mamba_torch.training.checkpoint import Checkpointer
+from gfe_mamba_torch.utils.profiling import annotate, to_host
 
 
 class OptaxRMSprop(torch.optim.Optimizer):
@@ -190,20 +191,24 @@ class UNetTrainer:
 
     def train_step(self, raw, label) -> float:
         """One update on a batch; returns the loss."""
-        self.model.train()
-        stats = {k: b.clone() for k, b in self.model.named_buffers()}
-        logits = self.model(raw)
-        loss = self.loss_fn(logits, label)
-        grads = torch.autograd.grad(loss, self.params,
-                                    materialize_grads=True)
-        for p, g in zip(self.params, grads):
-            p.grad = g * self.lr_scale
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
-        with torch.no_grad():
-            for k, b in self.model.named_buffers():
-                b.copy_(stats[k])
-        return float(loss.detach())
+        with annotate("gfe.step", f"UNetTrainer step={self.num_iterations}"):
+            with annotate("gfe.forward"):
+                self.model.train()
+                stats = {k: b.clone() for k, b in self.model.named_buffers()}
+                logits = self.model(raw)
+                loss = self.loss_fn(logits, label)
+            with annotate("gfe.backward"):
+                grads = torch.autograd.grad(loss, self.params,
+                                            materialize_grads=True)
+            with annotate("gfe.update"):
+                for p, g in zip(self.params, grads):
+                    p.grad = g * self.lr_scale
+                self.optimizer.step()
+                self.optimizer.zero_grad(set_to_none=True)
+                with torch.no_grad():
+                    for k, b in self.model.named_buffers():
+                        b.copy_(stats[k])
+            return to_host(loss.detach(), "loss")
 
     @torch.no_grad()
     def validate(self, val_loader) -> float:
@@ -211,8 +216,9 @@ class UNetTrainer:
         scores, n = 0.0, 0
         for batch in val_loader:
             pred = self.model(_to(batch["raw"], self.device))
-            scores += float(self.metric_fn(pred, _to(batch["label"],
-                                                     self.device)))
+            scores += to_host(self.metric_fn(pred, _to(batch["label"],
+                                                       self.device)),
+                              "eval_metric")
             n += 1
         return scores / max(n, 1)
 

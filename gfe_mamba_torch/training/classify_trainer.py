@@ -41,6 +41,7 @@ from gfe_mamba_torch.training.optim import (advance_adam_count_, all_finite,
                                             clip_by_param_norm_,
                                             compute_dtype)
 from gfe_mamba_torch.utils.initializers import check_law, init_weights
+from gfe_mamba_torch.utils.profiling import annotate, to_host
 
 
 class ClassifyTrainer:
@@ -110,35 +111,42 @@ class ClassifyTrainer:
         """The loss's gradients of the trainable parameters (in their
         order), averaged over the data group, and ``{"cla_loss",
         "batch_acc"}`` of the global batch; no update."""
-        mri, x_cat, x_num, labels = self._inputs(mri, x_cat, x_num, labels)
-        labels = labels.float()
-        self.model.train()
-        logits = self._logits(mri, x_cat, x_num)
-        loss = F.binary_cross_entropy_with_logits(logits, labels)
-        grads = list(torch.autograd.grad(loss, list(self.trainable.values()),
-                                         materialize_grads=True))
+        with annotate("gfe.forward"):
+            mri, x_cat, x_num, labels = self._inputs(mri, x_cat, x_num,
+                                                     labels)
+            labels = labels.float()
+            self.model.train()
+            logits = self._logits(mri, x_cat, x_num)
+            loss = F.binary_cross_entropy_with_logits(logits, labels)
+            acc = ((torch.sigmoid(logits) >= 0.5) == (labels >= 0.5)
+                   ).float().mean()
+        with annotate("gfe.backward"):
+            grads = list(torch.autograd.grad(
+                loss, list(self.trainable.values()), materialize_grads=True))
         all_reduce_mean_(grads, self.data_group)
-        acc = ((torch.sigmoid(logits) >= 0.5) == (labels >= 0.5)).float()
-        loss, acc = mean_over([float(loss.detach()), float(acc.mean())],
+        loss, acc = mean_over([to_host(loss.detach(), "cla_loss"),
+                               to_host(acc, "batch_acc")],
                               self.data_group, self.device)
         return grads, {"cla_loss": loss, "batch_acc": acc}
 
     def train_step(self, mri, x_cat, x_num, labels) -> dict[str, float]:
         """One update; returns ``{"cla_loss", "batch_acc", "skipped"}``."""
-        grads, logs = self.gradients(mri, x_cat, x_num, labels)
-        trainable = list(self.trainable.values())
-        ok = math.isfinite(logs["cla_loss"]) and all_finite(grads)
-        if self.mesh is not None and self.mesh.model_size > 1:
-            ok = all_true(ok, self.device)
-        if ok:
-            clip_by_param_norm_(grads, self.grad_clip, self.splits)
-            for p, g in zip(trainable, grads):
-                p.grad = g
-            self.optimizer.step()
-            self.optimizer.zero_grad(set_to_none=True)
-        else:
-            advance_adam_count_(self.optimizer, trainable)
-        self.step += 1
+        with annotate("gfe.step", f"ClassifyTrainer step={self.step}"):
+            grads, logs = self.gradients(mri, x_cat, x_num, labels)
+            trainable = list(self.trainable.values())
+            with annotate("gfe.update"):
+                ok = math.isfinite(logs["cla_loss"]) and all_finite(grads)
+                if self.mesh is not None and self.mesh.model_size > 1:
+                    ok = all_true(ok, self.device)
+                if ok:
+                    clip_by_param_norm_(grads, self.grad_clip, self.splits)
+                    for p, g in zip(trainable, grads):
+                        p.grad = g
+                    self.optimizer.step()
+                    self.optimizer.zero_grad(set_to_none=True)
+                else:
+                    advance_adam_count_(self.optimizer, trainable)
+            self.step += 1
         return {**logs, "skipped": 0.0 if ok else 1.0}
 
     @torch.no_grad()
@@ -154,5 +162,5 @@ class ClassifyTrainer:
 
     @staticmethod
     def metrics(counts) -> dict[str, float]:
-        return {k: float(v)
+        return {k: to_host(v, "metrics")
                 for k, v in metrics_from_counts(counts)._asdict().items()}

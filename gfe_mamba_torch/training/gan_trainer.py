@@ -52,6 +52,7 @@ from gfe_mamba_torch.training.optim import (advance_adam_count_, all_finite,
                                             clip_by_global_norm_,
                                             compute_dtype)
 from gfe_mamba_torch.utils.initializers import check_law, init_weights
+from gfe_mamba_torch.utils.profiling import annotate, to_host
 
 
 class GanTrainer:
@@ -108,27 +109,31 @@ class GanTrainer:
                                (mri.to(self.dtype),)).float()
 
     def _g_loss(self, mri, pet, adv_on):
-        recon = self._recon(mri)
-        l1 = torch.mean(torch.abs(recon - pet))
-        p_loss = self.perceptual_loss(recon, pet)
-        frozen_d = {k: v.detach() for k, v in self.d_params.items()}
-        logits_fake = functional_call(self.discriminator, frozen_d,
-                                      (recon,))[-1]
-        gen_adv = patch_adversarial_loss(logits_fake, True, False)
-        loss = (l1 + self.perceptual_weight * p_loss
-                + adv_on * self.adv_weight * gen_adv)
+        with annotate("gfe.forward", "G"):
+            recon = self._recon(mri)
+            l1 = torch.mean(torch.abs(recon - pet))
+            p_loss = self.perceptual_loss(recon, pet)
+            frozen_d = {k: v.detach() for k, v in self.d_params.items()}
+            logits_fake = functional_call(self.discriminator, frozen_d,
+                                          (recon,))[-1]
+            gen_adv = patch_adversarial_loss(logits_fake, True, False)
+            loss = (l1 + self.perceptual_weight * p_loss
+                    + adv_on * self.adv_weight * gen_adv)
         return loss, recon, (l1, p_loss, gen_adv)
 
     def _d_loss(self, recon, pet, adv_on):
-        fake = self.discriminator(recon.detach())[-1]
-        real = self.discriminator(pet)[-1]
-        return adv_on * self.adv_weight * 0.5 * (
-            patch_adversarial_loss(fake, False, True)
-            + patch_adversarial_loss(real, True, True))
+        with annotate("gfe.forward", "D"):
+            fake = self.discriminator(recon.detach())[-1]
+            real = self.discriminator(pet)[-1]
+            return adv_on * self.adv_weight * 0.5 * (
+                patch_adversarial_loss(fake, False, True)
+                + patch_adversarial_loss(real, True, True))
 
     def _grads(self, loss, params: dict) -> list[torch.Tensor]:
-        return list(torch.autograd.grad(loss, list(params.values()),
-                                        materialize_grads=True))
+        with annotate("gfe.backward",
+                      "G" if params is self.g_params else "D"):
+            return list(torch.autograd.grad(loss, list(params.values()),
+                                            materialize_grads=True))
 
     @staticmethod
     def _apply(opt, params: dict, grads) -> None:
@@ -161,12 +166,13 @@ class GanTrainer:
         return g_grads, d_grads, logs
 
     def _prepare(self, mri, pet, adv_on):
-        mri, pet = mri.to(self.device), pet.to(self.device)
         if mri.shape[0] % self.accum:
             raise ValueError(f"batch {mri.shape[0]} does not split into "
                              f"{self.accum} microbatches")
-        self.generator.train()
-        self.discriminator.train()
+        with annotate("gfe.forward", "inputs"):
+            mri, pet = mri.to(self.device), pet.to(self.device)
+            self.generator.train()
+            self.discriminator.train()
         return mri, pet, float(adv_on)
 
     def _g_pass(self, mri, pet, adv_on):
@@ -185,15 +191,16 @@ class GanTrainer:
                 [a + b for a, b in zip(g_sum, g_grads)]
             for key, v in (("g_loss", loss_g), ("l1", l1),
                            ("perceptual", p_loss), ("gen_adv", gen_adv)):
-                logs[key] += float(v.detach()) / n
+                logs[key] += to_host(v.detach(), key) / n
             if not self.d_fresh_recon:
                 loss_d = self._d_loss(recon, pet_mb, adv_on)
                 d_grads = self._grads(loss_d, self.d_params)
                 d_sum = d_grads if d_sum is None else \
                     [a + b for a, b in zip(d_sum, d_grads)]
-                logs["d_loss"] += float(loss_d.detach()) / n
-        g_grads = [g / n for g in g_sum]
-        d_grads = [] if self.d_fresh_recon else [g / n for g in d_sum]
+                logs["d_loss"] += to_host(loss_d.detach(), "d_loss") / n
+        with annotate("gfe.update", "mean over microbatches"):
+            g_grads = [g / n for g in g_sum]
+            d_grads = [] if self.d_fresh_recon else [g / n for g in d_sum]
         return g_grads, d_grads, logs
 
     def _all_ranks(self, ok: bool) -> bool:
@@ -206,30 +213,43 @@ class GanTrainer:
         ``{"g_loss", "d_loss", "l1", "perceptual", "gen_adv",
         "skipped"}``, each averaged over the microbatches (and the global
         batch)."""
-        mri, pet, adv_on = self._prepare(mri, pet, adv_on)
-        if not self.d_fresh_recon:
-            g_grads, d_grads, logs = self._g_pass(mri, pet, adv_on)
-            self._global(g_grads + d_grads, logs, logs)
-            ok = self._all_ranks(math.isfinite(logs["g_loss"])
-                                 and math.isfinite(logs["d_loss"])
-                                 and all_finite([*g_grads, *d_grads]))
-            if ok:
-                self._step_g(g_grads)
-        else:
-            g_grads, _, logs = self._g_pass(mri, pet, adv_on)
+        with annotate("gfe.step", f"GanTrainer step={self.step}"):
+            mri, pet, adv_on = self._prepare(mri, pet, adv_on)
+            if not self.d_fresh_recon:
+                g_grads, d_grads, logs = self._g_pass(mri, pet, adv_on)
+                with annotate("gfe.update"):
+                    self._global(g_grads + d_grads, logs, logs)
+                    ok = self._all_ranks(math.isfinite(logs["g_loss"])
+                                         and math.isfinite(logs["d_loss"])
+                                         and all_finite([*g_grads,
+                                                         *d_grads]))
+                    if ok:
+                        self._step_g(g_grads)
+                    self._finish(ok, adv_on, d_grads)
+            else:
+                logs, ok = self._fresh_step(mri, pet, adv_on)
+            self.step += 1
+        logs["skipped"] = 0.0 if ok else 1.0
+        return logs
+
+    def _fresh_step(self, mri, pet, adv_on):
+        """The ``d_fresh_recon`` step: G's update, then D's against a
+        fresh no-grad forward of the updated G, G undone if the step turns
+        out non-finite.  Returns the logs and whether it was finite."""
+        g_grads, _, logs = self._g_pass(mri, pet, adv_on)
+        with annotate("gfe.update", "G"):
             self._global(g_grads, logs, ("g_loss", "l1", "perceptual",
                                          "gen_adv"))
-            # G first, then D against a fresh no-grad forward of the
-            # updated G; undone below if the step turns out non-finite
             backup = ([p.detach().clone() for p in self.g_params.values()],
                       copy.deepcopy(self.g_opt.state_dict()))
             finite_g = all_finite(g_grads)
             self._step_g(g_grads)
-            with torch.no_grad():
-                recon_d = self._recon(mri)
-            loss_d = self._d_loss(recon_d, pet, adv_on)
-            d_grads = self._grads(loss_d, self.d_params)
-            logs["d_loss"] = float(loss_d.detach())
+        with annotate("gfe.forward", "G, no grad"), torch.no_grad():
+            recon_d = self._recon(mri)
+        loss_d = self._d_loss(recon_d, pet, adv_on)
+        d_grads = self._grads(loss_d, self.d_params)
+        logs["d_loss"] = to_host(loss_d.detach(), "d_loss")
+        with annotate("gfe.update", "D"):
             self._global(d_grads, logs, ("d_loss",))
             ok = self._all_ranks(finite_g and math.isfinite(logs["g_loss"])
                                  and math.isfinite(logs["d_loss"])
@@ -239,15 +259,18 @@ class GanTrainer:
                     for p, b in zip(self.g_params.values(), backup[0]):
                         p.copy_(b)
                 self.g_opt.load_state_dict(backup[1])
+            self._finish(ok, adv_on, d_grads)
+        return logs, ok
+
+    def _finish(self, ok: bool, adv_on: float, d_grads) -> None:
+        """D's update when the step is finite and the adversary on; a
+        skipped step advances the Adam counts (D's only with it on)."""
         if not ok:
             advance_adam_count_(self.g_opt, self.g_params.values())
             if adv_on > 0:
                 advance_adam_count_(self.d_opt, self.d_params.values())
         elif adv_on > 0:
             self._apply(self.d_opt, self.d_params, d_grads)
-        self.step += 1
-        logs["skipped"] = 0.0 if ok else 1.0
-        return logs
 
     def state_dict(self) -> dict:
         """What a resumed run needs: both players' and both Adams' state

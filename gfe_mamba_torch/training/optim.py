@@ -22,6 +22,8 @@ from typing import Iterable, Mapping
 
 import torch
 
+from gfe_mamba_torch.utils.profiling import to_host
+
 
 def compute_dtype(mixed_precision: str) -> torch.dtype:
     """bf16 for any half-precision setting, f32 otherwise."""
@@ -121,4 +123,5 @@ def advance_adam_count_(optimizer: torch.optim.Adam,
 def all_finite(tensors: Iterable[torch.Tensor]) -> bool:
     """Whether every element of every tensor is finite (one host sync)."""
     flags = [torch.isfinite(t).all() for t in tensors]
-    return bool(torch.stack(flags).all()) if flags else True
+    return to_host(torch.stack(flags).all(), "all_finite") if flags \
+        else True

@@ -16,11 +16,16 @@ off) on ``seg_predict``'s batch of 4 patches of 64x128x128, and
 ``seg_step`` runs ``UNetTrainer`` steps on it (batch 1, BCEDiceLoss,
 Adam).  After two warm-up iterations it traces
 two more with ``torch.profiler`` (CPU and CUDA activities) and prints the
-host time per iteration, the device's busy time (the sum of kernel
-times; the work runs on one stream), its idle share and the number of
-kernel launches, the kernels by device time with each one's share, and
-the port's own kernels (``csrc/*.cu``) wherever they rank.  With a file
-name it also writes the chrome trace there.
+host time per iteration; the device's busy time, the union of its
+operations' intervals inside the profiled iterations, and its idle
+share, 1 - busy over that wall (as ``portbench``'s ``device_idle.*``);
+the number of kernel launches; the kernels by device time with each
+one's share; the port's own kernels (``csrc/*.cu``) wherever they rank;
+and, on the training paths, the host time of each of the program's
+``gfe.*`` spans per iteration (``gfe_mamba_torch/utils/profiling.py``;
+the spans of autograd's device thread, ``gfe.conv3d.dz`` / ``.dw`` and
+``gfe.scan.bwd``, among them).  With a file name it also writes the
+chrome trace there.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ IMG = (160, 160, 96)
 BATCH = 4
 SEG_PATCH = (64, 128, 128)
 REQUESTS = 2
+WINDOW = "profile.window"   # the range around the profiled iterations
 CATEGORIES = dict(categories=(6,) * 8, num_continuous=40)
 # the kernels of gfe_mamba_torch/csrc, as the profiler names them
 # ("void (anonymous namespace)::scan_kernel<16>(...)"; a kernel that is
@@ -48,6 +54,29 @@ PORT_KERNELS = re.compile(
     r"^(void )?\(anonymous namespace\)::"
     r"(conv_mma|conv_fma|dw_mma|dw_fma|scan|scan_bwd|finish|stats|apply)"
     r"_kernel[<(]")
+
+
+def device_busy(events) -> tuple[int, int]:
+    """Nanoseconds in which some device operation runs inside the
+    ``WINDOW`` range (the union of the operations' intervals, not a sum
+    of their times), and the range's length."""
+    from torch.autograd import DeviceType
+
+    w0 = w1 = None
+    ops = []
+    for e in events:
+        if e.device_type() == DeviceType.CPU:
+            if e.name() == WINDOW:
+                w0, w1 = e.start_ns(), e.start_ns() + e.duration_ns()
+        elif not e.is_user_annotation():
+            ops.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    busy, end = 0, w0
+    for s, e in sorted(ops):
+        s, e = max(s, end), min(e, w1)
+        if e > s:
+            busy += e - s
+            end = e
+    return busy, w1 - w0
 
 
 def _work(path: str, mixer: str, gen: torch.Generator):
@@ -137,6 +166,8 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from gfe_mamba_torch.utils.profiling import annotate
+
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -149,9 +180,10 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for _ in range(REQUESTS):
-            work()
-        torch.cuda.synchronize()
+        with annotate(WINDOW):
+            for _ in range(REQUESTS):
+                work()
+            torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / REQUESTS
     rows = []
     for evt in prof.key_averages():
@@ -166,21 +198,31 @@ def main() -> int:
             rows.append((dev_us / 1e3 / REQUESTS, evt.count // REQUESTS,
                          evt.key))
     rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
+    kernel_ms = sum(r[0] for r in rows)
+    busy, window = device_busy(prof.profiler.kineto_results.events())
     what = args.path if args.path.startswith("seg") \
         else f"{args.path} ({args.mixer})"
     print(f"{card}: {what} {wall_ms:.2f} ms per "
           f"iteration (host "
-          f"clock), device busy {busy_ms:.2f} ms, idle share "
-          f"{1 - busy_ms / wall_ms:.3f}, {sum(r[1] for r in rows)} kernel "
-          f"launches")
+          f"clock), device busy {busy / 1e6 / REQUESTS:.2f} ms, idle share "
+          f"{1 - busy / window:.3f} of the profiled "
+          f"{window / 1e6 / REQUESTS:.2f} ms, "
+          f"{sum(r[1] for r in rows)} kernel launches")
     print(f"{'ms/iter':>10} {'share':>6} {'calls':>5}  kernel")
     for ms, calls, key in rows[:30]:
-        print(f"{ms:10.3f} {ms / busy_ms:6.3f} {calls:5d}  {key[:110]}")
+        print(f"{ms:10.3f} {ms / kernel_ms:6.3f} {calls:5d}  {key[:110]}")
     print("the port's own kernels (csrc/*.cu):")
     for ms, calls, key in rows:
         if PORT_KERNELS.match(key):
-            print(f"{ms:10.4f} {ms / busy_ms:6.3f} {calls:5d}  {key[:110]}")
+            print(f"{ms:10.4f} {ms / kernel_ms:6.3f} {calls:5d}  {key[:110]}")
+    if args.path in ("stage2", "stage1", "seg_step"):
+        print("the program's spans, host ms per iteration:")
+        for evt in sorted(prof.key_averages(), key=lambda e: e.key):
+            # host rows only: each span also has a row on the device track
+            if evt.key.startswith("gfe.") \
+                    and evt.device_type == DeviceType.CPU:
+                print(f"{evt.cpu_time_total / 1e3 / REQUESTS:10.3f} "
+                      f"{evt.count / REQUESTS:7.1f}  {evt.key}")
     if args.trace:
         prof.export_chrome_trace(args.trace)
     return 0
