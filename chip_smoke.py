@@ -308,12 +308,16 @@ K3_VERSION = ("v2: bf16 mma.sync m16n8k16 over a TMA-staged, double-buffered "
 K3_V1_MS = {64: 20.96, 128: 10.38, 256: 5.14}
 K3_V1_STEP_MS = 135.63
 # K1's design in csrc/conv3d.cu (its bf16 launch from conv_plan), and
-# v5's times (per canonical request and per Stage-1 step's input
-# gradients, H100 80GB HBM3 at 700 W, from PERF.md section 6), logged for
-# comparison and kept out of the kernels line
-K1_VERSION = ("v6: bf16 mma.sync m16n8k16 on an 8x8x8 brick over a 2-stage "
-              "TMA ring (halo and weights per 16-channel chunk, mbarriers), "
-              "GN affine applied in shared memory")
+# v6's and v5's times (per canonical request and per Stage-1 step's input
+# gradients, H100 80GB HBM3 at 700 W, from PERF.md's kernel table),
+# logged for comparison and kept out of the kernels line
+K1_VERSION = ("v7: bf16 wgmma m64nNk16, 64 output channels x an x slice of "
+              "N voxels, A (weights) from registers, B (halo) by descriptor;"
+              " brick by shape over a 2-stage TMA ring (halo planes and "
+              "weights per 16-channel chunk, mbarriers), GN affine applied "
+              "in shared memory")
+K1_V6_REQUEST_MS = 36.53
+K1_V6_DZ_STEP_MS = 8.663
 K1_V5_REQUEST_MS = 60.6
 K1_V5_DZ_STEP_MS = 13.97
 # the f32 variants' designs (the segmentation path's), for the kernels line
@@ -467,6 +471,22 @@ def conv_bound_ms(B, spatial, C, F, residual) -> tuple[float, str]:
                                        else "bytes")
 
 
+def k1_flop_per_smem_byte(plan, affine: bool) -> tuple[float, float]:
+    """The operations of a bf16 K1 plan's block per byte it moves through
+    shared memory, per 16-channel chunk: against the wgmma loop's reads
+    alone (each warpgroup's A fragments by ldmatrix, 2 KB a tap; B, every
+    voxel's 16 channels, by descriptor), then with the chunk's TMA writes
+    (weights and both halo planes) and, with the GroupNorm affine, its
+    read and write of the halo."""
+    voxels = math.prod(plan.brick)
+    ops = 2 * voxels * plan.tile * 16 * 27
+    reads = 27 * (2 * 2 * plan.tile * 16 + 2 * 16 * voxels)
+    halo = 2 * 2 * math.prod(plan.halo_box)
+    moved = reads + 2 * math.prod(plan.weight_box) + halo \
+        + (2 * halo if affine else 0)
+    return ops / reads, ops / moved
+
+
 def check_k1(gen) -> dict:
     """K1 against its plain version: each conv level at batch 1 in f32 and
     bf16, a ragged shape, then the main path's own shapes (batch 4, bf16:
@@ -503,8 +523,11 @@ def check_k1(gen) -> dict:
     totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     per_shape = []
     for spatial, C, count in CONV_LEVELS:
-        log(f"K1 plan {[BATCH, *spatial, C]}: "
-            f"{k1.conv_plan(BATCH, *spatial, C, C)}")
+        plan = k1.conv_plan(BATCH, *spatial, C, C)
+        loop, total = k1_flop_per_smem_byte(plan, affine=True)
+        log(f"K1 plan {[BATCH, *spatial, C]}: {plan}; FLOP per shared "
+            f"byte {loop:.1f} (wgmma loop), {total:.1f} (with the TMA "
+            f"writes and the affine)")
         for act, with_res, post in variants:
             x, w, b, a, s, res = conv_inputs(gen, (BATCH,) + spatial, C, C,
                                              torch.bfloat16, with_res)
@@ -545,9 +568,10 @@ def check_k1(gen) -> dict:
             totals["library_ms"] += calls * lib
             del x, w, a, s, res, xc, wc
     torch.cuda.empty_cache()
-    log(f"K1 per forward: kernel {totals['ms']:.3f} ms, cuDNN conv "
+    log(f"K1 per forward: kernel {totals['ms']:.3f} ms, plain "
+        f"{totals['plain_ms']:.3f} ms, cuDNN conv "
         f"{totals['library_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms, "
-        f"v5 {K1_V5_REQUEST_MS} ms")
+        f"v6 {K1_V6_REQUEST_MS} ms, v5 {K1_V5_REQUEST_MS} ms")
     return dict(name="K1 fused GN-apply + 3x3x3 conv + epilogue",
                 version=K1_VERSION,
                 route="cuda", source="gfe_mamba_torch/csrc/conv3d.cu",
@@ -771,7 +795,7 @@ def serve_canonical(card: str, mixer: str = "mamba",
 
     request(100)                                  # warm-up
     torch.cuda.synchronize()
-    k1.launches = 0
+    k1.launches = k1.mma_launches = k1.fma_launches = 0
     k2.launches = 0
     times = []
     for i in range(3):
@@ -793,6 +817,10 @@ def serve_canonical(card: str, mixer: str = "mamba",
         if per != (10, scans):
             raise AssertionError(f"expected 10 K1 and {scans} K2 launches "
                                  f"per {mixer} forward, got {per}")
+    if (k1.mma_launches, k1.fma_launches) != (k1.launches, 0):
+        raise AssertionError(f"K1 launches {k1.launches}: {k1.mma_launches} "
+                             f"on wgmma, {k1.fma_launches} f32 in bf16 "
+                             f"serving")
     del model
     torch.cuda.empty_cache()
     return k1.launches, k2.launches, times
@@ -1087,20 +1115,25 @@ def check_k1_dz(gen) -> dict:
         plain = time_ms(lambda: kc.conv3x3x3_plain(g1, wf))
         lib = time_ms(lambda: cudnn_conv_grad(g1, w, g1, "x"))
         bound, by = conv_bound_ms(TRAIN_BATCH, spatial, C, C, False)
+        plan = kc.conv_plan(TRAIN_BATCH, *spatial, C, C)
+        loop, total = k1_flop_per_smem_byte(plan, affine=False)
         per_shape.append(dict(shape=[TRAIN_BATCH, *spatial, C], calls=count,
                               ms=ms, plain_ms=plain, library_ms=lib,
                               bound_ms=bound, bound_by=by))
         log(f"K1-dz time {[TRAIN_BATCH, *spatial, C]} bf16: kernel "
             f"{ms:.4f} ms, plain {plain:.4f} ms, cuDNN dgrad {lib:.4f} ms, "
-            f"bound {bound:.4f} ms ({by}); {count} per Stage-1 step")
+            f"bound {bound:.4f} ms ({by}); {count} per Stage-1 step; brick "
+            f"{plan.brick}, FLOP per shared byte {loop:.1f} (wgmma loop), "
+            f"{total:.1f} (with the TMA writes)")
         for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
                        ("library_ms", lib)):
             totals[key] += count * v
         del g1, w, wf, got, want
     torch.cuda.empty_cache()
-    log(f"K1-dz per Stage-1 step: kernel {totals['ms']:.3f} ms, cuDNN dgrad "
+    log(f"K1-dz per Stage-1 step: kernel {totals['ms']:.3f} ms, plain "
+        f"{totals['plain_ms']:.3f} ms, cuDNN dgrad "
         f"{totals['library_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms, "
-        f"v5 {K1_V5_DZ_STEP_MS} ms")
+        f"v6 {K1_V6_DZ_STEP_MS} ms, v5 {K1_V5_DZ_STEP_MS} ms")
     return dict(per="Stage-1 step: 10 calls at batch 1, bf16",
                 max_abs_err=worst, bound_by="operations",
                 per_shape=per_shape, **totals)
@@ -1586,6 +1619,7 @@ def train_stage1_canonical(card: str) -> dict:
     trainer.train_step(*volumes(300), 1.0)        # warm-up
     torch.cuda.synchronize()
     k1.launches = k1.dw_launches = 0
+    k1.mma_launches = k1.fma_launches = 0
     k1.dw_mma_launches = k1.dw_fma_launches = 0
     at_forward_end.clear()
     times, forward, dz = [], 0, 0
@@ -1613,9 +1647,12 @@ def train_stage1_canonical(card: str) -> dict:
             raise AssertionError(f"expected 10 K1 forward, 10 K1 dz and 10 "
                                  f"K3 launches per Stage-1 step, all 10 on "
                                  f"the tensor-core variant, got {per}")
-    if k1.dw_fma_launches:
-        raise AssertionError(f"{k1.dw_fma_launches} f32 K3 launches in the "
-                             f"bf16 Stage-1 steps")
+    if k1.dw_fma_launches or k1.fma_launches \
+            or k1.mma_launches != k1.launches:
+        raise AssertionError(f"{k1.dw_fma_launches} f32 K3 and "
+                             f"{k1.fma_launches} f32 K1 launches in the bf16 "
+                             f"Stage-1 steps ({k1.mma_launches} of "
+                             f"{k1.launches} K1 on wgmma)")
     out = dict(k1=k1.launches, forward=forward, dz=dz, k3=k1.dw_launches,
                k3_mma=k1.dw_mma_launches, step_ms=times)
     pet = trainer.generate(volumes(400)[0])

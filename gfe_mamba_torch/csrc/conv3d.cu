@@ -12,35 +12,54 @@
 // What bounds it on the H100: at the generator's shapes (C = F in
 // {64, 128, 256}) a conv does 54*C*F operations per voxel against 2*(C+F)
 // bytes of input and output, far above the card's ~295 operations/byte, so
-// it is bound by tensor-core work, not memory.
+// it is bound by tensor-core work, not memory.  On the way to the tensor
+// cores the limit is shared memory: at the bf16 peak an SM's tensor cores
+// take ~4,000 FLOP a clock, and the SM reads 128 bytes of shared memory a
+// clock, which the TMA writes and the affine pass share.  v6 fed mma.sync
+// m16n8k16 by ldmatrix at 32 FLOP per byte read (B re-read by every warp,
+// A by every 64-channel tile): the whole bandwidth at the peak.
 //
 // Two variants, chosen by dtype; neither falls back to the other.
 //
-// bf16 (conv_mma_kernel): an implicit GEMM with M = a brick of output
-// voxels (the caller's launch plan, conv_plan in ops/cuda/conv3d.py,
-// names it and the launch checks it against the compiled one), N = 64
-// output channels and K = 27 * C, taken in chunks of 16 input channels
-// (one MMA k-step).  Per chunk one thread issues two TMA loads into a
-// stage of a 2-stage ring, each completing on the stage's mbarrier: the
-// brick's halo, one 5-D box of 32-byte rows (16 channels of a voxel) at
-// origin (x0-1, y0-1, z0-1) with the 32-byte swizzle, and the chunk's
-// 27 x 16 x 64 weights, a box over the (27, C, F) view of w with the
-// 128-byte swizzle.  The TMA writes zeros outside the volume and beyond
-// C and F.  With the GN affine all threads then form x*a+s in place on
-// the halo's real voxels (bf16 mul.rn then add.rn, rounding as the JAX
-// producer pass does), and the next chunk's loads are issued after that
-// pass, so they land while this chunk's MMAs run (without the affine,
-// as for the input gradient, they are issued before the wait).  A
-// column's z rows are contiguous in the halo, so a tap's A operand is the
-// brick's rows shifted by (dx, dy, dz): ldmatrix feeds them to mma.sync
-// m16n8k16 (bf16 in, f32 accumulate) with no im2col buffer, and the
-// swizzles put the 8 rows of each ldmatrix in distinct banks.
-// Shared-memory reads, not MMAs, set the pace (PERF.md), so each warp
-// owns MT m16 tiles x 64 output channels and reuses each tap's 4 weight
-// fragments (B, ldmatrix.trans) for all of them: MT + 4 ldmatrix.x4 per
-// 8 * MT MMAs.  The epilogue stages the f32 tile in the ring's memory,
-// adds bias, applies act, adds the residual, applies post_act and rounds
-// once to bf16, 16 bytes per thread and step.
+// bf16 (conv_mma_kernel): an implicit GEMM on Hopper's warpgroup wgmma
+// (m64nNk16, bf16 in, f32 accumulate), with the roles swapped so that
+// one wgmma is wide at every level: M = the block's 64 output channels,
+// N = an x slice of the output brick (BY columns x 8 z rows), K = 27 * C
+// in chunks of 16 input channels.  A block is 2 warpgroups over a BX x
+// BY x 8 brick (the launch plan, conv_plan in ops/cuda/conv3d.py, picks
+// the brick by shape and the launch checks it against the compiled ones);
+// each warpgroup owns BX / 2 slices, 64 channels x 256 voxels, 128 f32
+// accumulators a thread.  Per chunk one thread issues three TMA loads
+// into a stage of a 2-stage ring, completing on the stage's mbarrier: the
+// chunk's 27 x 16 x 64 weights, a box over the (27, C, F) view of w with
+// the 128-byte swizzle, and the brick's halo at origin (x0-1, y0-1, z0-1)
+// as two planes of 8 channels, 16-byte rows with no swizzle.  The TMA
+// writes zeros outside the volume and beyond C and F.  With the GN affine
+// all threads form x*a+s in place on the halo's real voxels (bf16 mul.rn
+// then add.rn, rounding as the JAX producer pass does); the zero halo
+// stays zero.  A (the weights [c][f]) comes to registers by
+// ldmatrix.trans, 2 KB per warpgroup and tap.  B (the halo) is read by
+// the wgmma itself through a descriptor: 8 z rows of a column are one
+// contiguous 128-byte core matrix, the next column lies HZ rows on, the
+// second plane PLANE bytes on, and a tap's shift (dx, dy, dz) moves the
+// start by whole 16-byte rows, with no im2col buffer.  Per tap a
+// warpgroup reads 2 KB (A) + 8 KB (B) for 2 * 64 * 256 * 16 FLOP: 51.2
+// FLOP per shared byte at every brick.  With a chunk's TMA writes and
+// the affine pass's read and write of the halo the block moves 39.8
+// (4 x 16 x 8 brick, the 160 x 160 x 96 and 80 x 80 x 48 levels) and
+// 40.2 (8 x 8 x 8, the 40 x 40 x 24 level) FLOP per byte, 44.0 and 44.2
+// without the affine (the input gradient); v6 moved 27.3 and 29.1.  The
+// output-channel tile stays 64 wide: a chunk of 128 channels' weights
+// (108 KB) does not fit twice beside its halo, so a brick's halo is
+// fetched once per 64 channels, from L2.  The 27 taps go in 9 groups of
+// 3 (one (dx, dy) column), each group's A fragments loaded once the group
+// before last is done, so that no register a wgmma in flight reads is
+// written (ptxas serialises the wgmmas otherwise); the next chunk's
+// affine runs while this chunk's last group does, and once all of its
+// wgmmas are done the stage takes chunk k + 2.  The epilogue stages
+// the f32 tile [voxel][channel] in the ring's memory, adds bias, applies
+// act, adds the residual, applies post_act and rounds once to bf16, 16
+// bytes per thread and step.
 //
 // f32 (conv_fma_kernel): the segmentation UNets' eligible convs, which
 // train and predict in f32 as JAX's do (TF32 would lose the 1e-4 parity
@@ -74,15 +93,14 @@
 // beyond F.
 //
 // None of the TPU layout (z-pair lane packing, the 4-slot K layout, VMEM
-// staging) is kept.  The TMA, mbarrier, ldmatrix / mma.sync, bf16 affine
-// and cp.async helpers come from hopper.cuh, shared with K3.
+// staging) is kept.  The TMA, mbarrier, ldmatrix, wgmma, bf16 affine and
+// cp.async helpers come from hopper.cuh, shared with K3.
 
 #include "hopper.cuh"
 
 namespace {
 
 constexpr int NTHREADS = 256;            // 8 warps
-constexpr int NWARPS = NTHREADS / 32;
 constexpr int BN = 64;                   // output channels per bf16 block
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -208,42 +226,46 @@ __device__ __forceinline__ void epilogue(
   }
 }
 
-// ---- bf16: tensor cores ---------------------------------------------------
+// ---- bf16: tensor cores ----------------------------------------------------
 
-constexpr int CK = 16;                   // input channels per chunk
+constexpr int CK = 16;                   // input channels per chunk: one k16
 constexpr int STAGES = 2;                // the ring
+constexpr int NWG = NTHREADS / 128;      // warpgroups
 constexpr int W_BYTES = 27 * CK * BN * 2;   // a chunk's weights: 432 rows
 constexpr int kb_up(int n) { return (n + 1023) / 1024 * 1024; }
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-// The bf16 launch's geometry for a BX x BY x BZ brick.  A stage holds the
-// chunk's weights (432 rows of 128 bytes) then its halo (HALO_ROWS rows of
-// 32 bytes), each starting on 1,024 bytes, where the swizzles repeat; the
-// f32 epilogue tile (row stride LD, padded so that the accumulators'
-// stores hit distinct banks) reuses the ring.
-template <int BX_, int BY_, int BZ_>
+// The bf16 launch's geometry for a BX x BY x 8 brick.  One wgmma's N is
+// an x slice of the brick, BY columns of 8 z rows; each warpgroup owns
+// SLICES of the BX slices.  A stage holds the chunk's weights (432 rows
+// of 128 bytes, 128-byte swizzle) then its halo as two planes of 16-byte
+// rows, channels 0-7 and 8-15 of the chunk (PLANE bytes each, no
+// swizzle), from a multiple of 1,024 bytes; the f32 epilogue tile (row
+// stride LD, padded so that the accumulators' stores hit distinct banks)
+// reuses the ring.
+template <int BX_, int BY_>
 struct Tile {
-  static constexpr int BX = BX_, BY = BY_, BZ = BZ_;
+  static constexpr int BX = BX_, BY = BY_, BZ = 8;
   static constexpr int BM = BX * BY * BZ;
+  static constexpr int N = BY * BZ;              // voxels per wgmma
+  static constexpr int SLICES = BX / NWG;        // x slices per warpgroup
   static constexpr int HX = BX + 2, HY = BY + 2, HZ = BZ + 2;
   static constexpr int HALO_ROWS = HX * HY * HZ;
-  static constexpr int HALO_BYTES = HALO_ROWS * CK * 2;
-  static constexpr int STAGE = W_BYTES + kb_up(HALO_BYTES);
-  static constexpr int MT = BM / 16 / NWARPS;   // m16 tiles per warp
-  static constexpr int LD = BN + 8;
+  static constexpr int PLANE = (HALO_ROWS * 16 + 127) / 128 * 128;
+  static constexpr int STAGE = W_BYTES + kb_up(2 * PLANE);
+  static constexpr int LD = BN + 4;
   static constexpr int SMEM = cmax(STAGES * STAGE, BM * LD * 4) + 1024;
-  // every 8-row ldmatrix matrix lies in one (x, y) column: contiguous
-  // halo rows
-  static_assert(BZ % 8 == 0, "z extent a multiple of 8");
-  static_assert(BM % (16 * NWARPS) == 0, "m16 tiles split over the warps");
+  static_assert(BX % NWG == 0, "x slices split over the warpgroups");
+  static_assert(N % 8 == 0 && N <= 256, "a wgmma's N");
+  static_assert(SLICES * N / 2 <= 128, "accumulators per thread");
   static_assert(SMEM <= 232448, "fits one block's shared memory");
 };
 
 // Grid: one block per (brick, 64-channel output tile), the tile fastest,
 // so the blocks of one brick run side by side and share its halo in L2;
 // bricks in (b, x, y, z) order, z fastest, nxt x nyt x nzt per batch item.
-// Thread 0 issues each chunk's two TMA loads one chunk ahead, into the
-// stage the chunk before freed.
+// Thread 0 issues chunks 0 and 1 at the start, then chunk k + 2 once
+// every warpgroup's wgmmas of chunk k, whose stage it refills, are done.
 template <typename G, bool AFFINE>
 __global__ void __launch_bounds__(NTHREADS, 1)
 conv_mma_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -266,6 +288,7 @@ conv_mma_kernel(const __grid_constant__ CUtensorMap xmap,
   const int x0 = (id % nxt) * G::BX;
   const int b = id / nxt;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wq = warp & 3;
   const int nchunks = (C + CK - 1) / CK;
 
   const unsigned base = (smem_addr(smem) + 1023u) & ~1023u;
@@ -274,31 +297,33 @@ conv_mma_kernel(const __grid_constant__ CUtensorMap xmap,
   auto load = [&](int k) {
     const unsigned st = base + (k % STAGES) * G::STAGE;
     const unsigned bar = full0 + (k % STAGES) * 8;
-    mbar_expect_tx(bar, W_BYTES + G::HALO_BYTES);
+    mbar_expect_tx(bar, W_BYTES + 2 * G::HALO_ROWS * 16);
     tma_load_3d(st, &wmap, bar, n0, k * CK, 0);
     tma_load_5d(st + W_BYTES, &xmap, bar, k * CK, z0 - 1, y0 - 1, x0 - 1, b);
+    tma_load_5d(st + W_BYTES + G::PLANE, &xmap, bar, k * CK + 8, z0 - 1,
+                y0 - 1, x0 - 1, b);
   };
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int i = 0; i < STAGES; ++i) mbar_init(full0 + 8 * i, 1);
     mbar_fence_init();
     load(0);
+    if (nchunks > 1) load(1);
   }
   __syncthreads();
 
-  // ldmatrix.x4 row of this lane.  A (halo, [voxel][c]): row lane % 16 of
-  // the warp's m16 tile i at k-half lane / 16, which is halo row a_row[i]
-  // at tap (0, 0, 0).  B (weights, [k][n], .trans): k-row (lane & 7) +
-  // 8 ((lane >> 3) & 1) at n-half lane / 16.
-  const int a_half = lane >> 4;
-  int a_row[G::MT];
-#pragma unroll
-  for (int i = 0; i < G::MT; ++i) {
-    const int m = (warp * G::MT + i) * 16 + (lane & 15);
-    const int col = m / G::BZ;
-    a_row[i] = ((col / G::BY) * G::HY + col % G::BY) * G::HZ + m % G::BZ;
-  }
-  const int b_k = (lane & 7) + 8 * ((lane >> 3) & 1), b_half = lane >> 4;
+  // A, the 64 output channels x 16 input channels of a tap (the weights
+  // [c][f], .trans): warp wq's rows f = 16 wq .. 16 wq + 15; lane l gives
+  // the row c = l % 8 + 8 (l / 16) of 8-channel slot 2 wq + (l / 8) % 2.
+  // A tap t adds t * 16 rows of 128 bytes, which keeps the swizzle's phase.
+  const unsigned a_lane =
+      swz128((lane & 7) + 8 * (lane >> 4), 2 * wq + ((lane >> 3) & 1));
+  // B, the chunk's 16 channels of N voxels (an x slice): 8 z rows of a
+  // column are one core matrix, the next column (y + 1) HZ rows on, the
+  // second plane (channels 8-15) PLANE bytes on; a tap (dx, dy, dz) moves
+  // the start by one halo row (16 bytes) per step along z.
+  const uint64_t b_desc = wgmma_desc(0, G::PLANE, G::HZ * 16);
+  const int b_row0 = wg * G::SLICES * G::HY * G::HZ;
 
   // halo row r is the voxel (x0 + hx - 1, y0 + hy - 1, z0 + hz - 1); a
   // brick away from the volume's faces has a halo of real voxels only
@@ -312,75 +337,87 @@ conv_mma_kernel(const __grid_constant__ CUtensorMap xmap,
            (unsigned)(z0 + hz - 1) < (unsigned)Z;
   };
 
-  float acc[G::MT][BN / 8][4];
-#pragma unroll
-  for (int i = 0; i < G::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-  for (int k = 0; k < nchunks; ++k) {
+  // chunk k's zhat in place: thread t forms the 8 channels of plane t % 2
+  // of its halo rows, then publishes its writes to the async proxy, which
+  // the wgmmas and the stage's next TMA writes read through
+  auto prepare = [&](int k) {
     const int slot = k % STAGES;
-    if (!AFFINE && threadIdx.x == 0 && k + 1 < nchunks) load(k + 1);
     mbar_wait(full0 + 8 * slot, (k / STAGES) & 1);
-    const unsigned st = base + slot * G::STAGE, halo = st + W_BYTES;
-    if (AFFINE) {
-      // thread t forms the 8 channels of slot t % 2 of its halo rows
-      const int c = k * CK + 8 * (threadIdx.x & 1);
-      unsigned sc[4], sh[4];
-      affine_coeffs(a, s, (size_t)b * C + c, c < C, sc, sh);
-      unsigned char* const hp = ring + slot * G::STAGE + W_BYTES;
-      const auto at = [](int r, int sl) { return swz32(r, sl); };
-      if (inside)
-        affine_rows<NTHREADS, 2, G::HALO_ROWS, 8>(hp, sc, sh, at,
-                                                  [](int) { return true; });
-      else
-        affine_rows<NTHREADS, 2, G::HALO_ROWS, 8>(hp, sc, sh, at, real);
-      // the stage's next TMA writes must follow these generic writes
-      fence_proxy_async();
-      __syncthreads();
-      if (threadIdx.x == 0 && k + 1 < nchunks) load(k + 1);
-    }
-#pragma unroll 1
-    for (int dx = 0; dx < 3; ++dx)
-#pragma unroll 1
-      for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-        for (int dz = 0; dz < 3; ++dz) {
-          const int t = (dx * 3 + dy) * 3 + dz;
-          const int shift = (dx * G::HY + dy) * G::HZ + dz;
-          unsigned bf[BN / 8][2];
-#pragma unroll
-          for (int j = 0; j < BN / 16; ++j)
-            ldsm_x4_trans(st + swz128(t * CK + b_k, 2 * j + b_half),
-                          bf[2 * j][0], bf[2 * j][1], bf[2 * j + 1][0],
-                          bf[2 * j + 1][1]);
-#pragma unroll
-          for (int i = 0; i < G::MT; ++i) {
-            unsigned af[4];
-            ldsm_x4(halo + swz32(a_row[i] + shift, a_half), af);
-#pragma unroll
-            for (int j = 0; j < BN / 8; ++j)
-              mma_bf16(acc[i][j], af, bf[j][0], bf[j][1]);
-          }
-        }
-    __syncthreads();   // the loads of chunk k + STAGES overwrite this stage
-  }
+    if (!AFFINE) return;
+    const int c = k * CK + 8 * (threadIdx.x & 1);
+    unsigned sc[4], sh[4];
+    affine_coeffs(a, s, (size_t)b * C + c, c < C, sc, sh);
+    unsigned char* const hp = ring + slot * G::STAGE + W_BYTES;
+    const auto at = [](int r, int pl) { return pl * G::PLANE + r * 16; };
+    if (inside)
+      affine_rows<NTHREADS, 2, G::HALO_ROWS, 8>(hp, sc, sh, at,
+                                                [](int) { return true; });
+    else
+      affine_rows<NTHREADS, 2, G::HALO_ROWS, 8>(hp, sc, sh, at, real);
+    fence_proxy_async();
+  };
 
-  // accumulator (row g or g + 8, cols 2q and 2q + 1 of each n8 tile), with
-  // g = lane / 4 and q = lane % 4, into the f32 tile over the ring
+  float acc[G::SLICES][G::N / 2];
+#pragma unroll
+  for (int i = 0; i < G::SLICES; ++i)
+#pragma unroll
+    for (int j = 0; j < G::N / 2; ++j) acc[i][j] = 0.f;
+
+  prepare(0);
+  __syncthreads();
+  for (int k = 0; k < nchunks; ++k) {
+    const unsigned st = base + (k % STAGES) * G::STAGE;
+    const uint64_t desc = b_desc + ((st + W_BYTES) >> 4) + b_row0;
+    // the 27 taps in 9 groups of 3 (one (dx, dy) column, dz = 0, 1, 2):
+    // a group's A fragments are loaded before its first wgmma, and once
+    // the group before last is done, so that no register a wgmma in
+    // flight reads is written and at most two groups hold registers
+#pragma unroll
+    for (int grp = 0; grp < 9; ++grp) {
+      unsigned af[3][4];
+#pragma unroll
+      for (int dz = 0; dz < 3; ++dz)
+        ldsm_x4_trans(st + a_lane + (3 * grp + dz) * CK * 128, af[dz][0],
+                      af[dz][1], af[dz][2], af[dz][3]);
+      wgmma_fence();
+#pragma unroll
+      for (int dz = 0; dz < 3; ++dz) {
+        const int shift = ((grp / 3) * G::HY + grp % 3) * G::HZ + dz;
+#pragma unroll
+        for (int i = 0; i < G::SLICES; ++i)
+          wgmma_rs<G::N>(acc[i], af[dz], desc + shift + i * G::HY * G::HZ);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+    // the next chunk's zhat while this one's last group runs
+    if (k + 1 < nchunks) prepare(k + 1);
+    wgmma_wait<0>();
+    // every warpgroup is done with this chunk's stage, and the next
+    // chunk's zhat is visible; the stage takes chunk k + 2
+    __syncthreads();
+    if (threadIdx.x == 0 && k + 2 < nchunks) load(k + 2);
+  }
+#pragma unroll
+  for (int i = 0; i < G::SLICES; ++i) wgmma_fence_regs(acc[i]);
+
+  // D[f][n] of slice i, thread (wq, lane) holding acc[i][4j + 2h + e] =
+  // D[16 wq + g + 8h][8j + 2q + e], into the f32 tile[voxel][channel]
+  // over the ring; the brick's voxel of slice i's column n is
+  // (wg * SLICES + i) * N + n
   float* tile = reinterpret_cast<float*>(ring);
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-  for (int i = 0; i < G::MT; ++i)
+  for (int i = 0; i < G::SLICES; ++i)
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      float* row = tile + ((warp * G::MT + i) * 16 + g) * G::LD + j * 8 + 2 * q;
-      *reinterpret_cast<float2*>(row) = make_float2(acc[i][j][0], acc[i][j][1]);
-      *reinterpret_cast<float2*>(row + 8 * G::LD) =
-          make_float2(acc[i][j][2], acc[i][j][3]);
-    }
+    for (int j = 0; j < G::N / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = (wg * G::SLICES + i) * G::N + 8 * j + 2 * q + e;
+          tile[m * G::LD + 16 * wq + g + 8 * h] = acc[i][4 * j + 2 * h + e];
+        }
   __syncthreads();
   epilogue<__nv_bfloat16, G::BX, G::BY, G::BZ, G::LD>(
       tile, bias, res, out, b, X, Y, Z, F, x0, y0, z0, n0, act, post_act);
@@ -398,8 +435,9 @@ int launch_mma(const void* x, const void* w, const void* bias, const float* a,
   const long long blocks = (long long)B * nxt * nyt * nzt * ftiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   CUtensorMap xmap, wmap;
-  cudaError_t err = encode_volume(&xmap, x, B, X, Y, Z, C, CK, G::HZ, G::HY,
-                                  G::HX, CU_TENSOR_MAP_SWIZZLE_32B);
+  // the halo in boxes of 8 channels (16-byte rows), unswizzled
+  cudaError_t err = encode_volume(&xmap, x, B, X, Y, Z, C, CK / 2, G::HZ,
+                                  G::HY, G::HX, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != cudaSuccess) return (int)err;
   // w as (27, C, F): boxes of 64 output channels x 16 input channels x 27
   // taps
@@ -663,10 +701,15 @@ extern "C" int gfe_conv3x3x3_bf16(const void* x, const void* w,
       stages != STAGES)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bx == 8 && by == 8 && bz == 8)
-    return launch_mma<Tile<8, 8, 8>>(x, w, bias, a, s, res, out, B, X, Y, Z,
-                                     C, F, act, post_act, nxt, nyt, nzt,
-                                     ftiles, smem, st);
+  if (bz != 8) return (int)cudaErrorInvalidValue;
+  if (bx == 8 && by == 8)
+    return launch_mma<Tile<8, 8>>(x, w, bias, a, s, res, out, B, X, Y, Z, C,
+                                  F, act, post_act, nxt, nyt, nzt, ftiles,
+                                  smem, st);
+  if (bx == 4 && by == 16)
+    return launch_mma<Tile<4, 16>>(x, w, bias, a, s, res, out, B, X, Y, Z,
+                                   C, F, act, post_act, nxt, nyt, nzt,
+                                   ftiles, smem, st);
   return (int)cudaErrorInvalidValue;
 }
 

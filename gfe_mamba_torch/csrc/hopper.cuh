@@ -1,15 +1,17 @@
 // Hopper building blocks shared by K1 (conv3d.cu) and K3 (conv3d_dw.cu):
 // TMA tensor maps and box loads completing on mbarriers, ldmatrix and
-// mma.sync m16n8k16 on bf16, the in-place bf16 affine pass that forms
-// zhat = x * a + s on staged rows, and the 16-byte cp.async copies that
-// stage the f32 variants' operands.
+// mma.sync m16n8k16 on bf16 (K3), warpgroup wgmma.mma_async with A from
+// registers and B by shared-memory descriptor (K1), the in-place bf16
+// affine pass that forms zhat = x * a + s on staged rows, and the 16-byte
+// cp.async copies that stage the f32 variants' operands.
 //
 // A staged row is a run of channels of one voxel, cut in 16-byte slots.
-// The TMA's swizzles move the slots inside each row so that ldmatrix reads
-// 8 rows without bank conflicts: with 128-byte rows the slot index is
-// XORed with the row mod 8 (swz128); with 32-byte rows the two slots swap
-// every 4 rows (swz32).  Both patterns follow the shared-memory address,
-// so a staged buffer starts on a multiple of 1,024 bytes.
+// With 128-byte rows the TMA's 128-byte swizzle XORs the slot index with
+// the row mod 8 (swz128), so that ldmatrix reads 8 rows without bank
+// conflicts; the pattern follows the shared-memory address, so a swizzled
+// buffer starts on a multiple of 1,024 bytes.  Rows of 16 bytes (one
+// slot) are staged without a swizzle: 8 consecutive rows are one
+// contiguous 128-byte core matrix of wgmma's unswizzled layout.
 
 #pragma once
 
@@ -28,11 +30,6 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 // swizzle (128-byte rows)
 __device__ __forceinline__ unsigned swz128(int r, int slot) {
   return (unsigned)(r * 128 + ((slot ^ (r & 7)) << 4));
-}
-
-// the same under the 32-byte swizzle (32-byte rows)
-__device__ __forceinline__ unsigned swz32(int r, int slot) {
-  return (unsigned)(r * 32 + (((slot ^ (r >> 2)) & 1) << 4));
 }
 
 __device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
@@ -126,13 +123,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
 __device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned& r0,
                                               unsigned& r1, unsigned& r2,
                                               unsigned& r3) {
@@ -151,6 +141,115 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- wgmma (sm_90a) ----
+//
+// A warpgroup (4 consecutive warps, the first a multiple of 4) issues
+// wgmma.mma_async together; it runs asynchronously.  wgmma_fence orders
+// this thread's earlier register writes (the A fragment) before the next
+// wgmma reads them; wgmma_commit closes the group of wgmmas issued since
+// the last one; wgmma_wait<N> waits until at most N groups are in flight,
+// after which their accumulators and the shared memory they read are
+// free.  Shared memory written by ordinary stores must be published to
+// wgmma (the async proxy) with fence_proxy_async and a barrier.
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads of accumulators across a
+// wgmma_wait: an empty asm that claims to read and write each register.
+template <int R>
+__device__ __forceinline__ void wgmma_fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The shared-memory descriptor of a K-major operand in the unswizzled
+// layout: core matrices of 8 rows x 16 bytes (8 bf16 of K), each 128
+// contiguous bytes from `addr`; `lbo` bytes from one core matrix to the
+// next along K, `sbo` bytes from one group of 8 rows to the next along M
+// or N.  All three are multiples of 16 and below 256 KB.
+__device__ __forceinline__ uint64_t wgmma_desc(unsigned addr, unsigned lbo,
+                                               unsigned sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// d += a * b over m64nNk16, bf16 in, f32 accumulate.  a, the 64 x 16 A
+// tile, comes from registers: warp w of the warpgroup holds rows 16w ..
+// 16w + 15 in mma.sync m16n8k16's A layout (a[0] row g, columns 2q, 2q+1;
+// a[1] row g + 8; a[2], a[3] the same 8 columns on; g = lane / 4, q =
+// lane % 4).  b, the 16 x N B tile, is K-major by descriptor.  Thread
+// (warp w, lane) receives d[4j + 2h + e] = D[16w + g + 8h][8j + 2q + e].
+// Defined for the N that K1's bricks take: 64 and 128.
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const unsigned (&a)[4],
+                         uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                               const unsigned (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                               const unsigned (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // two floats rounded to bf16 (nearest even), lo in the low half

@@ -27,14 +27,17 @@ import torch
 import torch.nn.functional as F
 
 ACT_CODES = {"none": 0, "relu": 1, "elu": 2, "leaky01": 3, "leaky001": 4}
-# K1's bf16 launch (csrc/conv3d.cu): the output brick (x, y, z) of one
-# block, which the kernel must have compiled; the output channels of one
-# block; the input channels of one staged chunk; the stages of the TMA
-# ring; and the shared memory a block may take on the H100.
-CONV_BRICK = (8, 8, 8)
+# K1's bf16 launch (csrc/conv3d.cu): the output bricks (x, y, z) of one
+# block that the kernel compiles, one wgmma's N being an x slice of the
+# brick (y x z voxels); the output channels of one block (wgmma's M); the
+# input channels of one staged chunk; the stages of the TMA ring; the
+# H100's SMs, a wave of blocks at one per SM; and the shared memory a
+# block may take on the H100.
+CONV_BRICKS = ((4, 16, 8), (8, 8, 8))
 _CONV_BN = 64
 _CONV_CK = 16
 _CONV_STAGES = 2
+_SMS = 132
 SMEM_LIMIT = 232448
 # K1's f32 launch (csrc/conv3d.cu, CUDA cores): the brick (x, y, z) of a
 # block by its tile of output channels, which the kernel must have
@@ -58,9 +61,11 @@ DW_F32_BRICK = (1, 8, 16)
 _DW_F32_STAGES = 2
 _DW_F32_MAX_WAVES = 8
 
-# kernel launches since the counters were last set to 0: K1; K3 in all,
-# and by variant (bf16 on tensor cores, f32 on CUDA cores)
+# kernel launches since the counters were last set to 0: K1 in all, and
+# by variant (bf16 on tensor cores, f32 on CUDA cores); K3 likewise
 launches = 0
+mma_launches = 0
+fma_launches = 0
 dw_launches = 0
 dw_mma_launches = 0
 dw_fma_launches = 0
@@ -150,13 +155,21 @@ def _affine_for_kernel(dtype, pre_scale, pre_shift):
 
 class ConvPlan(NamedTuple):
     """The bf16 K1 launch.  ``blocks`` = B x ``tiles``: the bricks of the
-    volume along x, y and z and the tiles of ``_CONV_BN`` output channels,
+    volume along x, y and z and the tiles of ``tile`` output channels,
     decoded by the kernel with the channel tile fastest, then z, y, x and
-    the batch.  The boxes are the two TMA loads of a chunk (innermost
-    dimension first): x's halo ``(channels, z, y, x, batch)`` and w's
-    ``(F, C, taps)`` over its (27, C, F) view; ``strides`` are their
-    tensors' byte strides past the innermost dimension."""
+    the batch.  Each of a block's two warpgroups takes half the brick's x
+    slices, one wgmma of N = ``mma_n`` voxels (y x z) per slice and tap.
+    The boxes are the three TMA loads of a chunk (innermost dimension
+    first): w's ``(F, C, taps)`` over its (27, C, F) view, 128-byte
+    swizzled, and x's halo ``(channels, z, y, x, batch)`` twice, one plane
+    of 8 channels each, unswizzled; ``strides`` are their tensors' byte
+    strides past the innermost dimension.  The halo's wgmma descriptor
+    steps ``desc_strides`` bytes: to the second plane (along K), to the
+    next column (y + 1: along N, and a tap's dy), to the next row (z + 1:
+    a tap's dz) and to the next x slice (a tap's dx)."""
     brick: tuple[int, int, int]
+    tile: int
+    mma_n: int
     tiles: tuple[int, int, int, int]
     blocks: int
     stages: int
@@ -165,35 +178,51 @@ class ConvPlan(NamedTuple):
     weight_box: tuple[int, ...]
     halo_strides: tuple[int, ...]
     weight_strides: tuple[int, ...]
+    plane_bytes: int
+    desc_strides: tuple[int, ...]
 
 
 def _kb_up(n: int) -> int:
     return -(-n // 1024) * 1024
 
 
-def conv_plan(B, X, Y, Z, C, F) -> ConvPlan:
-    """K1's bf16 launch for x ``(B, X, Y, Z, C)`` and F output channels:
-    one block per (``CONV_BRICK`` brick, 64-channel tile).  A ring stage
-    holds a 16-channel chunk's weights (432 rows of 128 bytes) then its
-    halo (rows of 32 bytes), each from a multiple of 1,024 bytes; the f32
-    output tile (rows of 72 floats) reuses the ring; 1,024 bytes more
-    align the ring."""
-    bx, by, bz = CONV_BRICK
+def mma_plan(brick, B, X, Y, Z, C, F) -> ConvPlan:
+    """K1's bf16 launch over one of ``CONV_BRICKS``: a ring stage holds a
+    16-channel chunk's weights (432 rows of 128 bytes) then its halo as
+    two planes of 16-byte rows (8 channels each; a plane a multiple of
+    128 bytes), each part from a multiple of 1,024 bytes; the f32 output
+    tile (rows of 68 floats) reuses the ring; 1,024 bytes more align the
+    ring."""
+    bx, by, bz = brick
+    hx, hy, hz = bx + 2, by + 2, bz + 2
     tiles = (-(-X // bx), -(-Y // by), -(-Z // bz), -(-F // _CONV_BN))
-    halo_box = (_CONV_CK, bz + 2, by + 2, bx + 2, 1)
-    weight_box = (_CONV_BN, _CONV_CK, 27)
-    halo_bytes = 2 * _CONV_CK * (bz + 2) * (by + 2) * (bx + 2)
-    stage = 2 * _CONV_BN * _CONV_CK * 27 + _kb_up(halo_bytes)
-    tile = bx * by * bz * (_CONV_BN + 8) * 4
-    smem = max(_CONV_STAGES * stage, tile) + 1024
+    plane = -(-16 * hx * hy * hz // 128) * 128
+    stage = 2 * _CONV_BN * _CONV_CK * 27 + _kb_up(2 * plane)
+    tile = bx * by * bz * (_CONV_BN + 4) * 4
     row = 2 * C
     return ConvPlan(
-        brick=CONV_BRICK, tiles=tiles,
+        brick=tuple(brick), tile=_CONV_BN, mma_n=by * bz, tiles=tiles,
         blocks=B * tiles[0] * tiles[1] * tiles[2] * tiles[3],
-        stages=_CONV_STAGES, smem_bytes=smem, halo_box=halo_box,
-        weight_box=weight_box,
+        stages=_CONV_STAGES,
+        smem_bytes=max(_CONV_STAGES * stage, tile) + 1024,
+        halo_box=(_CONV_CK // 2, hz, hy, hx, 1),
+        weight_box=(_CONV_BN, _CONV_CK, 27),
         halo_strides=(row, row * Z, row * Z * Y, row * Z * Y * X),
-        weight_strides=(2 * F, 2 * F * C))
+        weight_strides=(2 * F, 2 * F * C), plane_bytes=plane,
+        desc_strides=(plane, 16 * hz, 16, 16 * hy * hz))
+
+
+def conv_plan(B, X, Y, Z, C, F) -> ConvPlan:
+    """K1's bf16 launch for x ``(B, X, Y, Z, C)`` and F output channels:
+    one block per (brick, 64-channel tile), over the brick of
+    ``CONV_BRICKS`` that pads the volume least, the widest N among those,
+    as long as its blocks fill a wave of the card's SMs (else the brick
+    with the most blocks)."""
+    plans = [mma_plan(brick, B, X, Y, Z, C, F) for brick in CONV_BRICKS]
+    full = [p for p in plans if p.blocks >= _SMS] \
+        or [max(plans, key=lambda p: p.blocks)]
+    return min(full, key=lambda p: (p.blocks * p.brick[0] * p.brick[1]
+                                    * p.brick[2], -p.mma_n))
 
 
 class ConvF32Plan(NamedTuple):
@@ -236,7 +265,7 @@ def conv3x3x3_cuda(x, w, bias=None, pre_scale=None, pre_shift=None,
     ``conv_f32_plan``'s; neither falls back to the other."""
     from gfe_mamba_torch.ops.cuda.build import library
 
-    global launches
+    global launches, mma_launches, fma_launches
     if not x.is_cuda:
         raise ValueError("conv3x3x3_cuda takes CUDA tensors")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -262,7 +291,8 @@ def conv3x3x3_cuda(x, w, bias=None, pre_scale=None, pre_shift=None,
         return out
     pre_scale, pre_shift = _affine_for_kernel(x.dtype, pre_scale, pre_shift)
     lib = library("conv3d")
-    if x.dtype == torch.bfloat16:
+    mma = x.dtype == torch.bfloat16
+    if mma:
         plan = conv_plan(B, X, Y, Z, C, Fo)
         plan_args = (*plan.brick, *plan.tiles, plan.stages, plan.smem_bytes)
         fn = lib.gfe_conv3x3x3_bf16
@@ -283,6 +313,10 @@ def conv3x3x3_cuda(x, w, bias=None, pre_scale=None, pre_shift=None,
     if rc != 0:
         raise RuntimeError(f"conv3x3x3 kernel failed: CUDA error {rc}")
     launches += 1
+    if mma:
+        mma_launches += 1
+    else:
+        fma_launches += 1
     return out
 
 

@@ -1,12 +1,15 @@
 """The launch plans of K1 (``conv_plan`` for the bf16 tensor-core variant,
-``conv_f32_plan`` for the f32 CUDA-core one, in
-``gfe_mamba_torch/ops/cuda/conv3d.py``), on the CPU: the blocks, decoded
-in the kernel's order, put every output voxel and channel in exactly one
-block; a ring stage and the epilogue tile fit one block's shared memory
-on an H100 (232,448 bytes); the f32 plan takes its narrow tile where F <= 32; every
+over ``mma_plan`` for each compiled brick, and ``conv_f32_plan`` for the
+f32 CUDA-core one, in ``gfe_mamba_torch/ops/cuda/conv3d.py``), on the CPU:
+the blocks, decoded in the kernel's order with the plan's own channel
+tile, put every output voxel and channel in exactly one block; a ring
+stage and the epilogue tile fit one block's shared memory on an H100
+(232,448 bytes); the f32 plan takes its narrow tile where F <= 32; every
 TMA box dimension is at most 256 and its innermost extent fits its
-swizzle; and the tensors' byte strides are multiples of 16, as the TMA
-requires.
+swizzle; the tensors' byte strides and the bf16 halo's wgmma descriptor
+offsets are multiples of 16, as the TMA and wgmma require; and at the
+generator's three levels the bf16 plan fills a wave of the H100's 132
+SMs, pads nothing and takes its widest N.
 """
 
 import numpy as np
@@ -33,13 +36,18 @@ def _decode(plan):
     yt, ids = ids % nyt, ids // nyt
     xt, b = ids % nxt, ids // nxt
     bx, by, bz = plan.brick
-    return b, xt * bx, yt * by, zt * bz, ft * 64
+    return b, xt * bx, yt * by, zt * bz, ft * plan.tile
 
 
-@pytest.mark.parametrize("shape,C,F", SHAPES)
-def test_conv_plan_puts_every_output_in_one_block(shape, C, F):
+def _plans(shape, C, F):
+    """The plan conv_plan chooses, then the plan over every compiled
+    brick."""
+    return [k1.conv_plan(*shape, C, F)] \
+        + [k1.mma_plan(brick, *shape, C, F) for brick in k1.CONV_BRICKS]
+
+
+def _assert_covers(plan, shape, F):
     B, X, Y, Z = shape
-    plan = k1.conv_plan(B, X, Y, Z, C, F)
     b, x0, y0, z0, n0 = _decode(plan)
     assert b.min() == 0 and b.max() == B - 1
     # distinct origins, each brick starting inside the volume ...
@@ -49,7 +57,7 @@ def test_conv_plan_puts_every_output_in_one_block(shape, C, F):
         and (n0 < F).all()
     # ... and along each axis the bricks' extents tile [0, n) once
     for starts, size, n in ((x0, plan.brick[0], X), (y0, plan.brick[1], Y),
-                            (z0, plan.brick[2], Z), (n0, 64, F)):
+                            (z0, plan.brick[2], Z), (n0, plan.tile, F)):
         cover = np.zeros(n, int)
         for start in np.unique(starts):
             cover[start:start + size] += 1
@@ -58,31 +66,64 @@ def test_conv_plan_puts_every_output_in_one_block(shape, C, F):
 
 
 @pytest.mark.parametrize("shape,C,F", SHAPES)
+def test_conv_plan_puts_every_output_in_one_block(shape, C, F):
+    _assert_covers(k1.conv_plan(*shape, C, F), shape, F)
+
+
+@pytest.mark.parametrize("brick", k1.CONV_BRICKS)
+@pytest.mark.parametrize("shape,C,F", SHAPES)
+def test_mma_plan_puts_every_output_in_one_block(shape, C, F, brick):
+    """Every brick the kernel compiles, whether or not conv_plan takes it
+    for this shape."""
+    _assert_covers(k1.mma_plan(brick, *shape, C, F), shape, F)
+
+
+@pytest.mark.parametrize("shape,C,F", SHAPES)
 def test_conv_plan_fits_the_card(shape, C, F):
-    plan = k1.conv_plan(*shape, C, F)
-    assert plan.smem_bytes <= k1.SMEM_LIMIT
-    halo = 2 * np.prod(plan.halo_box)
-    weights = 2 * np.prod(plan.weight_box)
-    stage = weights + -(-halo // 1024) * 1024
-    assert plan.stages >= 2
-    assert plan.stages * stage + 1024 <= plan.smem_bytes
-    bx, by, bz = plan.brick
-    assert bx * by * bz * (64 + 8) * 4 + 1024 <= plan.smem_bytes
-    assert max(plan.halo_box + plan.weight_box) <= 256
-    # innermost box extents: 32 bytes (32-byte swizzle), 128 (128-byte)
-    assert 2 * plan.halo_box[0] == 32 and 2 * plan.weight_box[0] == 128
-    assert plan.halo_box[1:] == (bz + 2, by + 2, bx + 2, 1)
+    for plan in _plans(shape, C, F):
+        assert plan.brick in k1.CONV_BRICKS
+        assert plan.smem_bytes <= k1.SMEM_LIMIT
+        bx, by, bz = plan.brick
+        halo = 2 * np.prod(plan.halo_box)
+        weights = 2 * np.prod(plan.weight_box)
+        # two planes of the chunk's 16 channels, each from 128 bytes
+        assert plan.plane_bytes % 128 == 0 and plan.plane_bytes >= halo
+        stage = weights + -(-2 * plan.plane_bytes // 1024) * 1024
+        assert plan.stages >= 2
+        assert plan.stages * stage + 1024 <= plan.smem_bytes
+        assert bx * by * bz * (plan.tile + 4) * 4 + 1024 <= plan.smem_bytes
+        assert max(plan.halo_box + plan.weight_box) <= 256
+        # innermost box extents: 16 bytes (a core matrix row, no
+        # swizzle), 128 (the 128-byte swizzle); 16 input channels, one k16
+        assert 2 * plan.halo_box[0] == 16 and 2 * plan.weight_box[0] == 128
+        assert plan.weight_box[1] == 2 * plan.halo_box[0] == 16
+        assert plan.halo_box[1:] == (bz + 2, by + 2, bx + 2, 1)
+        # one wgmma: M = the 64-channel tile, N = an x slice of whole
+        # 8-voxel core matrices, at most 256; two warpgroups share the
+        # slices, 128 accumulators a thread at most
+        assert plan.tile == 64 and bz == 8
+        assert plan.mma_n == by * bz and plan.mma_n % 8 == 0 \
+            and plan.mma_n <= 256
+        assert bx % 2 == 0 and bx // 2 * plan.mma_n // 2 <= 128
 
 
 @pytest.mark.parametrize("shape,C,F", SHAPES)
 def test_conv_plan_strides_are_multiples_of_16_bytes(shape, C, F):
     B, X, Y, Z = shape
-    plan = k1.conv_plan(B, X, Y, Z, C, F)
-    assert plan.halo_strides[0] == 2 * C
-    assert plan.halo_strides[-1] == 2 * C * Z * Y * X
-    assert plan.weight_strides == (2 * F, 2 * F * C)
-    assert all(s % 16 == 0
-               for s in plan.halo_strides + plan.weight_strides)
+    for plan in _plans(shape, C, F):
+        bx, by, bz = plan.brick
+        assert plan.halo_strides[0] == 2 * C
+        assert plan.halo_strides[-1] == 2 * C * Z * Y * X
+        assert plan.weight_strides == (2 * F, 2 * F * C)
+        assert all(s % 16 == 0
+                   for s in plan.halo_strides + plan.weight_strides)
+        # the halo descriptor's steps: to the second plane, to the next
+        # column (y), row (z) and x slice; each below the 14-bit field of
+        # 16-byte units
+        assert plan.desc_strides == (plan.plane_bytes, 16 * (bz + 2), 16,
+                                     16 * (by + 2) * (bz + 2))
+        assert all(s % 16 == 0 and 0 < s < 16 * 2 ** 14
+                   for s in plan.desc_strides)
 
 
 @pytest.mark.parametrize("shape,C,F", SHAPES[:6])
@@ -91,7 +132,20 @@ def test_conv_plan_pads_nothing_at_the_generator_levels(shape, C, F):
     brick would leave the second z brick half empty there)."""
     plan = k1.conv_plan(*shape, C, F)
     voxels = np.prod(shape)
-    assert plan.blocks * np.prod(plan.brick) * 64 == voxels * F
+    assert plan.blocks * np.prod(plan.brick) * plan.tile == voxels * F
+
+
+@pytest.mark.parametrize("shape,C,F", SHAPES[:6])
+def test_conv_plan_fills_a_wave_at_the_generator_levels(shape, C, F):
+    """At least one block per SM of the H100 at batch 1 and 4, and among
+    the bricks that pad nothing the widest N (the most FLOP per byte the
+    wgmmas read)."""
+    plan = k1.conv_plan(*shape, C, F)
+    assert plan.blocks >= 132
+    exact = [k1.mma_plan(brick, *shape, C, F) for brick in k1.CONV_BRICKS]
+    exact = [p for p in exact if p.blocks * np.prod(p.brick) * p.tile
+             == np.prod(shape) * F]
+    assert plan.mma_n == max(p.mma_n for p in exact)
 
 
 # K1's f32 launch (``conv_f32_plan``).  The segmentation UNet3D's 13 K1

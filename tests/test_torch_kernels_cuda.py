@@ -6,11 +6,12 @@ is not installed::
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
 Tolerances, relative to max(1, max |plain|): K1 f32 1e-4 (summation
-order; TF32 is off for the reference), K1 bf16 3e-2 (the plain version
-rounds the conv output to bf16 before its epilogue: up to 1 bf16 ulp,
-0.8%, at the output's scale), K2 1e-5 (f32 state on both sides) and one
-bf16 ulp for its bf16 output against the plain f32 result rounded, K5a
-1e-5 (f32 sums in two orders), K5b 1e-6 in f32 and one bf16 ulp (2^-7)
+order; TF32 is off for the reference), K1 bf16 3e-2 at every brick its
+plan can choose (the plain version rounds the conv output to bf16
+before its epilogue: up to 1 bf16 ulp, 0.8%, at the output's scale), K2
+1e-5 (f32 state on both sides) and one bf16 ulp for its bf16 output
+against the plain f32 result rounded, K5a 1e-5 (f32 sums in two
+orders), K5b 1e-6 in f32 and one bf16 ulp (2^-7)
 in bf16 (the same f32 arithmetic, op by op, rounded once), the group-norm
 Function's gradients 1e-4 (autograd of the same reference on both
 sides).
@@ -82,6 +83,87 @@ def test_conv_kernel_matches_plain(cuda, dtype, rel, act, with_res,
     want = k1.conv3x3x3_plain(*args)
     torch.cuda.synchronize()
     _assert_close(got, want, rel)
+
+
+# the generator's three levels at batch 1 (Stage 1's dz) and 4 (scoring),
+# and ragged shapes: X, Y, Z not multiples of any brick, C and F
+# multiples of 8 but not of 16, F below one 64-channel tile
+BF16_SHAPES = [((b, *sp), C, C) for b in (1, 4)
+               for sp, C in (((160, 160, 96), 64), ((80, 80, 48), 128),
+                             ((40, 40, 24), 256))] \
+    + [((2, 5, 7, 19), 24, 40), ((1, 9, 13, 24), 24, 40),
+       ((3, 11, 6, 24), 128, 64), ((1, 9, 12, 13), 64, 32)]
+
+
+@pytest.mark.parametrize("mode", ["affine_relu", "residual_post",
+                                  "bias_elu", "dz"])
+@pytest.mark.parametrize("shape,C,F", BF16_SHAPES)
+@pytest.mark.parametrize("brick", k1.CONV_BRICKS)
+def test_conv_kernel_bf16_matches_plain_at_each_brick(
+        cuda, monkeypatch, brick, shape, C, F, mode):
+    """K1's wgmma variant over every brick the kernel compiles (whichever
+    ``conv_plan`` takes for the shape): the folded GroupNorm with relu;
+    with a residual and post_act relu; a bias and elu without the
+    affine; and as the input gradient (flipped, transposed weights, no
+    affine, no epilogue)."""
+    monkeypatch.setattr(k1, "conv_plan",
+                        lambda *a: k1.mma_plan(brick, *a))
+    gen = np.random.RandomState(4)
+    x = _randn(gen, *shape, C).to(cuda, torch.bfloat16)
+    w = _randn(gen, 3, 3, 3, C, F, scale=(27 * C) ** -0.5) \
+        .to(cuda, torch.bfloat16)
+    bias = a = s = res = None
+    act = post_act = "none"
+    if mode == "dz":
+        w = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+        x = _randn(gen, *shape, F).to(cuda, torch.bfloat16)
+    if mode in ("affine_relu", "residual_post"):
+        a = (_randn(gen, shape[0], C).abs() + 0.5).to(cuda)
+        s = _randn(gen, shape[0], C).to(cuda)
+    if mode == "affine_relu":
+        act = "relu"
+    if mode == "residual_post":
+        res = _randn(gen, *shape, F).to(cuda, torch.bfloat16)
+        post_act = "relu"
+    if mode == "bias_elu":
+        bias = _randn(gen, F).to(cuda, torch.bfloat16)
+        act = "elu"
+    args = (x, w, bias, a, s, res, act, post_act)
+    got = k1.conv3x3x3_cuda(*args)
+    want = k1.conv3x3x3_plain(*args)
+    torch.cuda.synchronize()
+    _assert_close(got, want, 3e-2)
+
+
+def test_k1_counts_launches_by_variant(cuda):
+    """A scoring forward (the pipeline in bf16, as the benchmark serves
+    it) runs its 10 K1 convs on the wgmma variant; a UNet3D forward in
+    f32 its 13 on the CUDA-core one."""
+    from gfe_mamba_torch.models.pipeline import build_gfe_mamba
+    from gfe_mamba_torch.models.unet3d import get_model
+
+    model = build_gfe_mamba(
+        categories=(3, 5, 2), num_continuous=4, img_size=(16, 16, 8),
+        dim=64, depth=2, heads=2, seq_length=2, f_maps=(8, 16, 32),
+        fold_factor=2, vit_patch_size=4, vit_dim=16, vit_depth=1,
+        vit_heads=2, vit_mlp_dim=32, device=cuda).to(torch.bfloat16)
+    k1.launches = k1.mma_launches = k1.fma_launches = 0
+    with torch.inference_mode():
+        model(torch.randn(2, 16, 16, 8, 1, device=cuda,
+                          dtype=torch.bfloat16),
+              torch.zeros(2, 3, dtype=torch.long, device=cuda),
+              torch.randn(2, 4, device=cuda, dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.mma_launches, k1.fma_launches) == (10, 10, 0)
+
+    unet = get_model(dict(name="UNet3D", in_channels=1, out_channels=1,
+                          f_maps=64, layer_order="gcr", num_groups=8,
+                          is_segmentation=False)).to(cuda)
+    k1.launches = k1.mma_launches = k1.fma_launches = 0
+    with torch.no_grad():
+        unet(torch.randn(1, 16, 32, 32, 1, device=cuda))
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.mma_launches, k1.fma_launches) == (13, 0, 13)
 
 
 def test_full_width_unet3d_forward_launches_k1_13_times(cuda):
