@@ -7,10 +7,11 @@
 // carrying state n of channel c.  So the grid is (ceil(ED / CH), batch):
 // 256 blocks at the Stage-2 shape (1, 53, 1024, 16), one at least for each
 // of the H100's 132 SMs.  A block first stages everything its walks read
-// (x, delta, z, g for its channels and the whole sequence, B and C of its
+// over a window of steps (x, delta, z, g for its channels, B and C of its
 // batch row), each thread issuing its loads in batches ahead of their
 // stores, all before one barrier, and computes d = softplus(delta + bias)
-// there, outside the walks.
+// there, outside the walks.  K4 stages the whole sequence at once; K2
+// walks it in chunks of ``ScanArgs::chunk`` steps.
 //
 // State buffers hold one value per (t, n, c), laid out [t][n][c] with a
 // step stride of P = (N + 1) * CH floats: in a walk the block's threads
@@ -42,9 +43,11 @@ struct ScanArgs {
   Operand x, delta, z, B, C, D, bias, g;  // inputs; z, bias, g may be null
   Operand y, ddelta, dz;  // outputs: K2's y, or K4's dx, ddelta, dz
   const float* A;         // (ED, N) f32, contiguous
-  float* part;            // K4: per-block partials (scratch)
+  float* part;            // K2: the final state (batch, ED, N) f32, or
+                          // null; K4: per-block partials (scratch)
   float* grads;           // K4: dB, dC, dA, dD, dbias in f32
   int batch, L, ED, N, softplus;
+  int chunk;              // K2: steps staged at a time, 1 .. L
 };
 static_assert(sizeof(Operand) == 40 && sizeof(ScanArgs) == 488,
               "the layout _args packs in ops/cuda/selective_scan.py");
@@ -81,7 +84,8 @@ __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
-// Stage the block's tiles, each (L, CH) and indexed t * CH + c: xs = x,
+// Stage steps t0 .. t0 + T - 1 of the block's tiles, each (T, CH) and
+// indexed (t - t0) * CH + c: xs = x,
 // ds = d_t, zs = z (if zs), gs = g (if gs), sg = sigmoid(delta + bias)
 // under softplus and 1 without (if sg); Bs, Cs (L, N) of batch row b; Dv
 // (CH).  Channels past ED stage zeros, so their states and gradients stay
@@ -93,16 +97,17 @@ constexpr int STAGE_BATCH = 8;
 
 template <int N>
 __device__ __forceinline__ void stage(const ScanArgs& a, int b, int e0,
-                                      float* xs, float* ds, float* zs,
-                                      float* gs, float* sg, float* Bs,
-                                      float* Cs, float* Dv) {
-  const int L = a.L, step = blockDim.x;
+                                      int t0, int T, float* xs, float* ds,
+                                      float* zs, float* gs, float* sg,
+                                      float* Bs, float* Cs, float* Dv) {
+  const int L = T, step = blockDim.x;
   for (int i0 = threadIdx.x; i0 < L * SCAN_CH; i0 += STAGE_BATCH * step) {
     float vx[STAGE_BATCH], vd[STAGE_BATCH], vz[STAGE_BATCH],
         vg[STAGE_BATCH];
 #pragma unroll
     for (int k = 0; k < STAGE_BATCH; ++k) {
-      const int i = i0 + k * step, t = i / SCAN_CH, e = e0 + i % SCAN_CH;
+      const int i = i0 + k * step, t = t0 + i / SCAN_CH,
+                e = e0 + i % SCAN_CH;
       const bool valid = i < L * SCAN_CH && e < a.ED;
       vx[k] = valid ? ld(a.x, b, t, e) : 0.f;
       vd[k] = valid ? ld(a.delta, b, t, e) +
@@ -127,8 +132,8 @@ __device__ __forceinline__ void stage(const ScanArgs& a, int b, int e0,
 #pragma unroll
     for (int k = 0; k < STAGE_BATCH; ++k) {
       const int i = min(i0 + k * step, L * N - 1);
-      vb[k] = ld(a.B, b, i / N, i % N);
-      vc[k] = ld(a.C, b, i / N, i % N);
+      vb[k] = ld(a.B, b, t0 + i / N, i % N);
+      vc[k] = ld(a.C, b, t0 + i / N, i % N);
     }
 #pragma unroll
     for (int k = 0; k < STAGE_BATCH; ++k) {
@@ -144,17 +149,18 @@ __device__ __forceinline__ void stage(const ScanArgs& a, int b, int e0,
   __syncthreads();
 }
 
-// The forward walk of thread (c, n): h_t = exp(d_t a) h_{t-1} + d_t x_t
-// B_t[n] into hs[t * P + tid], t = 0 .. L-1.  Only the FMA carries from
-// one step to the next: each group of SCAN_UNROLL steps loads its inputs
-// and computes its exps before its chain of FMAs.
+// The forward walk of thread (c, n) over L staged steps from the state
+// h: h_t = exp(d_t a) h_{t-1} + d_t x_t B_t[n] into hs[t * P + tid],
+// t = 0 .. L-1; returns the last h.  Only the FMA carries from one step to
+// the next: each group of SCAN_UNROLL steps loads its inputs and computes
+// its exps before its chain of FMAs.
 template <int N>
-__device__ __forceinline__ void forward_walk(int L, float a, const float* xs,
-                                             const float* ds,
-                                             const float* Bs, float* hs) {
+__device__ __forceinline__ float forward_walk(int L, float a, const float* xs,
+                                              const float* ds,
+                                              const float* Bs, float* hs,
+                                              float h) {
   constexpr int P = (N + 1) * SCAN_CH;
   const int tid = threadIdx.x, c = tid % SCAN_CH, n = tid / SCAN_CH;
-  float h = 0.f;
   for (int t0 = 0; t0 < L; t0 += SCAN_UNROLL) {
     float ea[SCAN_UNROLL], u[SCAN_UNROLL];
 #pragma unroll
@@ -172,6 +178,7 @@ __device__ __forceinline__ void forward_walk(int L, float a, const float* xs,
       }
     }
   }
+  return h;
 }
 
 // shared memory of a block, in floats: `states` state buffers (L * P

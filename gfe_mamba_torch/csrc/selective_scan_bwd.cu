@@ -80,9 +80,10 @@ scan_bwd_kernel(const __grid_constant__ ScanArgs a) {
   const bool valid = e < a.ED;
   const bool gate = a.z.p != nullptr;
   const float an = valid ? a.A[(size_t)e * N + n] : 0.f;
-  stage<N>(a, b, e0, xs, dts, gate ? zs : nullptr, gs, sg, Bs, Cs, Dv);
+  stage<N>(a, b, e0, 0, L, xs, dts, gate ? zs : nullptr, gs, sg, Bs, Cs,
+           Dv);
 
-  forward_walk<N>(L, an, xs, dts, Bs, hs);
+  forward_walk<N>(L, an, xs, dts, Bs, hs, 0.f);
   __syncthreads();
 
   // s_t, ds and dz, over (t, c)

@@ -128,14 +128,19 @@ class MambaBlock(nn.Module):
         their RMSNorms' outputs), A in f32, x, delta, B, C and z in the
         promoted dtype of the input and the weights (f32 for an f32 input
         under the bf16 cast), D and delta_bias in their own."""
+        return self._operands(x)[0]
+
+    def _operands(self, x: torch.Tensor):
+        """:meth:`scan_operands` and the conv's input (in_proj's first
+        half, ``(B, L, ED)``)."""
         L = x.shape[1]
-        x, z = self.in_proj(x).chunk(2, dim=-1)
-        x = self.conv1d(x.transpose(1, 2))[..., :L].transpose(1, 2)
+        xi, z = self.in_proj(x).chunk(2, dim=-1)
+        x = self.conv1d(xi.transpose(1, 2))[..., :L].transpose(1, 2)
         x = F.silu(x)
         A = -torch.exp(self.A_log.float())
         delta, B, C = self._delta_bc(x)
         return [x, self._dt_matmul(delta), A, B, C, self.D, z,
-                self.dt_proj.bias]
+                self.dt_proj.bias], xi
 
     def _dt_matmul(self, delta: torch.Tensor) -> torch.Tensor:
         """dt_proj without its bias, which the scan adds in f32; a
@@ -149,14 +154,31 @@ class MambaBlock(nn.Module):
         y = selective_scan(*self.scan_operands(x), delta_softplus=True)
         return self.out_proj(y)
 
+    def prefill(self, x: torch.Tensor):
+        """The sequence forward of ``x (B, L, d_model)`` that also returns
+        the cache :meth:`step` continues from: ``(out, (h, window))``, h
+        the scan's last state ``(B, ED, N)`` in f32 and the window the
+        last ``d_conv - 1`` inputs of the conv ``(B, d_conv - 1, ED)`` in
+        the layer's dtype (zeros before the first token)."""
+        operands, xi = self._operands(x)
+        y, h = selective_scan(*operands, delta_softplus=True,
+                              return_state=True)
+        k = self.config.d_conv - 1
+        window = F.pad(xi[:, -k:], (0, 0, max(0, k - xi.shape[1]), 0))
+        return self.out_proj(y), (h, window.contiguous())
+
     def step(self, x: torch.Tensor, cache):
         """One token ``x (B, d_model)`` with ``cache = (h, conv window)``
         -> ``(out (B, d_model), new cache)``.  The conv is the valid conv
         of the window and this token.  Dtypes promote as in JAX's step:
-        an f32 cache makes the state, the window and the output f32
-        whatever the layer's dtype."""
+        an f32 cache (``init_cache``'s) makes the state, the window and the
+        output f32 whatever the layer's dtype.  A window in the layer's
+        dtype (:meth:`prefill`'s) keeps the output in it: the gated y is
+        rounded once to that dtype, as K2 writes the sequence forward's,
+        while the state stays f32."""
         h, conv_in = cache
         x, z = self.in_proj(x).chunk(2, dim=-1)
+        out_dtype = torch.promote_types(x.dtype, conv_in.dtype)
         window = torch.cat([conv_in, x[:, None]], dim=1)
         x = torch.einsum("bke,ek->be",
                          *promote(window, self.conv1d.weight[:, 0]))
@@ -167,7 +189,8 @@ class MambaBlock(nn.Module):
         delta, B, C = self._delta_bc(x)
         delta = F.softplus(self.dt_proj(delta))
         y, h = selective_scan_step(h, x, delta, A, B, C, self.D)
-        return self.out_proj(y * F.silu(z)), (h, window[:, 1:])
+        y = (y * F.silu(z)).to(out_dtype)
+        return self.out_proj(y), (h, window[:, 1:])
 
 
 class ResidualBlock(nn.Module):

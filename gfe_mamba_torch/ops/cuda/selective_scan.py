@@ -26,9 +26,19 @@ import struct
 import torch
 import torch.nn.functional as F
 
-# kernel launches since the counters were last set to 0: K2, K4
+# kernel launches since the counters were last set to 0: K2, K4; and the
+# chunks K2's launches walked (``chunks / launches`` per launch)
 launches = 0
 bwd_launches = 0
+chunks = 0
+
+# steps K2 stages at a time past SCAN_WHOLE steps (448 B a step at N =
+# 16): at (1, 15024, 8192, 16) chunks of 8, 16, 24, 32, 64, 128 and 256
+# took 11.6, 7.0, 6.4, 6.7, 9.1, 15.7 and 20.8 ms on the H100 (24 holds
+# all 2048 blocks in one wave, 32 leaves 68 for a second); a sequence of
+# at most SCAN_WHOLE steps is one chunk, staged whole as before chunking
+SCAN_CHUNK = 24
+SCAN_WHOLE = 64
 
 _STATE_SIZES = (4, 8, 16, 32)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -41,9 +51,9 @@ def softplus(v: torch.Tensor) -> torch.Tensor:
 
 
 def selective_scan_plain(x, delta, A, B, C, D, z=None, delta_bias=None,
-                         delta_softplus=False):
+                         delta_softplus=False, return_state=False):
     """Sequential f32 loop over L (the ``mode='sequential'`` recurrence of
-    the JAX package)."""
+    the JAX package); with ``return_state``, ``(y, last h (B, ED, N))``."""
     if delta_bias is not None:
         delta = delta + delta_bias
     if delta_softplus:
@@ -55,10 +65,10 @@ def selective_scan_plain(x, delta, A, B, C, D, z=None, delta_bias=None,
         h = torch.exp(d_t * A) * h \
             + (d_t * x[:, t, :, None]) * B[:, t, None, :]
         ys.append(torch.einsum("ben,bn->be", h, C[:, t]))
-    y = torch.stack(ys, dim=1) + D * x
+    y = (torch.stack(ys, dim=1) if ys else x.new_zeros(x.shape)) + D * x
     if z is not None:
         y = y * F.silu(z)
-    return y
+    return (y, h) if return_state else y
 
 
 def selective_scan_bwd_plain(x, delta, A, B, C, D, z, delta_bias, g,
@@ -118,7 +128,7 @@ OPERAND = struct.Struct("@qqqqii")
 _ABSENT = bytes(OPERAND.size)
 # ``ScanArgs`` of csrc/scan.cuh is 11 operands (x, delta, z, B, C, D, bias,
 # g, y, ddelta, dz) then this tail: A, part, grads; batch, L, ED, N,
-# softplus; padding to 8 bytes.  The arguments go to the C entry points
+# softplus, chunk (K2's; 0 for K4).  The arguments go to the C entry points
 # as these bytes: cheaper on the host than a ctypes.Structure filled field
 # by field, and the training step is host-bound.
 _TAIL = struct.Struct("@qqqiiiiii")
@@ -153,9 +163,11 @@ def _operand(t) -> bytes:
     return OPERAND.pack(t.data_ptr(), sb, st, se, bf16, 0)
 
 
-def _args(operands, A, part, grads, bsz, L, ED, N, softplus) -> bytes:
+def _args(operands, A, part, grads, bsz, L, ED, N, softplus,
+          chunk=0) -> bytes:
     return b"".join([*map(_operand, operands), _TAIL.pack(
-        A.data_ptr(), part, grads, bsz, L, ED, N, int(bool(softplus)), 0)])
+        A.data_ptr(), part, grads, bsz, L, ED, N, int(bool(softplus)),
+        chunk)])
 
 
 def _check(name, t, shape, device, dtypes=KERNEL_DTYPES):
@@ -171,7 +183,8 @@ def _check(name, t, shape, device, dtypes=KERNEL_DTYPES):
 
 def _check_inputs(x, delta, A, B, C, D, z, delta_bias):
     """Validate the scan's inputs; returns (B, L, ED, N).  A sequence too
-    long for a block's shared memory is refused by the launch.
+    long for a block's shared memory is refused by K4's launch (K2 walks
+    any L in chunks).
 
     x, delta, z, B, C, D and delta_bias may each be f32 or bf16, with any
     strides; A is f32 and contiguous."""
@@ -224,23 +237,31 @@ def _launch(name, args: bytes, device) -> int:
 
 
 def selective_scan_cuda(x, delta, A, B, C, D, z=None, delta_bias=None,
-                        delta_softplus=False):
+                        delta_softplus=False, return_state=False):
     """Launch K2 on CUDA tensors; raises on anything it cannot take.
 
     x, delta, z, B, C, D and delta_bias may be f32 or bf16, with any
-    strides; y comes back contiguous in x's dtype."""
-    global launches
+    strides; y comes back contiguous in x's dtype, and with
+    ``return_state`` beside the last state ``(B, ED, N)`` in f32.  Any L:
+    past ``SCAN_WHOLE`` steps the kernel walks it in chunks of
+    ``SCAN_CHUNK``."""
+    global launches, chunks
     bsz, L, ED, N = _check_inputs(x, delta, A, B, C, D, z, delta_bias)
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    state = torch.empty(bsz, ED, N, dtype=torch.float32, device=x.device) \
+        if return_state else None
     if out.numel() == 0:
-        return out
+        return (out, state.zero_()) if return_state else out
+    chunk = L if L <= SCAN_WHOLE else SCAN_CHUNK
     args = _args((x, delta, z, B, C, D, delta_bias, None, out, None, None),
-                 A, 0, 0, bsz, L, ED, N, delta_softplus)
+                 A, 0 if state is None else state.data_ptr(), 0, bsz, L, ED,
+                 N, delta_softplus, chunk)
     rc = _launch("selective_scan", args, x.device)
     if rc != 0:
         raise RuntimeError(f"selective_scan kernel failed: CUDA error {rc}")
     launches += 1
-    return out
+    chunks += -(-L // chunk)
+    return (out, state) if return_state else out
 
 
 def selective_scan_bwd_cuda(x, delta, A, B, C, D, z, delta_bias, g,

@@ -62,7 +62,8 @@ class SelectiveScanFn(torch.autograd.Function):
     operand is cast to a contiguous f32 copy for the plain loops."""
 
     @staticmethod
-    def forward(ctx, x, delta, A, B, C, D, z, delta_bias, delta_softplus):
+    def forward(ctx, x, delta, A, B, C, D, z, delta_bias, delta_softplus,
+                return_state):
         ins = (x, delta, A, B, C, D, z, delta_bias)
         ctx.dtypes = [None if t is None else t.dtype for t in ins]
         ctx.delta_softplus = delta_softplus
@@ -70,16 +71,22 @@ class SelectiveScanFn(torch.autograd.Function):
             if x.is_cuda:
                 args = [kernel_operand(t) for t in ins]
                 args[2] = A.float().contiguous()
-                y = selective_scan_cuda(*args, delta_softplus=delta_softplus)
+                out = selective_scan_cuda(*args,
+                                          delta_softplus=delta_softplus,
+                                          return_state=return_state)
             else:
                 args = [_f32(t) for t in ins]
-                y = selective_scan_plain(*args,
-                                         delta_softplus=delta_softplus)
+                out = selective_scan_plain(*args,
+                                           delta_softplus=delta_softplus,
+                                           return_state=return_state)
             ctx.save_for_backward(*args)
-            return y.to(x.dtype)
+            if not return_state:
+                return out.to(x.dtype)
+            ctx.mark_non_differentiable(out[1])
+            return out[0].to(x.dtype), out[1]
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, *_):
         args = ctx.saved_tensors
         with annotate("gfe.scan.bwd"):
             if g.is_cuda:
@@ -90,22 +97,23 @@ class SelectiveScanFn(torch.autograd.Function):
                 grads = selective_scan_bwd_plain(
                     *args, _f32(g), delta_softplus=ctx.delta_softplus)
             return (*(None if d is None else d.to(dt)
-                      for d, dt in zip(grads, ctx.dtypes)), None)
+                      for d, dt in zip(grads, ctx.dtypes)), None, None)
 
 
 def selective_scan(x, delta, A, B, C, D, z=None, delta_bias=None,
-                   delta_softplus=False) -> torch.Tensor:
+                   delta_softplus=False, return_state=False):
     """Fused selective scan with the mamba_ssm ``selective_scan_fn``
     contract: x, delta, z ``(B, L, ED)``; A ``(ED, N)``; B, C
     ``(B, L, N)``; D, delta_bias ``(ED,)``.  Returns y ``(B, L, ED)`` in
-    x's dtype.
+    x's dtype; with ``return_state``, ``(y, h)`` with h the state after
+    the last step, ``(B, ED, N)`` in f32, which carries no gradient.
 
     The recurrence runs in f32, whatever the surrounding dtype.  CUDA
     tensors go through K2 (K4 backward), which read bf16 and strided
     operands as they are; CPU tensors are cast to f32 for the sequential
     plain loops."""
     return SelectiveScanFn.apply(x, delta, A, B, C, D, z, delta_bias,
-                                 delta_softplus)
+                                 delta_softplus, return_state)
 
 
 def selective_scan_step(h, x, delta, A, B, C, D):

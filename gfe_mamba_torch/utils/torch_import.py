@@ -9,7 +9,7 @@ are: the depthwise ``conv1d`` weight ``(d_inner, 1, d_conv)``, ``A_log``,
 ``C_layernorm`` here), and GQA's ``k_proj`` / ``v_proj`` at
 ``num_key_value_heads``.  Each layer's experts ``experts.<e>.
 {gate,up,down}_proj.weight`` (``(f, d)``, ``(f, d)``, ``(d, f)``) are
-transposed into their slot of the dense-dispatch MoE's ``experts_gate`` /
+transposed into their slot of the MoE's stacked ``experts_gate`` /
 ``experts_up`` ``(E, d, f)`` and ``experts_down`` ``(E, f, d)``.  With
 tied embeddings (the model has no ``lm_head``) the checkpoint's
 ``lm_head.weight``, the embedding itself, is not read.

@@ -112,15 +112,15 @@ def test_gqa_attention_with_and_without_cache():
         got, cache = model(torch.from_numpy(x))
     assert cache is None
     _assert_close(got, want)
-    jcache, cache, outs = (None, None), (None, None), []
+    jcache, cache, outs = (None, None), pj.KVCache(x.shape[1]), []
     with torch.no_grad():
         for t in range(x.shape[1]):
             want, jcache = jax_model.apply(params, jnp.asarray(x[:, t:t + 1]),
                                            jcache)
             got, cache = model(torch.from_numpy(x[:, t:t + 1]), cache)
             _assert_close(got, want)
-            _assert_close(cache[0], jcache[0])
-            _assert_close(cache[1], jcache[1])
+            _assert_close(cache.k[:, :, :cache.length], jcache[0])
+            _assert_close(cache.v[:, :, :cache.length], jcache[1])
             outs.append(got)
     _assert_close(torch.cat(outs, 1), model(torch.from_numpy(x))[0].detach()
                   .numpy())
@@ -153,7 +153,8 @@ def test_jamba_forward_and_step():
         _assert_close(a, b)
     assert [type(layer.self_attn if layer.is_attn else layer.mamba).__name__
             for layer in model.layers] == ["MambaBlock"] * 4 + ["GQAttention"]
-    jcaches, caches, outs = jax_model.init_cache(2), model.init_cache(2), []
+    jcaches, outs = jax_model.init_cache(2), []
+    caches = model.init_cache(2, max_len=x.shape[1])
     with torch.no_grad():
         for t in range(x.shape[1]):
             step_want, jcaches = jax_model.apply(
@@ -180,7 +181,7 @@ def test_jamba_lm_forward_step_loss_and_greedy_generate():
                   jj.load_balancing_loss(jlogits, 2, 1))
 
     jcaches = jj.Jamba(cfg).init_cache(batch=2)
-    caches, outs = model.jamba.init_cache(2), []
+    caches, outs = model.jamba.init_cache(2, max_len=tokens.shape[1]), []
     with torch.no_grad():
         for i in range(tokens.shape[1]):
             step_want, jcaches = jax_model.apply(

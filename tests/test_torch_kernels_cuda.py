@@ -242,11 +242,12 @@ def test_scan_kernel_takes_bf16_views(cuda, bsz):
             assert bf16_ulps(got, want) <= 1.0
 
 
-@pytest.mark.parametrize("bwd", [False, True])
+@pytest.mark.parametrize("bwd", [True])
 def test_scan_kernels_refuse_a_sequence_beyond_shared_memory(cuda, bwd):
-    """L = 2000 needs ~0.9 MB of shared memory per block (227 KB at most):
-    the launch's error comes back as an exception, and leaves nothing
-    behind for the next launch, which succeeds."""
+    """K4 at L = 2000 needs ~0.9 MB of shared memory per block (227 KB at
+    most): the launch's error comes back as an exception, and leaves
+    nothing behind for the next launch, which succeeds.  (K2 walks any L
+    in chunks: ``test_chunked_scan_kernel_matches_plain``.)"""
     def call(L):
         args = [torch.zeros(1, L, 8, device=cuda),
                 torch.zeros(1, L, 8, device=cuda),
@@ -263,6 +264,180 @@ def test_scan_kernels_refuse_a_sequence_beyond_shared_memory(cuda, bwd):
         call(2000)
     call(53)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("L", [53, 518, 519, 4096, 15024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_scan_kernel_matches_plain(cuda, L, dtype):
+    """K2 over L steps in chunks of ``SCAN_CHUNK`` (one chunk up to
+    ``SCAN_WHOLE``; 518 was v2's last length at N = 16): a Mamba layer's
+    own operands in f32
+    or bf16 (views, channel-major x), y within 1e-5 (f32) or one bf16 ulp
+    of the plain loop, and the last state, from the same call, within
+    1e-5 of the plain loop's (f32 on both sides)."""
+    args = mamba_scan_operands(1, L, 32, dtype, cuda, seed=L)
+    before = k2.chunks
+    got, h = k2.selective_scan_cuda(*args, delta_softplus=True,
+                                    return_state=True)
+    want, want_h = k2.selective_scan_plain(*[t.float() for t in args],
+                                           delta_softplus=True,
+                                           return_state=True)
+    torch.cuda.synchronize()
+    chunk = L if L <= k2.SCAN_WHOLE else k2.SCAN_CHUNK
+    assert k2.chunks - before == -(-L // chunk)
+    assert got.dtype == dtype and h.dtype == torch.float32
+    assert h.shape == (1, 64, 16)
+    if dtype == torch.float32:
+        _assert_close(got, want, 1e-5)
+    else:
+        assert bf16_ulps(got, want) <= 1.0
+    _assert_close(h, want_h, 1e-5)
+
+
+def _dense_experts(moe, x, top_i=None):
+    """Every token through every expert, summed with the hard top-k gates
+    (of the experts ``top_i`` where given)."""
+    import torch.nn.functional as F
+
+    w = torch.softmax(moe.router(x).float(), dim=-1)
+    if top_i is None:
+        top_i = w.topk(moe.k, dim=-1).indices
+    top_w = w.gather(-1, top_i)
+    gates = torch.zeros_like(w).scatter(-1, top_i, top_w).to(x.dtype)
+    g = torch.einsum("bld,edf->belf", x, moe.experts_gate)
+    u = torch.einsum("bld,edf->belf", x, moe.experts_up)
+    y = torch.einsum("belf,efd->beld", F.silu(g) * u, moe.experts_down)
+    return torch.einsum("beld,ble->bld", y, gates)
+
+
+@pytest.mark.parametrize("tokens", [1, 96])
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_routed_experts_match_dense_dispatch_at_published_widths(cuda,
+                                                                 dtype, rel,
+                                                                 tokens):
+    """One Jamba2-Mini MoE layer (16 experts of 4096 -> 14336, top 2) on
+    a decode step's token and on 96: the routed dispatch (bf16: the
+    grouped products, 14 empty groups at one token; f32: one product per
+    expert) against every token through every expert summed with the
+    hard gates.  f32 with TF32 off: the same products in other shapes,
+    1e-4; bf16: each product rounded once on either side, in other
+    groupings, 1e-2 of the output's scale."""
+    from gfe_mamba_torch.models.jamba import SparseMoEBlock, grouped_experts
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    moe = SparseMoEBlock(4096, 16, 2, 14336).to(cuda, dtype).eval()
+    with torch.no_grad():
+        for p in moe.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device=cuda)
+                    / p.shape[-2] ** 0.5)
+        x = torch.randn(1, tokens, 4096, generator=gen, device=cuda).to(dtype)
+        out, _ = moe(x)
+        want = _dense_experts(moe, x)
+    torch.cuda.synchronize()
+    assert grouped_experts(x, moe.experts_gate) == (dtype == torch.bfloat16)
+    assert out.dtype == dtype
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= rel * want.float().abs().max().item(), err
+
+
+def test_grouped_experts_backward_matches_dense(cuda):
+    """The grouped products under autograd (a bf16 training step): the
+    gradients of the input and of each stacked weight against the dense
+    dispatch's on the same bf16 values in f32, through the experts the
+    bf16 router chose (a near tie may round the other way in f32), 3e-2
+    of each gradient's scale (bf16 products and cotangents on one
+    side)."""
+    from gfe_mamba_torch.models.jamba import SparseMoEBlock
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    moe = SparseMoEBlock(64, 4, 2, 96).to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        for p in moe.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device=cuda)
+                    / p.shape[-2] ** 0.5)
+    ref = SparseMoEBlock(64, 4, 2, 96).to(cuda)
+    ref.load_state_dict({k: v.float() for k, v in moe.state_dict().items()})
+    x = torch.randn(2, 33, 64, generator=gen, device=cuda)
+    cot = torch.randn(2, 33, 64, generator=gen, device=cuda)
+    xb, xf = (x.bfloat16().requires_grad_(),
+              x.bfloat16().float().requires_grad_())
+    with torch.no_grad():
+        chosen = moe.router(xb).float().topk(2, dim=-1).indices
+    (moe(xb)[0].float() * cot).sum().backward()
+    (_dense_experts(ref, xf, chosen) * cot).sum().backward()
+    _assert_close(xb.grad, xf.grad, 3e-2)
+    for name in ("experts_gate", "experts_up", "experts_down"):
+        _assert_close(getattr(moe, name).grad, getattr(ref, name).grad, 3e-2)
+
+
+def _small_jamba_lm(cuda, dtype):
+    from gfe_mamba_torch.models.jamba import JambaConfig, JambaLM
+
+    model = JambaLM(JambaConfig(
+        d_model=64, n_layers=8, mlp_size=96, vocab_size=128,
+        num_attention_heads=8, num_key_value_heads=2, num_experts=4,
+        num_experts_per_tok=2, dt_rank=8, inner_layernorms=True,
+        tie_lm_weights=False)).to(cuda).eval()
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            t = torch.randn(p.shape, generator=gen, device=cuda)
+            if name.endswith("A_log"):
+                p.copy_(torch.log(torch.arange(1, 17.0, device=cuda))
+                        .expand(p.shape))
+            elif name.endswith("dt_proj.bias"):
+                p.copy_(-4.6 + 0.1 * t)
+            elif p.dim() == 1:
+                p.copy_(1.0 + 0.1 * t)
+            else:
+                p.copy_(t / p.shape[-2 if "experts" in name else -1] ** 0.5)
+    return model.to(dtype), gen
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_greedy_graph_decode_matches_the_forward(cuda, batch):
+    """``generate(top_k=1)`` on the card.  f32 steps eagerly (one product
+    per expert, its ends on the host): its logits equal the full forward's
+    on the same tokens with TF32 off (1e-4 of max(1, max |forward|)).
+    bf16 replays the model's one CUDA graph (the grouped products; batch 3
+    routes 6 pairs to 4 experts): its logits equal those of eager steps
+    through the same prefill fed the graph's tokens, 2e-2 of max(1, max
+    |eager|) (the frozen cache's masked attention against the filled
+    keys'); a prompt that outgrows the graph's caches records it again at
+    the next power of two, and a shorter one replays it.  Each token is
+    the argmax of its own logits."""
+    from gfe_mamba_torch.models.jamba import generate
+
+    for dtype in (torch.float32, torch.bfloat16):
+        model, gen = _small_jamba_lm(cuda, dtype)
+        graphs = []
+        for length in (37, 70, 37):
+            prompt = torch.randint(0, 128, (batch, length), generator=gen,
+                                   device=cuda)
+            out, logits = generate(model, prompt, 9, top_k=1,
+                                   return_logits=True)
+            graphs.append(model.__dict__.get("_greedy_graph"))
+            with torch.no_grad():
+                if dtype == torch.float32:
+                    want = model(out[:, :-1])[0][:, length - 1:]
+                    rel = 1e-4
+                else:
+                    first, caches = model.prefill(prompt, 9)
+                    want = [first]
+                    for t in range(length, length + 8):
+                        step, caches = model.step(out[:, t], caches)
+                        want.append(step)
+                    want, rel = torch.stack(want, 1), 2e-2
+            torch.cuda.synchronize()
+            assert torch.equal(out[:, :length], prompt)
+            assert torch.equal(out[:, length:], logits.argmax(-1))
+            _assert_close(logits, want, rel)
+        if dtype == torch.float32:
+            assert graphs == [None] * 3
+        else:
+            assert graphs[0].capacity == 64 and graphs[1].capacity == 128
+            assert graphs[2] is graphs[1]
 
 
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-6),

@@ -217,6 +217,10 @@ def test_classifier_dtypes_match_jax_under_the_bf16_cast(case):
             dict(head.named_parameters()), torch.bfloat16), args, extra)
 
     mapped = {_port_module(p): (p, dts) for p, dts in want.items()}
+    # outside training Jamba's attention takes its softmax and dropout
+    # fused in scaled_dot_product_attention: no module sees the weights
+    mapped = {m: v for m, v in mapped.items()
+              if not m.endswith(".self_attn.attn_drop")}
     missing = sorted(p for m, (p, _) in mapped.items() if m not in got)
     assert not missing, missing
     wrong = {m: (p, dts, got[m]) for m, (p, dts) in mapped.items()
