@@ -22,12 +22,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    serial floor of its walk (logged); K2 also on the bf16 Stage-2 step's
    operands at batch 1 (f32 x, delta, z, B and C views, bf16 D and
    delta_bias: the classifier computes in f32 there, as JAX's), within
-   1e-5 of its plain version, timed;
+   1e-5 of its plain version, timed; K2's long kernel (past 64 steps) on
+   a Jamba2-Mini Mamba layer's bf16 operands at the document lengths
+   (1, 15024|4467, 8192, 16), y within one bf16 ulp and the last state
+   within 1e-5 of the plain loop, timed by CUDA graph beside its bound
+   and the previous design's time, with both kernels' registers per
+   thread and resident blocks per SM, and its launches counted over the
+   prefill of a Jamba2-Mini-shaped stack (8 layers, 7 Mamba, d_model
+   4096) at 4,467 tokens: 7, none in a decode step;
 4. pipeline parity: the full channel widths at a reduced volume in f32,
    the CPU (plain versions) against the card (kernels), same weights;
 5. the main path: ``build_gfe_mamba`` at the canonical (160,160,96) bf16
    configuration serves 3 requests of batch 4; every forward must launch
-   K1 10 times and K2 6 times;
+   K1 10 times and K2 6 times, none of them K2's long kernel;
 6. the training kernels against their plain versions: K4 (scan
    backward) at (1|4, 53, 1024|1000|1001, 16) with every flag on and
    off in f32, on a canonical Mamba layer's bf16 operands (dx, ddelta,
@@ -298,6 +305,14 @@ GRAD_NAMES = ("dx", "ddelta", "dA", "dB", "dC", "dD", "dz", "dbias")
 # dependent latency of one f32 FMA or multiply on Hopper, in cycles (the
 # serial floor of a scan's walk, logged beside its times)
 FMA_LATENCY_CYCLES = 4
+# K2 at the Jamba2-Mini prefill's Mamba layers (d_model 4096: ED 8192, N
+# 16), the longest and the shortest prompt of the docqa traffic, 7 calls
+# per prefill; and K2's device ms per call at these shapes and scoring's
+# (4, 53, 1024, 16) in the previous design (v3: chunks of 24 steps in
+# 4-channel blocks; CUDA graphs on an H100 80GB HBM3 at 700 W)
+LONG_SCAN_LENGTHS = (15024, 4467)
+LONG_SCAN_D_MODEL = 4096
+K2_V3_MS = {15024: 6.37, 4467: 1.908, 53: 0.0134}
 # K3's design in csrc/conv3d_dw.cu, and v1's times (one tap per block,
 # f32 FMAs on the CUDA cores; per call by channel width and per Stage-1
 # step, H100 80GB HBM3 at 700 W, from PERF.md section 6), logged for
@@ -736,6 +751,123 @@ def check_k2(gen) -> dict:
                     "step's f32 views")
 
 
+def ptxas_registers(report: str, fragment: str) -> int | None:
+    """Registers per thread that ``-Xptxas -v`` reports for the first
+    kernel whose mangled name contains ``fragment``."""
+    name = ""
+    for line in report.splitlines():
+        found = re.search(r"entry function '(\S+)'", line)
+        if found:
+            name = found.group(1)
+        used = re.search(r"Used (\d+) registers", line)
+        if used and fragment in name:
+            return int(used.group(1))
+    return None
+
+
+def check_k2_long(report: str, short_ms: float) -> dict:
+    """K2's long kernel (past SCAN_WHOLE steps) on a Jamba2-Mini Mamba
+    layer's bf16 operands at the docqa prompt lengths: y within one bf16
+    ulp and the last state within 1e-5 of the plain loop, then its device
+    time alone (a CUDA graph of 10 calls) beside its bound and the previous
+    design's time; with scoring's short-kernel time (``short_ms``, phase 3)
+    against its own, and both kernels' registers per thread (``report``:
+    the source's ``-Xptxas -v``) and resident blocks per SM."""
+    from gfe_mamba_torch.ops.cuda import selective_scan as k2
+    from gfe_mamba_torch.testing import bf16_ulps, mamba_scan_operands
+
+    out = {}
+    for L in LONG_SCAN_LENGTHS:
+        args = mamba_scan_operands(1, L, LONG_SCAN_D_MODEL, torch.bfloat16,
+                                   "cuda", d_state=16, seed=L)
+        ED, N = args[0].shape[2], args[2].shape[1]
+        slab, chunk = k2.scan_plan(L, N)
+        before = k2.long_launches
+        y, h = k2.selective_scan_cuda(*args, delta_softplus=True,
+                                      return_state=True)
+        want, want_h = k2.selective_scan_plain(*[t.float() for t in args],
+                                               delta_softplus=True,
+                                               return_state=True)
+        torch.cuda.synchronize()
+        ulps, h_rel = bf16_ulps(y, want), rel_err(h, want_h)[1]
+        del want, want_h
+        if not (ulps <= 1.0 and h_rel <= 1e-5
+                and k2.long_launches - before == 1):
+            raise AssertionError(f"K2's long kernel at L={L}: y {ulps} bf16 "
+                                 f"ulp, last state rel {h_rel}")
+        dev = graph_ms(lambda: k2.selective_scan_cuda(
+            *args, delta_softplus=True), reps=10)
+        bound, bound_by = scan_bound_ms(args, y)
+        blocks = k2.occupancy(L, N)
+        log(f"K2 long kernel (1,{L},{ED},N={N}) bf16 Mamba-layer operands "
+            f"(slab {slab}, chunks of {chunk}): y {ulps:.3f} bf16 ulp, last "
+            f"state rel {h_rel:.2e}; device {dev:.4f} ms per call (CUDA "
+            f"graph of 10), bound {bound:.4f} ms ({bound_by}; "
+            f"{100 * bound / dev:.1f}% of it), v3 {K2_V3_MS[L]:.3f} ms "
+            f"({K2_V3_MS[L] / dev:.2f}x); {blocks} block(s) per SM")
+        out[L] = dict(ms=dev, bound_ms=bound, ulps=ulps, state_rel=h_rel,
+                      blocks_per_sm=blocks)
+        del args, y, h
+        torch.cuda.empty_cache()
+    _, L, ED, N = SCAN_SHAPE
+    regs = {"short": ptxas_registers(report, f"scan_kernelILi{N}E"),
+            "long": ptxas_registers(report, f"scan_long_kernelILi{N}ELi"
+                                            f"{k2.long_slab(N)}ELb1E")}
+    short_blocks = k2.occupancy(L, N)
+    log(f"K2 short kernel ({BATCH},{L},{ED},N={N}): {short_ms:.4f} ms per "
+        f"call, {100 * (short_ms / K2_V3_MS[L] - 1):+.1f}% on v3's "
+        f"{K2_V3_MS[L]} ms (its kernel unchanged; +-5% expected); "
+        f"registers per thread: short {regs['short']}, long {regs['long']}; "
+        f"blocks per SM: short {short_blocks}")
+    return dict(long={str(L): v for L, v in out.items()},
+                registers=regs, short_blocks_per_sm=short_blocks)
+
+
+def check_k2_long_launches() -> dict:
+    """K2's long kernel on the Jamba prefill: a stack of Jamba2-Mini's
+    layout (8 layers: attention at 4, experts on the odd ones, 7 Mamba) at
+    its Mamba widths (d_model 4096: ED 8192, N 16, so v4's slab of 64 and
+    bf16 views, the instance the docqa prefill runs), with a small MLP,
+    experts and vocabulary, prefills a 4,467-token prompt in bf16: 7 K2
+    launches, all long; then a decode step launches none."""
+    from gfe_mamba_torch.models.jamba import JambaConfig, JambaLM
+    from gfe_mamba_torch.ops.cuda import selective_scan as k2
+
+    cfg = JambaConfig(d_model=LONG_SCAN_D_MODEL, n_layers=8, mlp_size=512,
+                      num_experts=4, num_experts_per_tok=2, vocab_size=512,
+                      tie_lm_weights=False)
+    L = LONG_SCAN_LENGTHS[1]
+    plan = k2.scan_plan(L, cfg.d_state)
+    if cfg.expand_factor * cfg.d_model != 8192 or plan != (64, 64):
+        raise AssertionError(f"expected ED 8192 in slabs of 64, chunks of "
+                             f"64: ED {cfg.expand_factor * cfg.d_model}, "
+                             f"(slab, chunk) {plan}")
+    lm = materialized(lambda: JambaLM(cfg), seed=9).cuda().to(
+        torch.bfloat16).eval()
+    prompt = torch.randint(0, cfg.vocab_size, (1, L),
+                           generator=torch.Generator().manual_seed(10))
+    with torch.inference_mode():
+        prompt = prompt.cuda()
+        torch.cuda.synchronize()
+        k2.launches = k2.long_launches = 0
+        logits, caches = lm.prefill(prompt, 1)
+        torch.cuda.synchronize()
+        prefill = (k2.launches, k2.long_launches)
+        k2.launches = k2.long_launches = 0
+        lm.step(logits.argmax(-1), caches)
+        torch.cuda.synchronize()
+        decode = k2.long_launches
+    log(f"Jamba2-Mini-shaped prefill of {L} tokens at ED 8192 (slab "
+        f"{plan[0]}): K2 launches {prefill[0]}, long_launches {prefill[1]}; "
+        f"a decode step: long_launches {decode}")
+    if prefill != (7, 7) or decode:
+        raise AssertionError(f"expected 7 long K2 launches per prefill and "
+                             f"none per step, got {prefill}, {decode}")
+    del lm, caches, logits
+    torch.cuda.empty_cache()
+    return dict(prefill=prefill[1], decode_step=decode)
+
+
 def check_pipeline_parity():
     """Full widths, reduced volume, f32: CPU (plain) vs card (kernels)."""
     from gfe_mamba_torch.models.pipeline import build_gfe_mamba
@@ -796,7 +928,7 @@ def serve_canonical(card: str, mixer: str = "mamba",
     request(100)                                  # warm-up
     torch.cuda.synchronize()
     k1.launches = k1.mma_launches = k1.fma_launches = 0
-    k2.launches = 0
+    k2.launches = k2.long_launches = 0
     times = []
     for i in range(3):
         before = (k1.launches, k2.launches)
@@ -821,6 +953,11 @@ def serve_canonical(card: str, mixer: str = "mamba",
         raise AssertionError(f"K1 launches {k1.launches}: {k1.mma_launches} "
                              f"on wgmma, {k1.fma_launches} f32 in bf16 "
                              f"serving")
+    log(f"{mixer} requests: K2 long_launches {k2.long_launches} over "
+        f"{k2.launches} K2 launches (0 per request: {SCAN_SHAPE[1]} steps "
+        f"take the short kernel)")
+    if k2.long_launches:
+        raise AssertionError("scoring took K2's long kernel")
     del model
     torch.cuda.empty_cache()
     return k1.launches, k2.launches, times
@@ -5067,6 +5204,9 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_k1(gen), check_k2(gen)]
+    kernels[1].update(check_k2_long(reports["selective_scan"],
+                                    kernels[1]["ms"] / SCAN_CALLS))
+    kernels[1]["long_launches"] = check_k2_long_launches()
     check_pipeline_parity()
     k1_launches, k2_launches, _ = serve_canonical(card)
     kernels[0]["launches"] = k1_launches

@@ -1,6 +1,7 @@
 // What K2 (selective_scan.cu) and K4 (selective_scan_bwd.cu) share: the
 // operand descriptors of the C interface, bf16/f32 loads and stores, the
-// staging of a block's tiles into shared memory and the forward walk.
+// staging of a block's tiles into shared memory and the forward walk (K2's
+// short kernel, up to 64 steps; its long kernel has its own).
 //
 // Work split.  A block owns SCAN_CH channels of one batch row and all L
 // steps; it has SCAN_CH * N threads, thread (c, n) = (tid % CH, tid / CH)
@@ -10,8 +11,7 @@
 // over a window of steps (x, delta, z, g for its channels, B and C of its
 // batch row), each thread issuing its loads in batches ahead of their
 // stores, all before one barrier, and computes d = softplus(delta + bias)
-// there, outside the walks.  K4 stages the whole sequence at once; K2
-// walks it in chunks of ``ScanArgs::chunk`` steps.
+// there, outside the walks.  Both stage the whole sequence at once.
 //
 // State buffers hold one value per (t, n, c), laid out [t][n][c] with a
 // step stride of P = (N + 1) * CH floats: in a walk the block's threads
@@ -47,7 +47,8 @@ struct ScanArgs {
                           // null; K4: per-block partials (scratch)
   float* grads;           // K4: dB, dC, dA, dD, dbias in f32
   int batch, L, ED, N, softplus;
-  int chunk;              // K2: steps staged at a time, 1 .. L
+  int slab;               // K2: 0, the short kernel, or the long kernel's
+                          // channels per block (64; 32 at N = 32)
 };
 static_assert(sizeof(Operand) == 40 && sizeof(ScanArgs) == 488,
               "the layout _args packs in ops/cuda/selective_scan.py");

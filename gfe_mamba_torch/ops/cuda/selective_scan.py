@@ -26,22 +26,60 @@ import struct
 import torch
 import torch.nn.functional as F
 
-# kernel launches since the counters were last set to 0: K2, K4; and the
-# chunks K2's launches walked (``chunks / launches`` per launch)
+# kernel launches since the counters were last set to 0: K2, K4; the K2
+# launches that took the long kernel (v4); and the chunks K2's launches
+# walked (``chunks / launches`` per launch)
 launches = 0
+long_launches = 0
 bwd_launches = 0
 chunks = 0
 
-# steps K2 stages at a time past SCAN_WHOLE steps (448 B a step at N =
-# 16): at (1, 15024, 8192, 16) chunks of 8, 16, 24, 32, 64, 128 and 256
-# took 11.6, 7.0, 6.4, 6.7, 9.1, 15.7 and 20.8 ms on the H100 (24 holds
-# all 2048 blocks in one wave, 32 leaves 68 for a second); a sequence of
-# at most SCAN_WHOLE steps is one chunk, staged whole as before chunking
-SCAN_CHUNK = 24
+# K2 stages a sequence of at most SCAN_WHOLE steps whole, in its short
+# kernel (one chunk, 4 channels a block); past it the long kernel (v4)
+# walks chunks of ``long_chunk(N)`` steps in blocks of ``long_slab(N)``
+# channels of one batch row
 SCAN_WHOLE = 64
+# v4's states per walking thread and a chunk's steps per walker of a
+# channel: csrc/selective_scan.cu's LONG_S and LONG_K.  At (1, 15024,
+# 8192, 16) on a Mamba layer's bf16 views an H100 took 1.57 ms with chunks
+# of 64 steps in slabs of 64 channels, 1.62 with 32 steps, 1.60 in slabs
+# of 32 (v3: 6.35)
+LONG_STATES = 4
+LONG_ITEMS = 16
 
 _STATE_SIZES = (4, 8, 16, 32)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def long_chunk(N: int) -> int:
+    """Steps of v4's chunk at state size N: LONG_ITEMS for each of the
+    N / LONG_STATES walkers of a channel."""
+    return LONG_ITEMS * N // LONG_STATES
+
+
+def long_slab(N: int) -> int:
+    """v4's channels per block at state size N: 64, whose blocks share
+    each chunk's B and C over the most channels, or 32 at N = 32, whose
+    slab of 64 would not fit a block."""
+    return 64 if N <= 16 else 32
+
+
+def scan_plan(L: int, N: int) -> tuple[int, int]:
+    """(slab, chunk) of K2's launch: ``(0, L)``, the short kernel, up to
+    SCAN_WHOLE steps; past it v4's slab and chunk."""
+    if L <= SCAN_WHOLE:
+        return 0, L
+    return long_slab(N), long_chunk(N)
+
+
+def offsets_fit(t, steps: int, width: int) -> bool:
+    """Whether v4's 32-bit offsets inside a chunk, ``steps`` steps of
+    ``width`` channels (or states), reach t's elements: always for a
+    dense (B, L, ED) tensor below 2^31 elements per batch row."""
+    if t is None:
+        return True
+    _, _, st, se = operand_meta(t)
+    return (steps - 1) * st + (width - 1) * se < 2 ** 31
 
 
 def softplus(v: torch.Tensor) -> torch.Tensor:
@@ -128,9 +166,9 @@ OPERAND = struct.Struct("@qqqqii")
 _ABSENT = bytes(OPERAND.size)
 # ``ScanArgs`` of csrc/scan.cuh is 11 operands (x, delta, z, B, C, D, bias,
 # g, y, ddelta, dz) then this tail: A, part, grads; batch, L, ED, N,
-# softplus, chunk (K2's; 0 for K4).  The arguments go to the C entry points
-# as these bytes: cheaper on the host than a ctypes.Structure filled field
-# by field, and the training step is host-bound.
+# softplus, slab (K2's kernel; 0 for K4).  The arguments go to the C entry
+# points as these bytes: cheaper on the host than a ctypes.Structure
+# filled field by field, and the training step is host-bound.
 _TAIL = struct.Struct("@qqqiiiiii")
 ARGS_SIZE = 11 * OPERAND.size + _TAIL.size
 
@@ -164,10 +202,10 @@ def _operand(t) -> bytes:
 
 
 def _args(operands, A, part, grads, bsz, L, ED, N, softplus,
-          chunk=0) -> bytes:
+          slab=0) -> bytes:
     return b"".join([*map(_operand, operands), _TAIL.pack(
         A.data_ptr(), part, grads, bsz, L, ED, N, int(bool(softplus)),
-        chunk)])
+        slab)])
 
 
 def _check(name, t, shape, device, dtypes=KERNEL_DTYPES):
@@ -243,25 +281,52 @@ def selective_scan_cuda(x, delta, A, B, C, D, z=None, delta_bias=None,
     x, delta, z, B, C, D and delta_bias may be f32 or bf16, with any
     strides; y comes back contiguous in x's dtype, and with
     ``return_state`` beside the last state ``(B, ED, N)`` in f32.  Any L:
-    past ``SCAN_WHOLE`` steps the kernel walks it in chunks of
-    ``SCAN_CHUNK``."""
-    global launches, chunks
+    past ``SCAN_WHOLE`` steps the long kernel (v4) walks it in chunks
+    (``scan_plan``); an operand whose strides would overflow v4's 32-bit
+    offsets inside a chunk goes in as a contiguous copy."""
+    global launches, long_launches, chunks
     bsz, L, ED, N = _check_inputs(x, delta, A, B, C, D, z, delta_bias)
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     state = torch.empty(bsz, ED, N, dtype=torch.float32, device=x.device) \
         if return_state else None
     if out.numel() == 0:
         return (out, state.zero_()) if return_state else out
-    chunk = L if L <= SCAN_WHOLE else SCAN_CHUNK
+    slab, chunk = scan_plan(L, N)
+    if slab:
+        if not offsets_fit(out, chunk, slab):
+            raise ValueError(f"y: a chunk of {chunk} steps of {ED} channels "
+                             f"is past 32-bit offsets")
+        x, delta, z = (t if offsets_fit(t, chunk, slab) else t.contiguous()
+                       for t in (x, delta, z))
+        B, C = (t if offsets_fit(t, chunk, N) else t.contiguous()
+                for t in (B, C))
     args = _args((x, delta, z, B, C, D, delta_bias, None, out, None, None),
                  A, 0 if state is None else state.data_ptr(), 0, bsz, L, ED,
-                 N, delta_softplus, chunk)
+                 N, delta_softplus, slab)
     rc = _launch("selective_scan", args, x.device)
     if rc != 0:
         raise RuntimeError(f"selective_scan kernel failed: CUDA error {rc}")
     launches += 1
+    long_launches += bool(slab)
     chunks += -(-L // chunk)
     return (out, state) if return_state else out
+
+
+def occupancy(L: int, N: int) -> int:
+    """Resident blocks per SM of the K2 kernel that a launch of L steps at
+    state size N on a Mamba layer's bf16 views (channel-major x, a gate,
+    softplus) takes on the current card (CUDA's occupancy calculator)."""
+    view = OPERAND.pack(1, 0, 1, L, 1, 0)     # bf16, channel-major, present
+    args = b"".join([view] * 6 + [_ABSENT] + [view] * 4) + _TAIL.pack(
+        0, 0, 0, 1, L, 1, N, 1, scan_plan(L, N)[0])
+    blocks = ctypes.c_int(0)
+    rc = _function("selective_scan", "gfe_selective_scan_occupancy",
+                   ctypes.c_int, [ctypes.c_char_p,
+                                  ctypes.POINTER(ctypes.c_int)])(
+        args, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"selective_scan occupancy: CUDA error {rc}")
+    return blocks.value
 
 
 def selective_scan_bwd_cuda(x, delta, A, B, C, D, z, delta_bias, g,

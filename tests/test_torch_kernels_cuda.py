@@ -269,9 +269,9 @@ def test_scan_kernels_refuse_a_sequence_beyond_shared_memory(cuda, bwd):
 @pytest.mark.parametrize("L", [53, 518, 519, 4096, 15024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_chunked_scan_kernel_matches_plain(cuda, L, dtype):
-    """K2 over L steps in chunks of ``SCAN_CHUNK`` (one chunk up to
-    ``SCAN_WHOLE``; 518 was v2's last length at N = 16): a Mamba layer's
-    own operands in f32
+    """K2 over L steps in chunks (one chunk of the short kernel up to
+    ``SCAN_WHOLE``, past it v4's chunks of ``long_chunk(N)``; 518 was v2's
+    last length at N = 16): a Mamba layer's own operands in f32
     or bf16 (views, channel-major x), y within 1e-5 (f32) or one bf16 ulp
     of the plain loop, and the last state, from the same call, within
     1e-5 of the plain loop's (f32 on both sides)."""
@@ -283,7 +283,7 @@ def test_chunked_scan_kernel_matches_plain(cuda, L, dtype):
                                            delta_softplus=True,
                                            return_state=True)
     torch.cuda.synchronize()
-    chunk = L if L <= k2.SCAN_WHOLE else k2.SCAN_CHUNK
+    chunk = L if L <= k2.SCAN_WHOLE else k2.long_chunk(16)
     assert k2.chunks - before == -(-L // chunk)
     assert got.dtype == dtype and h.dtype == torch.float32
     assert h.shape == (1, 64, 16)
@@ -292,6 +292,136 @@ def test_chunked_scan_kernel_matches_plain(cuda, L, dtype):
     else:
         assert bf16_ulps(got, want) <= 1.0
     _assert_close(h, want_h, 1e-5)
+
+
+def _scan_case(gen, bsz, L, ED, N, gate, bias, softplus, cuda):
+    x = _randn(gen, bsz, L, ED)
+    delta = _randn(gen, bsz, L, ED, scale=0.5)
+    if not softplus:          # a real step is positive without softplus
+        delta = delta.abs()
+    A = -_randn(gen, ED, N).abs()
+    B, C = _randn(gen, bsz, L, N), _randn(gen, bsz, L, N)
+    D = _randn(gen, ED)
+    z = _randn(gen, bsz, L, ED) if gate else None
+    b = _randn(gen, ED, scale=0.1) if bias else None
+    return [None if t is None else t.to(cuda)
+            for t in (x, delta, A, B, C, D, z, b)]
+
+
+@pytest.mark.parametrize("N", [4, 8, 16, 32])
+@pytest.mark.parametrize("bsz", [1, 2])
+@pytest.mark.parametrize("gate,bias,softplus", [
+    (True, True, True), (False, False, True), (True, False, False)])
+@pytest.mark.parametrize("ED", [1000, 5000])
+def test_long_scan_kernel_matches_plain(cuda, N, bsz, gate, bias,
+                                        softplus, ED):
+    """v4 (L = 519 > SCAN_WHOLE) on contiguous f32 operands at every state
+    size, batch 1 and 2, with z and the bias present and absent, softplus
+    on and off, ED not a multiple of the slab (1000 and 5000 in slabs of
+    64, or of 32 at N = 32): y and the last state within 1e-5 of the
+    plain loop."""
+    gen = np.random.RandomState(N + bsz)
+    args = _scan_case(gen, bsz, 519, ED, N, gate, bias, softplus, cuda)
+    before = k2.long_launches
+    got, h = k2.selective_scan_cuda(*args, delta_softplus=softplus,
+                                    return_state=True)
+    want, want_h = k2.selective_scan_plain(*args, delta_softplus=softplus,
+                                           return_state=True)
+    torch.cuda.synchronize()
+    assert k2.long_launches - before == 1
+    _assert_close(got, want, 1e-5)
+    _assert_close(h, want_h, 1e-5)
+
+
+@pytest.mark.parametrize("L,d_model", [
+    (65, 500), (519, 500), (4467, 500), (15024, 500), (519, 2500),
+    (15024, 2500)])
+@pytest.mark.parametrize("bsz", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_long_scan_kernel_takes_mamba_views(cuda, L, d_model, bsz, dtype):
+    """v4 on a Mamba layer's own operands (channel-major x, z a ``chunk``
+    view, B and C ``split`` views; ED 1000 and 5000, neither a multiple
+    of the slab of 64), batch 1 and 2: y within
+    1e-5 (f32) or one bf16 ulp (bf16) of the plain f32 loop, the last
+    state within 1e-5."""
+    args = mamba_scan_operands(bsz, L, d_model, dtype, cuda, seed=L + bsz)
+    assert not (args[0].is_contiguous() or args[6].is_contiguous())
+    got, h = k2.selective_scan_cuda(*args, delta_softplus=True,
+                                    return_state=True)
+    want, want_h = k2.selective_scan_plain(*[t.float() for t in args],
+                                           delta_softplus=True,
+                                           return_state=True)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and h.shape == (bsz, 2 * d_model, 16)
+    if dtype == torch.float32:
+        _assert_close(got, want, 1e-5)
+    else:
+        assert bf16_ulps(got, want) <= 1.0
+    _assert_close(h, want_h, 1e-5)
+
+
+def test_long_scan_kernel_takes_stage2_views(cuda):
+    """The bf16 Stage-2 step's mix of operands (f32 x, delta, z, B, C
+    views beside bf16 D and delta_bias) past SCAN_WHOLE steps: within
+    1e-5 of the plain loop."""
+    args = mamba_scan_operands(1, 300, 128, torch.bfloat16, cuda, seed=3,
+                               input_dtype=torch.float32)
+    assert args[0].dtype == torch.float32 and args[5].dtype == torch.bfloat16
+    got = k2.selective_scan_cuda(*args, delta_softplus=True)
+    want = k2.selective_scan_plain(*[t.float() for t in args],
+                                   delta_softplus=True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    _assert_close(got, want, 1e-5)
+
+
+def test_long_scan_kernel_copies_operands_past_32_bit_offsets(cuda,
+                                                              monkeypatch):
+    """An operand whose strides would overflow v4's 32-bit offsets inside
+    a chunk goes in as a contiguous copy: here every view is taken for
+    one (x channel-major, z and B, C views), and the result still holds
+    to the plain loop within one bf16 ulp."""
+    args = mamba_scan_operands(1, 300, 64, torch.bfloat16, cuda, seed=5)
+    copied = []
+
+    def fits(t, steps, width):
+        if t is not None and not t.is_contiguous():
+            copied.append(t)
+            return False
+        return True
+
+    monkeypatch.setattr(k2, "offsets_fit", fits)
+    got = k2.selective_scan_cuda(*args, delta_softplus=True)
+    want = k2.selective_scan_plain(*[t.float() for t in args],
+                                   delta_softplus=True)
+    torch.cuda.synchronize()
+    assert len(copied) == 4          # x, z, B, C
+    assert bf16_ulps(got, want) <= 1.0
+
+
+def test_occupancy_queries_leave_later_launches_alone(cuda):
+    """Asking the occupancy of the short kernel at 53 steps (as
+    ``chip_smoke.py`` does) must not lower its shared-memory limit below
+    what a launch at 64 steps needs."""
+    assert k2.occupancy(53, 16) > 0
+    assert k2.occupancy(15024, 16) == 1
+    args = mamba_scan_operands(2, 64, 512, torch.float32, cuda, seed=64)
+    got = k2.selective_scan_cuda(*args, delta_softplus=True)
+    want = k2.selective_scan_plain(*args, delta_softplus=True)
+    torch.cuda.synchronize()
+    _assert_close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("L,long", [(53, 0), (64, 0), (65, 1)])
+def test_long_launches_count_the_long_kernel(cuda, L, long):
+    """``long_launches`` counts the launches past SCAN_WHOLE steps only;
+    ``launches`` counts every one."""
+    args = mamba_scan_operands(1, L, 32, torch.bfloat16, cuda, seed=L)
+    before = (k2.launches, k2.long_launches)
+    k2.selective_scan_cuda(*args, delta_softplus=True)
+    torch.cuda.synchronize()
+    assert (k2.launches - before[0], k2.long_launches - before[1]) == \
+        (1, long)
 
 
 def _dense_experts(moe, x, top_i=None):

@@ -3,6 +3,10 @@
 - the operand plan: which tensors reach the kernels as they are (views,
   strided, bf16) and which the caller casts first, and the dtype and
   stride arguments the kernels get;
+- K2's plan: the short kernel up to ``SCAN_WHOLE`` steps, past it v4
+  with its slab (by width and batch) and chunk, both as the kernel's
+  source defines them; v4's index maps; and a plain emulation of its
+  chunks, slabs and sums held against the JAX scan;
 - a plain emulation of K4's decomposition (``csrc/selective_scan_bwd.cu``):
   blocks of ``SCAN_CH`` channels (read from ``csrc/scan.cuh``), states
   kept per step, the
@@ -155,7 +159,8 @@ def test_mamba_operands_pass_as_they_are(dtype):
 
 def test_packed_args_have_the_kernels_layout():
     """``ScanArgs`` of csrc/scan.cuh: 11 operands of 40 bytes, then A,
-    part, grads, batch, L, ED, N, softplus and padding: 488 bytes."""
+    part, grads, batch, L, ED, N, softplus and slab: 488 bytes, as its
+    static_assert pins them."""
     x, A = torch.randn(2, 5, 8), torch.randn(8, 4)
     args = k2._args((x, None, x, None, None, None, None, None, x, None,
                      None), A, 7, 9, 2, 5, 8, 4, True)
@@ -166,6 +171,195 @@ def test_packed_args_have_the_kernels_layout():
         A.data_ptr(), 7, 9]
     assert np.frombuffer(args[464:], np.int32).tolist() == [
         2, 5, 8, 4, 1, 0]
+    long = k2._args((x,) * 11, A, 0, 0, 1, 15024, 8192, 16, False, 64)
+    assert np.frombuffer(long[464:], np.int32).tolist() == [
+        1, 15024, 8192, 16, 0, 64]
+    source = (pathlib.Path(k2.__file__).parents[2] / "csrc"
+              / "scan.cuh").read_text()
+    assert f"sizeof(ScanArgs) == {k2.ARGS_SIZE}" in source
+
+
+# ---- K2's plan: which kernel, which slab, which chunk ----------------------
+
+# v4's constants as the kernel's source defines them
+_K2_SOURCE = (pathlib.Path(k2.__file__).parents[2] / "csrc"
+              / "selective_scan.cu").read_text()
+LONG_S, LONG_K, LONG_P = (
+    int(re.search(rf"constexpr int {name} = (\d+);", _K2_SOURCE).group(1))
+    for name in ("LONG_S", "LONG_K", "LONG_P"))
+
+
+def test_long_kernel_constants_are_the_sources():
+    """The wrapper's chunk is the kernel's: LONG_K steps for each of the
+    N / LONG_S walkers of a channel; its slab is the one the kernel takes,
+    refusing any other: 64 channels for N <= 16, 32 at N = 32."""
+    assert (k2.LONG_STATES, k2.LONG_ITEMS) == (LONG_S, LONG_K)
+    assert [k2.long_chunk(N) for N in (4, 8, 16, 32)] == [16, 32, 64, 128]
+    assert "constexpr int CH = N <= 16 ? 64 : 32;" in _K2_SOURCE
+    assert "if (a.slab != CH) return {};" in _K2_SOURCE
+    assert [k2.long_slab(N) for N in (4, 8, 16, 32)] == [64, 64, 64, 32]
+
+
+@pytest.mark.parametrize("L,slab,chunk", [
+    (1, 0, 1), (53, 0, 53), (64, 0, 64), (65, 64, 64), (4467, 64, 64),
+    (15024, 64, 64)])
+def test_the_wrapper_picks_the_kernel_by_length(L, slab, chunk):
+    """Up to SCAN_WHOLE steps the short kernel, one chunk of L (scoring
+    and Stage 2 at 53 keep it); past it v4 with its slab and chunk (the
+    docqa prefill at ED 8192, batch 1, N 16)."""
+    assert k2.scan_plan(L, 16) == (slab, chunk)
+
+
+@pytest.mark.parametrize("N,L,plan", [
+    (4, 64, (0, 64)), (32, 64, (0, 64)), (4, 65, (64, 16)),
+    (8, 65, (64, 32)), (16, 65, (64, 64)), (32, 65, (32, 128)),
+    (4, 15024, (64, 16)), (8, 15024, (64, 32)), (16, 15024, (64, 64)),
+    (32, 15024, (32, 128))])
+def test_the_slab_follows_the_state_size(N, L, plan):
+    """Past SCAN_WHOLE steps v4's slab and chunk follow N alone: slabs of
+    64 channels, 32 at N = 32 (whose slab of 64 would not fit a block);
+    up to it the short kernel at any N."""
+    assert k2.scan_plan(L, N) == plan
+
+
+def test_offsets_inside_a_chunk_stay_32_bit():
+    """A Mamba layer's views and dense tensors fit v4's 32-bit offsets; a
+    time or channel stride past them does not (the wrapper then copies
+    the operand)."""
+    x, delta, z, B, C = _mamba_operands(torch.bfloat16)
+    for t in (x, delta, z):
+        assert k2.offsets_fit(t, 64, 64)
+    assert k2.offsets_fit(B, 64, 16) and k2.offsets_fit(None, 64, 64)
+    far = torch.empty_strided((1, 40, 8), (2 ** 40, 2 ** 26, 1),
+                              device="meta")
+    assert not k2.offsets_fit(far, 64, 64)
+    assert k2.offsets_fit(far, 16, 1)
+    wide = torch.empty_strided((1, 40, 8), (2 ** 40, 1, 2 ** 26),
+                               device="meta")
+    assert not k2.offsets_fit(wide, 64, 64) and k2.offsets_fit(wide, 64, 32)
+
+
+def _long_maps(N, CH):
+    """v4's index maps (csrc/selective_scan.cu::scan_long_kernel): each
+    walker's (channel, state group); each stager's row-major (t, c) items,
+    channel-major x (t, c) items and B/C (t, n) items."""
+    G, T = N // LONG_S, LONG_K * N // LONG_S
+    NW, Q = CH * G, T * CH // LONG_P
+    walk = [((w // 32) * (32 // G) + (w % 32) // G, (w % 32) % G)
+            for w in range(NW)]
+    rows, cols, bc = [], [], []
+    for p in range(LONG_P):
+        rows += [(p // CH + q * (LONG_P // CH), p % CH) for q in range(Q)]
+        cols += [(p % T, p // T + q * (LONG_P // T)) for q in range(Q)]
+        bc += [i for i in (p + q * LONG_P
+                           for q in range(-(-T * N // LONG_P)))
+               if i < T * N]
+    return walk, rows, cols, bc, G, T
+
+
+@pytest.mark.parametrize("N,CH", [(4, 64), (8, 64), (16, 64), (32, 32)])
+def test_long_kernel_maps_cover_a_chunk_once(N, CH):
+    """Every (channel, state group) has one walker, a channel's G walkers
+    in one warp; the stagers' row-major and channel-major maps each take
+    every (t, c) of a chunk once, their B/C items every (t, n) once, and
+    a warp of stagers reads a run of 32 channels (row-major) or of 32
+    steps (x); a walker warp touches one step's y and gate on 32 distinct
+    banks (rows of CH + 32 / G floats), and a stager warp's x stores fall
+    at most 2 to a bank (rows of CH + 1 pairs)."""
+    walk, rows, cols, bc, G, T = _long_maps(N, CH)
+    Q = T * CH // LONG_P
+    cells = {(t, c) for t in range(T) for c in range(CH)}
+    assert sorted(walk) == [(c, g) for c in range(CH) for g in range(G)]
+    assert len(rows) == len(cells) and set(rows) == cells
+    assert len(cols) == len(cells) and set(cols) == cells
+    assert sorted(bc) == list(range(T * N))
+    YR, XR = CH + 32 // G, CH + 1
+    for w in range(len(walk) // 32):
+        lanes = walk[32 * w:32 * w + 32]
+        assert len({c // (32 // G) for c, _ in lanes}) == 1
+        assert len({(g * YR + c) % 32 for c, g in lanes}) == 32
+    for w in range(LONG_P // 32):
+        for q in range(Q):
+            warp_rows = rows[32 * w * Q + q:32 * (w + 1) * Q:Q]
+            warp_cols = cols[32 * w * Q + q:32 * (w + 1) * Q:Q]
+            assert [c for _, c in warp_rows] == \
+                list(range(warp_rows[0][1], warp_rows[0][1] + 32))
+            assert len({t for t, _ in warp_rows}) == 1
+            if T >= 32:
+                assert [t for t, _ in warp_cols] == \
+                    list(range(warp_cols[0][0], warp_cols[0][0] + 32))
+            banks = [(2 * (t * XR + c) + 1) % 32 for t, c in warp_cols]
+            assert max(banks.count(k) for k in set(banks)) <= \
+                max(2, 32 // T)
+
+
+def _k2_long_emulation(x, delta, A, B, C, D, z, bias, softplus):
+    """v4's decomposition in plain f32: slabs of ``long_slab`` channels
+    padded with zeros past ED, chunks of ``long_chunk(N)`` steps, the last
+    padded with d = 0, x = 0, B = C = 0 (so h walks through it unchanged);
+    per step each group of LONG_S states sums its C_t . h_t, the groups'
+    sums are added pairwise as the lanes' butterfly adds them, then D x
+    and the gate.  Returns y and the last state."""
+    bsz, L, ED = x.shape
+    N = A.shape[1]
+    G, T = N // LONG_S, k2.long_chunk(N)
+    slab = k2.long_slab(N)
+    Lp, EDp = -(-L // T) * T, -(-ED // slab) * slab
+
+    def pad(t, last):
+        return torch.nn.functional.pad(t, (0, last, 0, Lp - L))
+
+    raw = delta + (0.0 if bias is None else bias)
+    d = _softplus(raw) if softplus else raw
+    d = pad(d, EDp - ED)
+    d[:, L:] = 0.0
+    xs, Bs, Cs = pad(x, EDp - ED), pad(B, 0), pad(C, 0)
+    if z is None:
+        gate = torch.ones(bsz, Lp, EDp)
+    else:
+        gate = pad(z / (1.0 + torch.exp(-z)), EDp - ED)
+    a = torch.nn.functional.pad(A, (0, 0, 0, EDp - ED))
+    Dv = torch.nn.functional.pad(D, (0, EDp - ED))
+    h = torch.zeros(bsz, EDp, N)
+    ys = []
+    for t in range(Lp):
+        du = (d[:, t] * xs[:, t])[..., None]
+        h = torch.exp(d[:, t, :, None] * a) * h + du * Bs[:, t, None, :]
+        parts = list((h * Cs[:, t, None, :]).view(bsz, EDp, G, LONG_S)
+                     .sum(-1).unbind(-1))
+        while len(parts) > 1:
+            half = len(parts) // 2
+            parts = [parts[i] + parts[i + half] for i in range(half)]
+        ys.append((parts[0] + Dv * xs[:, t]) * gate[:, t])
+    return torch.stack(ys, 1)[:, :L, :ED], h[:, :ED]
+
+
+@pytest.mark.parametrize("N,L,ED,bsz,gate,bias,softplus", [
+    (16, 70, 40, 1, True, True, True), (16, 33, 70, 2, False, False, True),
+    (4, 21, 9, 2, True, False, False), (8, 37, 33, 1, False, True, True),
+    (32, 65, 6, 1, True, True, True)])
+def test_long_kernel_decomposition_matches_jax(N, L, ED, bsz, gate, bias,
+                                               softplus):
+    """v4's slabs (ED not a multiple of the slab), chunks (L not a multiple
+    of the chunk: the zero-padded steps leave the last state as it is),
+    state groups and butterfly sum hold y to JAX's scan within 1e-5, and
+    the last state to the sequential loop's."""
+    args, _ = _inputs(L, bsz=bsz, L=L, ED=ED, N=N, gate=gate, bias=bias,
+                      softplus=softplus)
+    want = jax_selective_scan(*[None if a is None else jnp.asarray(a)
+                                for a in args[:6]],
+                              z=None if args[6] is None
+                              else jnp.asarray(args[6]),
+                              delta_bias=None if args[7] is None
+                              else jnp.asarray(args[7]),
+                              delta_softplus=softplus, mode="sequential")
+    t = [None if a is None else torch.from_numpy(a) for a in args]
+    got, h = _k2_long_emulation(*t, softplus)
+    _assert_close(got, want, "y", rel=1e-5)
+    _, want_h = k2.selective_scan_plain(*t[:6], z=t[6], delta_bias=t[7],
+                                        delta_softplus=softplus,
+                                        return_state=True)
+    _assert_close(h, want_h, "h", rel=1e-5)
 
 
 def test_what_the_caller_casts():
