@@ -1,9 +1,33 @@
 """What the port's tests and ``chip_smoke.py`` share: comparison helpers,
-and the rank workers of the data-, tensor- and expert-parallel checks."""
+the scan operands of a Mamba layer, the main paths built at the
+benchmark's sizes with the kernels' launch counters, the checks and
+witnesses of the card tests (``tests/*_cuda.py``), and the rank workers
+of the data-, tensor- and expert-parallel checks."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+# the benchmark's scoring configuration (``portbench/configs/gfe_mamba``:
+# batch 4, bf16) at its volume, which the card tests build
+CANONICAL = dict(categories=(6,) * 8, num_continuous=40, dim=512, depth=6,
+                 heads=8, seq_length=4, f_maps=(64, 128, 256))
+CANONICAL_IMG = (160, 160, 96)
+SCORE_BATCH = 4
+# a stack of Jamba2-Mini's layout (8 layers: attention at 4, experts on
+# the odd ones, 7 Mamba) at its Mamba widths (d_model 4096, ED 8192) with
+# a small MLP, experts and vocabulary, and the shortest docqa prompt
+JAMBA2_MINI_STACK = dict(d_model=4096, n_layers=8, mlp_size=512,
+                         num_experts=4, num_experts_per_tok=2,
+                         vocab_size=512, tie_lm_weights=False)
+DOCQA_PROMPT = 4467
+# the benchmark's segmentation model (``portbench/configs/unet3d_seg``:
+# the JAX package's get_model defaults, pytorch3dunet's) and its patch
+UNET3D = dict(name="UNet3D", in_channels=1, out_channels=1, f_maps=64,
+              layer_order="gcr", num_groups=8)
+UNET3D_PATCH = (64, 128, 128)
 
 
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -45,9 +69,214 @@ def mamba_scan_operands(bsz: int, L: int, d_model: int, dtype, device,
         return [t.detach() for t in block.scan_operands(h)]
 
 
+# -- the main paths at the benchmark's sizes -----------------------------
+# Built on the card by ``tests/test_torch_launches_cuda.py``, which
+# asserts what one request or step of each launches, and by
+# ``chip_smoke.py``, which reports those launches beside the kernel times.
+
+def launch_counts() -> dict:
+    """Every kernel's launch counter by the kernel table's ids, a variant
+    after a dot: K1 and K3 on the tensor cores (``mma``) or not
+    (``fma``), K2's long kernel."""
+    from gfe_mamba_torch.ops.cuda import conv3d as k1
+    from gfe_mamba_torch.ops.cuda import group_norm as k5
+    from gfe_mamba_torch.ops.cuda import selective_scan as k2
+    return {"K1": k1.launches, "K1.mma": k1.mma_launches,
+            "K1.fma": k1.fma_launches, "K2": k2.launches,
+            "K2.long": k2.long_launches, "K3": k1.dw_launches,
+            "K3.mma": k1.dw_mma_launches, "K3.fma": k1.dw_fma_launches,
+            "K4": k2.bwd_launches, "K5a": k5.stats_launches,
+            "K5b": k5.apply_launches}
+
+
+def launches_since(before: dict, device=None) -> dict:
+    """The launches of each counter of :func:`launch_counts` since
+    ``before`` was read, ``device`` synchronized first."""
+    torch.cuda.synchronize(device)
+    return {k: n - before[k] for k, n in launch_counts().items()}
+
+
+def scoring_model(device, mixer: str = "mamba"):
+    """The benchmark's scoring model in bf16 (weights from seed 0) with
+    the ``mixer`` head."""
+    from gfe_mamba_torch.models.pipeline import build_gfe_mamba
+    return build_gfe_mamba(img_size=CANONICAL_IMG, device=device,
+                           dtype=torch.bfloat16, seed=0, mixer=mixer,
+                           **CANONICAL)
+
+
+def scoring_request(model, gen: torch.Generator, batch: int = SCORE_BATCH):
+    """One request of ``batch`` volumes and tables drawn from ``gen`` on
+    its device: ``(logits, pet)`` under inference mode."""
+    dev = gen.device
+    mri = torch.randn(batch, *CANONICAL_IMG, 1, generator=gen, device=dev)
+    x_cat = torch.randint(0, 6, (batch, 8), generator=gen, device=dev)
+    x_num = torch.randn(batch, 40, generator=gen, device=dev)
+    with torch.inference_mode():
+        return model(mri.bfloat16(), x_cat, x_num.bfloat16(),
+                     return_pet=True)
+
+
+def stage2_trainer(device, mixer: str = "mamba"):
+    """``ClassifyTrainer`` over the canonical model in f32 (seed 0) with
+    the ``mixer`` head, its defaults (bf16, dropout on)."""
+    from gfe_mamba_torch.models.pipeline import build_gfe_mamba
+    from gfe_mamba_torch.training.classify_trainer import ClassifyTrainer
+    model = build_gfe_mamba(img_size=CANONICAL_IMG, device=device, seed=0,
+                            mixer=mixer, **CANONICAL)
+    return ClassifyTrainer(model, device=device)
+
+
+def stage2_step(trainer, gen: torch.Generator) -> dict:
+    """One Stage-2 step at batch 1 on inputs drawn from ``gen``."""
+    dev = gen.device
+    return trainer.train_step(
+        torch.randn(1, *CANONICAL_IMG, 1, generator=gen, device=dev),
+        torch.randint(0, 6, (1, 8), generator=gen, device=dev),
+        torch.randn(1, 40, generator=gen, device=dev),
+        torch.randint(0, 2, (1,), generator=gen, device=dev).float())
+
+
+def stage1_trainer(device):
+    """``GanTrainer`` over the canonical generator (seed 0),
+    ``PatchDiscriminator(3, 32)`` and ``PerceptualLoss(0.25)``, its
+    defaults (bf16)."""
+    from gfe_mamba_torch.losses.perceptual import PerceptualLoss
+    from gfe_mamba_torch.models.discriminator import PatchDiscriminator
+    from gfe_mamba_torch.models.pipeline import build_generator
+    from gfe_mamba_torch.training.gan_trainer import GanTrainer
+
+    disc = PatchDiscriminator(3, 32)
+    disc.reset_parameters(torch.Generator().manual_seed(1))
+    return GanTrainer(build_generator(device=device, seed=0), disc,
+                      PerceptualLoss(0.25, device=device), device=device)
+
+
+def stage1_step(trainer, gen: torch.Generator) -> dict:
+    """One Stage-1 step at batch 1, ``adv_on=1``, on an MRI and a PET
+    drawn from ``gen``."""
+    mri, pet = (torch.randn(1, *CANONICAL_IMG, 1, generator=gen,
+                            device=gen.device) for _ in range(2))
+    return trainer.train_step(mri, pet, 1.0)
+
+
+def jamba2_mini_stack(device):
+    """A ``JambaLM`` of ``JAMBA2_MINI_STACK`` in bf16, weights from seed 9
+    under the torch law, in eval mode."""
+    from gfe_mamba_torch.models.jamba import JambaConfig, JambaLM
+    cfg = JambaConfig(**JAMBA2_MINI_STACK)
+    return materialized(lambda: JambaLM(cfg), seed=9).to(
+        device, torch.bfloat16).eval()
+
+
+def docqa_prompt(device, length: int = DOCQA_PROMPT):
+    """A prompt of ``length`` tokens of the stack's vocabulary (seed 10)."""
+    return torch.randint(0, JAMBA2_MINI_STACK["vocab_size"], (1, length),
+                         generator=torch.Generator().manual_seed(10)).to(
+                             device)
+
+
+# -- the card tests' checks and witness ----------------------------------
+
+def assert_close(got, want, rel: float, floor: float = 1.0,
+                 name: str = "") -> None:
+    """max |got - want| within ``rel`` of max(``floor``, max |want|), both
+    read in f32 on the host; at ``floor`` 0 a zero ``want`` asks for an
+    exact zero."""
+    got = torch.as_tensor(got).detach().float().cpu()
+    want = torch.as_tensor(want).detach().float().cpu()
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    scale = max(floor, want.abs().max().item() if want.numel() else 0.0)
+    assert err <= rel * scale, (name, err, scale)
+
+
+def assert_logs_close(want: dict, got: dict, rel: float) -> None:
+    """Each logged loss of ``want`` within ``rel`` of max(1, |want|)."""
+    for key, value in want.items():
+        assert abs(got[key] - value) <= rel * max(1.0, abs(value)), \
+            (key, got[key], value)
+
+
+def materialized(make, seed: int):
+    """``make()`` built on the meta device and filled on the CPU from
+    ``seed`` under the torch law, as ``build_gfe_mamba`` fills a model."""
+    from gfe_mamba_torch.utils.initializers import init_weights
+
+    with torch.device("meta"):
+        module = make()
+    module.to_empty(device="cpu")
+    init_weights(module, torch.Generator().manual_seed(seed))
+    return module
+
+
+def moment_errors(pairs, floor: float = 1e-6) -> dict:
+    """Per tensor, the distance between the Adam first moments (0.1 x the
+    clipped gradient after one step) of two runs, ``{name: (max-rel,
+    norm-rel)}`` over ``pairs`` of ``(player, opt_a, params_a, opt_b,
+    params_b)``: max |d| over the tensor's largest entry, and |d| over its
+    norm.  A tensor under ``floor`` per entry (1e-5 of a clipped gradient
+    of norm <= 1) is measured against the floor: such a gradient is zero
+    in exact arithmetic (an attention's key bias, which the softmax
+    cancels) and holds rounding noise only."""
+    out = {}
+    for player, opt_a, params_a, opt_b, params_b in pairs:
+        for (name, pa), pb in zip(params_a.items(), params_b.values()):
+            if pa not in opt_a.state:
+                continue
+            got = opt_b.state[pb]["exp_avg"].detach().float()
+            want = opt_a.state[pa]["exp_avg"].detach().to(got.device).float()
+            diff = got - want
+            out[f"{player}:{name}"] = (
+                diff.abs().max().item() / max(floor, want.abs().max().item()),
+                diff.norm().item() / max(want.norm().item(),
+                                         floor * want.numel() ** 0.5))
+    return out
+
+
+def worst_errors(errors: dict) -> tuple[float, float]:
+    """The worst max-rel and norm-rel of :func:`moment_errors`."""
+    return (max(e[0] for e in errors.values()),
+            max(e[1] for e in errors.values()))
+
+
+@contextlib.contextmanager
+def plain_convs_on_card():
+    """The conv Function with K1 and K3 swapped for their plain versions
+    on CUDA tensors: a witness run that separates what the kernels do
+    from what two f32 forwards on two devices do."""
+    from gfe_mamba_torch.ops import conv3d as ops_conv
+    from gfe_mamba_torch.ops.cuda import conv3d as kc
+
+    saved = ops_conv.conv3x3x3_cuda, ops_conv.conv3x3x3_dw_cuda
+    ops_conv.conv3x3x3_cuda = kc.conv3x3x3_plain
+    ops_conv.conv3x3x3_dw_cuda = kc.conv3x3x3_dw_plain
+    try:
+        yield
+    finally:
+        ops_conv.conv3x3x3_cuda, ops_conv.conv3x3x3_dw_cuda = saved
+
+
+def yaml_text(cf: dict) -> str:
+    """A flat config as YAML the port's reader takes: strings quoted,
+    sequences as flow lists."""
+    def scalar(v):
+        if isinstance(v, str):
+            return "'" + v.replace("'", "''") + "'"
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if v is None:
+            return "null"
+        return repr(v)
+    return "".join(
+        f"{k}: [{', '.join(scalar(x) for x in v)}]\n"
+        if isinstance(v, (list, tuple)) else f"{k}: {scalar(v)}\n"
+        for k, v in cf.items())
+
+
 # -- data-parallel runs of the trainers, one process per rank -----------
-# Spawned through ``parallel/dryrun.py::launch`` by the tests and by
-# ``chip_smoke.py``; the child processes import this module, never a test.
+# Spawned through ``parallel/dryrun.py::launch`` by the tests; the child
+# processes import this module, never a test.
 
 def tensor_digest(t: torch.Tensor) -> str:
     """A digest of a tensor's bytes: two ranks' tensors with equal digests
@@ -56,13 +285,6 @@ def tensor_digest(t: torch.Tensor) -> str:
     t = t.detach().cpu().contiguous()
     return hashlib.sha256(t.view(torch.uint8).numpy().tobytes()
                           if t.numel() else b"").hexdigest()
-
-
-def _counters() -> dict:
-    from gfe_mamba_torch.ops.cuda import conv3d as k1
-    from gfe_mamba_torch.ops.cuda import selective_scan as k2
-    return dict(K1=k1.launches, K2=k2.launches, K3=k1.dw_launches,
-                K4=k2.bwd_launches)
 
 
 def _stage2_trainer(job: dict, mesh, device):
@@ -113,36 +335,10 @@ def _adam_moments(opt, params: dict) -> dict:
             if p in opt.state and "exp_avg" in opt.state[p]}
 
 
-def _time_allreduce(trainer, stage2: bool, mesh, device) -> dict:
-    """The trainer's gradient average alone (``all_reduce_mean_`` over
-    the data group, as its step calls it) on zero tensors of its
-    trainable parameters' shapes: bytes and ms of each of 3 calls."""
-    import time
-
-    from gfe_mamba_torch.parallel.collectives import all_reduce_mean_
-
-    params = list(trainer.trainable.values()) if stage2 else \
-        [*trainer.g_params.values(), *trainer.d_params.values()]
-    grads = [torch.zeros_like(p) for p in params]
-    ms = []
-    for _ in range(3):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t = time.perf_counter()
-        all_reduce_mean_(grads, mesh.data_group)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        ms.append((time.perf_counter() - t) * 1e3)
-    return dict(bytes=sum(g.numel() * g.element_size() for g in grads),
-                ms=ms)
-
-
 def run_job(job: dict, mesh, device) -> dict:
     """Build the job's trainer (see :func:`dp_steps`), take its steps on
     this rank's rows of each global batch (every row without a mesh: the
     one-process reference), and report what the caller compares."""
-    import time
-
     from gfe_mamba_torch.parallel.multihost import host_local, process_index
     from gfe_mamba_torch.utils.convert import jax_tree_from_state_dict
 
@@ -152,7 +348,7 @@ def run_job(job: dict, mesh, device) -> dict:
     modules = {"model": trainer.model} if stage2 else {
         "generator": trainer.generator, "discriminator": trainer.discriminator}
     cuda = device.type == "cuda"
-    out = {"logs": [], "step_ms": []}
+    out = {"logs": []}
     if stage2:
         seen = set()
         trainer.model.classifier.transformer.register_forward_hook(
@@ -165,20 +361,11 @@ def run_job(job: dict, mesh, device) -> dict:
         args = [torch.from_numpy(batch[k][rows]) for k in job["keys"]]
         if cuda:
             torch.cuda.synchronize(device)
-            before = _counters()
-            torch.cuda.reset_peak_memory_stats(device)
-        t = time.perf_counter()
+            before = launch_counts()
         logs = trainer.train_step(*args, *job.get("extra", ()))
-        if cuda:
-            torch.cuda.synchronize(device)
-        out["step_ms"].append((time.perf_counter() - t) * 1e3)
         out["logs"].append(logs)
         if cuda and i == len(job["batches"]) - 1:
-            after = _counters()
-            out["launches"] = {k: after[k] - before[k] for k in after}
-            out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
-    if job.get("time_allreduce") and mesh is not None:
-        out["allreduce"] = _time_allreduce(trainer, stage2, mesh, device)
+            out["launches"] = launches_since(before, device)
     params = {name: host_local(m) for name, m in modules.items()}
     if stage2:
         opts = {"model": (trainer.optimizer, trainer.trainable)}
@@ -213,12 +400,11 @@ def dp_steps(out_dir: str, spec: dict) -> None:
     ``data``), its weights from the job's ``build`` seed or its ``jax``
     tree, split over the model axis at ``threshold`` when given, steps on
     this rank's rows of each of the job's global ``batches``; writes
-    ``<out_dir>/rank<r>.pt``: per job the logs, step times, digests of
-    every parameter, Adam's counts and (where ``keep``) the parameters
-    and Adam's first moments (only on rank ``keep_rank`` when given), on
-    the card also the launches and the peak memory of the last step, and
-    with ``time_allreduce`` the gradient average timed alone; a Stage-2
-    job also the dtypes its mixer's output took."""
+    ``<out_dir>/rank<r>.pt``: per job the logs, digests of every
+    parameter, Adam's counts and (where ``keep``) the parameters and
+    Adam's first moments (only on rank ``keep_rank`` when given), on the
+    card also the launches of the last step; a Stage-2 job also the
+    dtypes its mixer's output took."""
     import os
 
     from gfe_mamba_torch.parallel import multihost

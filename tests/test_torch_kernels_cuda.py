@@ -17,6 +17,8 @@ Function's gradients 1e-4 (autograd of the same reference on both
 sides).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -39,14 +41,25 @@ def cuda():
 
 
 def _assert_close(got, want, rel):
-    got, want = got.float().cpu(), want.float().cpu()
+    got, want = got.float(), want.float().to(got.device)
     assert got.shape == want.shape
     err = (got - want).abs().max().item()
     assert err <= rel * max(1.0, want.abs().max().item()), err
 
 
 def _randn(gen, *shape, scale=1.0):
+    if isinstance(gen, torch.Generator):
+        return torch.randn(*shape, generator=gen, device=gen.device) * scale
     return torch.from_numpy((gen.randn(*shape) * scale).astype(np.float32))
+
+
+def _generator(seed, voxels, device):
+    """The inputs' source: numpy's generator for the small volumes, and a
+    seeded one on the card past 2^15 voxels (the generator's levels),
+    which numpy would draw on the host for minutes."""
+    if voxels <= 2 ** 15:
+        return np.random.RandomState(seed)
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
@@ -61,17 +74,22 @@ def _randn(gen, *shape, scale=1.0):
                                        ((1, 4, 8, 8), 384, 128),
                                        ((1, 4, 4, 8), 768, 256),
                                        ((1, 9, 12, 13), 64, 32),
-                                       ((2, 6, 9, 11), 32, 64)])
+                                       ((2, 6, 9, 11), 32, 64),
+                                       ((2, 9, 13, 21), 24, 40),
+                                       ((1, 160, 160, 96), 64, 64),
+                                       ((1, 80, 80, 48), 128, 128),
+                                       ((1, 40, 40, 24), 256, 256)])
 def test_conv_kernel_matches_plain(cuda, dtype, rel, act, with_res,
                                    post_act, shape, C, F):
     """Ragged shapes: X and Y not multiples of the brick, Z = 24 (the
-    256-channel level's depth) and 19, C and F multiples of 8 but not of
-    16, and more input channels than one 64-wide output tile; the
+    256-channel level's depth), 21 and 19, C and F multiples of 8 but not
+    of 16, and more input channels than one 64-wide output tile; the
     segmentation UNet3D's widths: its first K1 conv (32 -> 64) and its
-    decoders' concat-joined inputs (192, 384, 768 channels); and that
-    conv's input gradient (64 -> 32, the f32 variant's narrow tile), with
-    Z = 13 and 11, not multiples of the f32 bricks' 8."""
-    gen = np.random.RandomState(0)
+    decoders' concat-joined inputs (192, 384, 768 channels); that conv's
+    input gradient (64 -> 32, the f32 variant's narrow tile), with Z = 13
+    and 11, not multiples of the f32 bricks' 8; and the generator's three
+    levels at batch 1 (f32: the evaluation and quality paths')."""
+    gen = _generator(0, math.prod(shape), cuda)
     x = _randn(gen, *shape, C).to(cuda, dtype)
     w = _randn(gen, 3, 3, 3, C, F, scale=(27 * C) ** -0.5).to(cuda, dtype)
     bias = _randn(gen, F).to(cuda, dtype)
@@ -194,12 +212,12 @@ def test_conv_kernel_rejects_channels_not_multiple_of_8(cuda):
 
 
 @pytest.mark.parametrize("bsz", [1, 4])
-@pytest.mark.parametrize("gate,bias,softplus,ED", [
-    (True, True, True, 1024), (False, False, True, 1000),
-    (True, False, False, 1001)])
+@pytest.mark.parametrize("ED", [1024, 1000, 1001])
+@pytest.mark.parametrize("gate,bias,softplus", [
+    (True, True, True), (False, False, True), (True, False, False)])
 def test_scan_kernel_matches_plain(cuda, gate, bias, softplus, ED, bsz):
-    """Batch 4 (serving) and 1 (the Stage-2 step); ED = 1001 leaves one
-    channel in the last block of 4."""
+    """Batch 4 (serving) and 1 (the Stage-2 step), every flag on and off;
+    ED = 1001 leaves one channel in the last block of 4."""
     gen = np.random.RandomState(1)
     L, N = 53, 16
     x = _randn(gen, bsz, L, ED)
@@ -219,16 +237,18 @@ def test_scan_kernel_matches_plain(cuda, gate, bias, softplus, ED, bsz):
     _assert_close(got, want, 1e-5)
 
 
+@pytest.mark.parametrize("d_model", [128, 512])
 @pytest.mark.parametrize("bsz", [1, 4])
-def test_scan_kernel_takes_bf16_views(cuda, bsz):
+def test_scan_kernel_takes_bf16_views(cuda, bsz, d_model):
     """A Mamba layer's own bf16 operands, as its forward makes them on the
     card (x channel-major from the depthwise conv, z a ``chunk`` view, B
     and C ``split`` views, D and delta_bias bf16), go in as they are: y
     comes back in bf16 within one bf16 ulp of the plain f32 result rounded
     once (an element below 2^-8 of max |y| takes the ulp of that floor);
-    the same call in f32 agrees to 1e-5."""
+    the same call in f32 agrees to 1e-5.  d_model 512 is the canonical
+    head's (ED 1024)."""
     for dtype in (torch.bfloat16, torch.float32):
-        args = mamba_scan_operands(bsz, 53, 128, dtype, cuda, seed=bsz)
+        args = mamba_scan_operands(bsz, 53, d_model, dtype, cuda, seed=bsz)
         assert not (args[0].is_contiguous() or args[6].is_contiguous()
                     or args[3].is_contiguous())
         got = k2.selective_scan_cuda(*args, delta_softplus=True)
@@ -335,23 +355,26 @@ def test_long_scan_kernel_matches_plain(cuda, N, bsz, gate, bias,
 
 @pytest.mark.parametrize("L,d_model", [
     (65, 500), (519, 500), (4467, 500), (15024, 500), (519, 2500),
-    (15024, 2500)])
+    (15024, 2500), (4467, 4096), (15024, 4096)])
 @pytest.mark.parametrize("bsz", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_long_scan_kernel_takes_mamba_views(cuda, L, d_model, bsz, dtype):
     """v4 on a Mamba layer's own operands (channel-major x, z a ``chunk``
     view, B and C ``split`` views; ED 1000 and 5000, neither a multiple
-    of the slab of 64), batch 1 and 2: y within
+    of the slab of 64, and Jamba2-Mini's 8192 at the docqa prompts'
+    lengths), batch 1 and 2, one launch of the long kernel: y within
     1e-5 (f32) or one bf16 ulp (bf16) of the plain f32 loop, the last
     state within 1e-5."""
     args = mamba_scan_operands(bsz, L, d_model, dtype, cuda, seed=L + bsz)
     assert not (args[0].is_contiguous() or args[6].is_contiguous())
+    before = k2.long_launches
     got, h = k2.selective_scan_cuda(*args, delta_softplus=True,
                                     return_state=True)
     want, want_h = k2.selective_scan_plain(*[t.float() for t in args],
                                            delta_softplus=True,
                                            return_state=True)
     torch.cuda.synchronize()
+    assert k2.long_launches - before == 1
     assert got.dtype == dtype and h.shape == (bsz, 2 * d_model, 16)
     if dtype == torch.float32:
         _assert_close(got, want, 1e-5)
@@ -574,16 +597,22 @@ def test_greedy_graph_decode_matches_the_forward(cuda, batch):
                                        (torch.bfloat16, 2.0 ** -7)])
 @pytest.mark.parametrize("shape,groups", [((2, 9, 13, 21, 64), 8),
                                           ((2, 7, 5, 3, 12), 3),
-                                          ((2, 5, 3, 2, 2056), 8)])
+                                          ((2, 7, 5, 3, 24), 3),
+                                          ((2, 5, 3, 2, 2056), 8),
+                                          ((4, 160, 160, 96, 64), 8),
+                                          ((4, 80, 80, 48, 128), 8),
+                                          ((4, 40, 40, 24, 256), 8)])
 def test_group_norm_kernels_match_plain(cuda, dtype, rel, shape, groups):
     """K5a and K5b against their plain versions, every act: 16-byte
     vectors; C = 12, three vectors a row in f32 and the scalar path in
-    bf16; C = 2056, more vectors than a block's 256 threads (a ragged
-    second channel block).  Then the launches of one ``group_norm_act``
-    call and its gradients against autograd through ``_reference``."""
+    bf16; C = 24, three vectors a row in bf16; C = 2056, more vectors
+    than a block's 256 threads (a ragged second channel block); the
+    generator's three GroupNorm widths at batch 4.  Then the launches of
+    one ``group_norm_act`` call and its gradients against autograd
+    through ``_reference``."""
     from gfe_mamba_torch.ops.group_norm import _reference, group_norm_act
 
-    gen = np.random.RandomState(2)
+    gen = _generator(2, math.prod(shape[:-1]), cuda)
     B, C = shape[0], shape[-1]
     x = _randn(gen, *shape).to(cuda, dtype)
     xv = x.reshape(B, -1, C)

@@ -16,6 +16,8 @@ in other orders), the autograd Functions 1e-3 (bf16-free f32 paths,
 cuDNN vs the kernels' accumulation order).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -39,14 +41,25 @@ def cuda():
 
 
 def _assert_close(got, want, rel, name=""):
-    got, want = got.float().cpu(), want.float().cpu()
+    got, want = got.float(), want.float().to(got.device)
     assert got.shape == want.shape, name
     err = (got - want).abs().max().item()
     assert err <= rel * max(1.0, want.abs().max().item()), (name, err)
 
 
 def _randn(gen, *shape, scale=1.0):
+    if isinstance(gen, torch.Generator):
+        return torch.randn(*shape, generator=gen, device=gen.device) * scale
     return torch.from_numpy((gen.randn(*shape) * scale).astype(np.float32))
+
+
+def _generator(seed, voxels, device):
+    """The inputs' source: numpy's generator for the small volumes, and a
+    seeded one on the card past 2^15 voxels (the generator's levels),
+    which numpy would draw on the host for minutes."""
+    if voxels <= 2 ** 15:
+        return np.random.RandomState(seed)
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def _scan_args(gen, bsz, L, ED, N, gate, bias, softplus, device):
@@ -61,13 +74,14 @@ def _scan_args(gen, bsz, L, ED, N, gate, bias, softplus, device):
 
 
 @pytest.mark.parametrize("bsz", [1, 2, 4])
-@pytest.mark.parametrize("gate,bias,softplus,ED,N", [
-    (True, True, True, 1024, 16), (False, False, True, 1000, 16),
-    (True, False, False, 1001, 16), (True, True, True, 256, 8)])
+@pytest.mark.parametrize("ED,N", [(1024, 16), (1000, 16), (1001, 16),
+                                  (256, 8)])
+@pytest.mark.parametrize("gate,bias,softplus", [
+    (True, True, True), (False, False, True), (True, False, False)])
 def test_scan_bwd_kernel_matches_plain(cuda, gate, bias, softplus, ED, N,
                                        bsz):
-    """Batch 1 (the Stage-2 step) to 4; ED = 1001 leaves one channel in
-    the last block of 4."""
+    """Batch 1 (the Stage-2 step) to 4, every flag on and off; ED = 1001
+    leaves one channel in the last block of 4."""
     gen = np.random.RandomState(0)
     args = _scan_args(gen, bsz, 53, ED, N, gate, bias, softplus, cuda)
     g = _randn(gen, bsz, 53, ED).to(cuda)
@@ -81,17 +95,20 @@ def test_scan_bwd_kernel_matches_plain(cuda, gate, bias, softplus, ED, N,
             _assert_close(a, b, 1e-4, name)
 
 
+@pytest.mark.parametrize("d_model", [128, 512])
 @pytest.mark.parametrize("bsz", [1, 4])
-def test_scan_bwd_kernel_takes_bf16_views_and_is_deterministic(cuda, bsz):
+def test_scan_bwd_kernel_takes_bf16_views_and_is_deterministic(cuda, bsz,
+                                                                d_model):
     """A Mamba layer's own bf16 operands (views, channel-major x) go in as
     they are: dx, ddelta, dz come back in bf16 within one bf16 ulp of the
     plain f32 result rounded once, the f32 gradients within 1e-4; a second
-    call is bitwise equal to the first."""
-    args = mamba_scan_operands(bsz, 53, 128, torch.bfloat16, cuda,
+    call is bitwise equal to the first.  d_model 512 is the canonical
+    head's (ED 1024)."""
+    args = mamba_scan_operands(bsz, 53, d_model, torch.bfloat16, cuda,
                                seed=bsz)
     assert not args[0].is_contiguous() and not args[6].is_contiguous()
-    g = _randn(np.random.RandomState(9), bsz, 53, 256).to(cuda,
-                                                           torch.bfloat16)
+    g = _randn(np.random.RandomState(9), bsz, 53, 2 * d_model).to(
+        cuda, torch.bfloat16)
     got = k2.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
     again = k2.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
     want = k2.selective_scan_bwd_plain(*[t.float() for t in args],
@@ -108,13 +125,15 @@ def test_scan_bwd_kernel_takes_bf16_views_and_is_deterministic(cuda, bsz):
             _assert_close(got[i], want[i], 1e-4, name)
 
 
-@pytest.mark.parametrize("bsz", [1, 2])
-def test_scan_kernels_take_the_stage2_f32_views(cuda, bsz):
+@pytest.mark.parametrize("d_model", [128, 512])
+@pytest.mark.parametrize("bsz", [1, 2, 4])
+def test_scan_kernels_take_the_stage2_f32_views(cuda, bsz, d_model):
     """The bf16 Stage-2 step's operands (f32 tokens into a bf16 Mamba
     layer, which computes in f32: x, delta, z, B, C f32 views, D and
     delta_bias bf16) go to K2 and K4 as they are: y and every gradient
-    within 1e-5 / 1e-4 of the plain versions in f32."""
-    args = mamba_scan_operands(bsz, 53, 128, torch.bfloat16, cuda,
+    within 1e-5 / 1e-4 of the plain versions in f32, a second K4 call
+    bitwise equal to the first.  d_model 512 is the canonical head's."""
+    args = mamba_scan_operands(bsz, 53, d_model, torch.bfloat16, cuda,
                                seed=bsz, input_dtype=torch.float32)
     assert args[0].dtype == torch.float32 and args[5].dtype == torch.bfloat16
     assert not args[0].is_contiguous() and not args[6].is_contiguous()
@@ -124,13 +143,15 @@ def test_scan_kernels_take_the_stage2_f32_views(cuda, bsz):
     want = k2.selective_scan_plain(*plain, delta_softplus=True)
     assert got.dtype == torch.float32
     _assert_close(got, want, 1e-5, "y")
-    g = _randn(np.random.RandomState(7), bsz, 53, 256).to(cuda)
+    g = _randn(np.random.RandomState(7), bsz, 53, 2 * d_model).to(cuda)
     got = k2.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
+    again = k2.selective_scan_bwd_cuda(*args, g, delta_softplus=True)
     want = k2.selective_scan_bwd_plain(*plain, g, delta_softplus=True)
     torch.cuda.synchronize()
-    for name, a, b in zip(("dx", "ddelta", "dA", "dB", "dC", "dD", "dz",
-                           "dbias"), got, want):
+    for name, a, b, c in zip(("dx", "ddelta", "dA", "dB", "dC", "dD", "dz",
+                              "dbias"), got, want, again):
         assert a.dtype == torch.float32, name
+        assert torch.equal(a, c), name
         _assert_close(a, b, 1e-4, name)
 
 
@@ -184,7 +205,7 @@ def _dw_args(gen, shape, C, F, affine, dtype, device):
 # ragged in every axis with C, F below one tile; C != F over two channel
 # tiles; the 256-channel level's Z = 24 (a half-empty second z brick);
 # the segmentation UNet3D's widths (C != F, the concat-joined 192, 384
-# and 768 inputs)
+# and 768 inputs); the generator's three levels at batch 1
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,C,F,affine", [
     ((1, 20, 20, 12), 64, 64, True), ((2, 5, 7, 19), 24, 40, True),
@@ -193,9 +214,12 @@ def _dw_args(gen, shape, C, F, affine, dtype, device):
     ((1, 6, 7, 20), 128, 64, False), ((1, 8, 8, 24), 256, 256, True),
     ((1, 8, 8, 24), 256, 256, False), ((1, 8, 12, 16), 32, 64, True),
     ((1, 6, 8, 8), 192, 64, True), ((1, 4, 8, 8), 384, 128, True),
-    ((1, 4, 4, 8), 768, 256, False)])
+    ((1, 4, 4, 8), 768, 256, False), ((1, 160, 160, 96), 64, 64, True),
+    ((1, 160, 160, 96), 64, 64, False), ((1, 80, 80, 48), 128, 128, True),
+    ((1, 80, 80, 48), 128, 128, False), ((1, 40, 40, 24), 256, 256, True),
+    ((1, 40, 40, 24), 256, 256, False)])
 def test_dw_kernel_matches_plain(cuda, dtype, shape, C, F, affine):
-    gen = np.random.RandomState(1)
+    gen = _generator(1, math.prod(shape), cuda)
     x, g1, a, s = _dw_args(gen, shape, C, F, affine, dtype, cuda)
     got = k1.conv3x3x3_dw_cuda(x, g1, a, s)
     want = k1.conv3x3x3_dw_plain(x, g1, a, s)
@@ -240,23 +264,29 @@ def test_dw_f32_kernel_is_deterministic(cuda):
     assert torch.equal(first, second)
 
 
+@pytest.mark.parametrize("shape,C,scale", [((2, 6, 10, 12), 16, 0.05),
+                                           ((1, 80, 80, 48), 128,
+                                            (27 * 128) ** -0.5)])
 @pytest.mark.parametrize("act,with_res,post_act", [
     ("elu", False, "none"), ("none", True, "elu")])
 def test_conv_function_matches_autograd_of_plain(cuda, act, with_res,
-                                                 post_act):
+                                                 post_act, shape, C,
+                                                 scale):
     """Conv3x3x3Fn on CUDA tensors (K1 forward, K1 as dz, K3 as dw)
-    against torch.autograd through the plain forward, f32.  elu, whose
+    against torch.autograd through the plain forward, f32, on a small
+    volume and at the generator's 128-channel level.  elu, whose
     derivative is continuous at 0: a relu output within rounding of 0 can
     take opposite masks in the two forwards."""
-    gen = np.random.RandomState(2)
-    shape, C, F = (2, 6, 10, 12), 16, 16
-    base = [_randn(gen, *shape, C), _randn(gen, 3, 3, 3, C, F, scale=0.05),
-            None, _randn(gen, 2, C).abs() + 0.5, _randn(gen, 2, C),
+    gen = _generator(2, math.prod(shape), cuda)
+    F, B = C, shape[0]
+    base = [_randn(gen, *shape, C),
+            _randn(gen, 3, 3, 3, C, F, scale=scale),
+            None, _randn(gen, B, C).abs() + 0.5, _randn(gen, B, C),
             _randn(gen, *shape, F) if with_res else None]
     g = _randn(gen, *shape, F).to(cuda)
     grads = []
     for fn in (ops_conv.conv3x3x3, k1.conv3x3x3_plain):
-        ins = [None if t is None else t.to(cuda).requires_grad_()
+        ins = [None if t is None else t.to(cuda, copy=True).requires_grad_()
                for t in base]
         fn(*ins, act, post_act).backward(g)
         grads.append([None if t is None else t.grad for t in ins])
