@@ -170,6 +170,10 @@ class TabularEmbedder(nn.Module):
         num_unique = int(sum(categories))
         self.category_offsets = tuple(
             category_offsets(categories, NUM_SPECIAL_TOKENS).tolist())
+        # the offsets as a tensor on each device embed has run on; not a
+        # buffer, so to_empty cannot leave it unfilled and the state_dict
+        # keeps the reference's keys
+        self._offsets: dict[torch.device, torch.Tensor] = {}
         self.categorical_embeds = None
         if num_unique > 0:
             self.categorical_embeds = nn.Embedding(
@@ -177,6 +181,19 @@ class TabularEmbedder(nn.Module):
         self.numerical_embedder = NumericalEmbedder(dim, num_continuous) \
             if num_continuous > 0 else None
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim))
+
+    def _device_offsets(self, device: torch.device) -> torch.Tensor:
+        """``category_offsets`` as int64 on ``device``, copied there on the
+        first call for it and kept: the host's copy waits for the stream
+        to drain, so a copy per call would hold the host behind all the
+        work queued before it.  Made outside inference mode, so a later
+        training step may save the indices it makes for backward."""
+        offsets = self._offsets.get(device)
+        if offsets is None:
+            with torch.inference_mode(False):
+                offsets = torch.tensor(self.category_offsets, device=device)
+            self._offsets[device] = offsets
+        return offsets
 
     def embed(self, x_categ: torch.Tensor,
               x_numer: torch.Tensor) -> torch.Tensor:
@@ -186,9 +203,8 @@ class TabularEmbedder(nn.Module):
         b = x_categ.shape[0]
         xs = [self.cls_token.expand(b, -1, -1)]
         if self.categorical_embeds is not None:
-            offsets = torch.tensor(self.category_offsets,
-                                   device=x_categ.device)
-            xs.append(self.categorical_embeds(x_categ.long() + offsets))
+            xs.append(self.categorical_embeds(
+                x_categ.long() + self._device_offsets(x_categ.device)))
         if self.numerical_embedder is not None:
             xs.append(self.numerical_embedder(x_numer))
         if len(xs) == 1:

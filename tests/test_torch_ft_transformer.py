@@ -6,6 +6,8 @@ through both, f32 on the CPU, dropout off.
 Tolerance: max |port - JAX| <= 1e-4 * max(1, max |JAX|).
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -166,3 +168,52 @@ def test_cross_mamba_ablation_paths(path):
               "no_table": (X_CAT, X_NUM, FEATURE, VOLS)}[path]
     kw = {"no_table": True} if path == "no_table" else {}
     _compare(jax_module, port, params, *inputs, **kw)
+
+
+def _mamba_head():
+    return pfu.CrossMambaBoth(CATS, NCONT, dim=DIM, depth=1, heads=2,
+                              d_cross=D_CROSS)
+
+
+def test_embed_offsets_survive_to_empty_and_stay_out_of_the_state_dict():
+    """A head built on the meta device and materialised with ``to_empty``
+    (as the builders do) embeds as one built in place, exactly, and both
+    index the embedding at the columns' JAX offsets; the state_dict holds
+    the reference's keys before and after a call."""
+    torch.manual_seed(0)
+    normal = _mamba_head()
+    with torch.device("meta"):
+        empty = _mamba_head()
+    empty.to_empty(device="cpu")
+    empty.load_state_dict(normal.state_dict())
+    keys = list(normal.state_dict())
+    assert keys[:4] == ["cls_token", "categorical_embeds.weight",
+                        "numerical_embedder.weights",
+                        "numerical_embedder.biases"]
+    assert list(empty.state_dict()) == keys
+    x_cat, x_num = torch.from_numpy(X_CAT), torch.from_numpy(X_NUM)
+    with torch.no_grad():
+        got, want = empty.embed(x_cat, x_num), normal.embed(x_cat, x_num)
+        cats = normal.categorical_embeds(x_cat.long() + torch.tensor(
+            pft.category_offsets(CATS, pft.NUM_SPECIAL_TOKENS)))
+    assert torch.equal(got, want)
+    assert torch.equal(want[:, 1:1 + len(CATS)], cats)
+    assert list(normal.state_dict()) == keys
+    assert list(empty.state_dict()) == keys
+
+
+def test_embed_trains_after_a_first_call_in_inference_mode():
+    """A first call under inference mode (a server's warm-up) leaves the
+    module trainable: a later forward and backward through ``embed``
+    gives the embedding the gradient of a module never called before."""
+    torch.manual_seed(0)
+    warmed = _mamba_head()
+    fresh = copy.deepcopy(warmed)
+    x_cat, x_num = torch.from_numpy(X_CAT), torch.from_numpy(X_NUM)
+    with torch.inference_mode():
+        warmed.embed(x_cat, x_num)
+    for head in (warmed, fresh):
+        head.embed(x_cat, x_num).square().sum().backward()
+    grad = fresh.categorical_embeds.weight.grad
+    assert grad is not None and grad.abs().sum() > 0
+    assert torch.equal(warmed.categorical_embeds.weight.grad, grad)

@@ -1,5 +1,6 @@
 """The kernels each canonical path launches, on the card, at the sizes the
-benchmark runs: a scoring request of each Stage-2 head, a Stage-2 step of
+benchmark runs: a scoring request of each Stage-2 head (and that it
+launches all of them before its one synchronisation), a Stage-2 step of
 the Mamba and Jamba heads, a Stage-1 step, ``group_norm_act`` at the
 generator's widths and the prefill of a Jamba2-Mini-shaped stack, the
 models built by ``gfe_mamba_torch/testing.py`` (as ``chip_smoke.py``
@@ -23,10 +24,10 @@ from gfe_mamba_torch.testing import CANONICAL_IMG as IMG
 from gfe_mamba_torch.testing import SCORE_BATCH as BATCH
 from gfe_mamba_torch.testing import (assert_close, docqa_prompt,
                                      jamba2_mini_stack, launch_counts,
-                                     launches_since, scoring_model,
-                                     scoring_request, stage1_step,
-                                     stage1_trainer, stage2_step,
-                                     stage2_trainer)
+                                     launches_since, materialized,
+                                     scoring_model, scoring_request,
+                                     stage1_step, stage1_trainer,
+                                     stage2_step, stage2_trainer)
 
 pytestmark = pytest.mark.cuda
 
@@ -64,6 +65,52 @@ def test_scoring_requests_launch_the_kernels(cuda, mixer):
         assert torch.isfinite(logits).all() and torch.isfinite(pet).all()
         assert (n["K1"], n["K1.mma"], n["K1.fma"], n["K2"], n["K2.long"]) \
             == (10, 10, 0, SCANS[mixer], 0)
+
+
+@pytest.mark.parametrize("mixer", list(SCANS))
+def test_scoring_requests_do_not_sync(cuda, mixer):
+    """After a warm-up request, two requests of batch 4 at the canonical
+    size in bf16 are enqueued up to their logits with no synchronisation
+    (``set_sync_debug_mode("error")`` raises at one), so the host queues
+    the classifier while the card still runs the generator; the logits
+    reach the host only at their copy."""
+    model = scoring_model(cuda, mixer)
+    gen = torch.Generator(device=cuda)
+    scoring_request(model, gen.manual_seed(100))
+    torch.cuda.synchronize()
+    for seed in range(2):
+        gen.manual_seed(seed)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, _ = scoring_request(model, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.isfinite(logits.cpu()).all()
+
+
+def test_tabular_head_embeds_on_the_device_it_is_on(cuda):
+    """A head moved card -> host -> card embeds on each device it is on
+    (each device's category offsets its own), the categorical tokens
+    exactly those of a copy that never left the host."""
+    from gfe_mamba_torch.models.fusion import CrossMambaBoth
+
+    def make():
+        return CrossMambaBoth((6,) * 8, 40, dim=64, depth=1, heads=2,
+                              d_cross=30)
+
+    host = materialized(make, seed=3)
+    head = materialized(make, seed=3).to(cuda)
+    gen = torch.Generator().manual_seed(4)
+    x_cat = torch.randint(0, 6, (BATCH, 8), generator=gen)
+    x_num = torch.randn(BATCH, 40, generator=gen)
+    with torch.no_grad():
+        want = host.embed(x_cat, x_num)
+        for device in (cuda, "cpu", cuda):
+            head.to(device)
+            got = head.embed(x_cat.to(device), x_num.to(device))
+            assert got.device == head.cls_token.device
+            assert torch.equal(got[:, 1:9].cpu(), want[:, 1:9])
+            assert_close(got, want, 1e-6)
 
 
 @contextlib.contextmanager
